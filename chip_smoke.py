@@ -10,7 +10,13 @@ door, ``ElasticEngine(MatVecPowerIteration, backend="device")``: N = 6
 workers, J = 3, a 6000 x 6000 integer-valued matrix, cyclic and MAN
 placements at S in {0, 1}, scripted churn, 8 steps, ``verify="exact"`` at
 every step, in both executor modes (per-block ``usec_matvec`` and one
-``usec_segmented`` launch a step). Every phase prints one JSON line; the
+``usec_segmented`` launch a step). Then the model stack's serving path:
+the flash-attention kernel against its plain version (the JAX tests' cases,
+every head_dim, one full-width glm4-9b layer), glm4-9b at full width with
+random weights through ``repro_torch.launch.serve.generate`` (an 8192-token
+prompt, 32 greedy decode steps; one kernel launch per prefill layer, none
+in decode), a profiled prefill + decode, and card-vs-host parity at reduced
+size. Every phase prints one JSON line; the
 line before the last lists every kernel with its launches on the main path,
 its time, its bound and its plain version's time; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero,
@@ -30,9 +36,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
-# tensor cores. The kernels are fp32 FFMA reductions.
+# tensor cores, bf16 on the tensor cores. The kernels compute in fp32 FFMA;
+# a kernel's bound uses the peak for its inputs' type.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 N_WORKERS, REPLICATION, DIM, BLOCK_ROWS, STEPS = 6, 3, 6000, 20, 8
 BASE_SPEEDS = [1000.0, 2000.0, 4000.0, 8000.0, 16000.0, 32000.0]
@@ -46,9 +54,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float,
+             flops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_flops / FP32_FLOPS_PER_S
+    t_ops = n_flops / flops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -436,11 +445,324 @@ def phase_profile():
                              if us > 0]})
 
 
+# ---------------------------------------------------------------------- #
+# The model stack's serving path: glm4-9b prefill + decode
+# ---------------------------------------------------------------------- #
+MODEL_ARCH, MODEL_BATCH, PROMPT_LEN, DECODE_STEPS = "glm4-9b", 1, 8192, 32
+PROFILE_DECODE_STEPS = 8
+# tests/test_kernels.py's seven cases: (b, h, hk, sq, skv, d, causal,
+# window, dtype).
+FLASH_CASES = [
+    (1, 2, 2, 128, 128, 64, True, None, torch.float32),
+    (2, 4, 2, 100, 260, 64, True, None, torch.float32),
+    (1, 2, 1, 64, 300, 32, False, None, torch.float32),
+    (1, 2, 2, 256, 256, 64, True, 128, torch.float32),
+    (1, 4, 4, 1, 384, 64, True, None, torch.float32),
+    (1, 2, 2, 200, 200, 128, True, 64, torch.float32),
+    (1, 2, 2, 128, 128, 64, True, None, torch.bfloat16),
+]
+# Every head_dim with a kernel instance, in both types; recurrentgemma's
+# d = 256 with a window; queries with no live key (sq > skv, causal).
+FLASH_HEAD_DIM_CASES = [
+    (2, 8, 2, 300, 300, d, True, None, dt)
+    for d in (32, 64, 80, 128, 256) for dt in (torch.float32, torch.bfloat16)
+] + [(1, 4, 1, 300, 300, 256, True, 96, torch.bfloat16),
+     (1, 4, 2, 100, 60, 64, True, None, torch.float32)]
+# One glm4-9b layer's prefill attention at the model path's prompt length.
+FLASH_LAYER = (1, 32, 2, PROMPT_LEN, PROMPT_LEN, 128, True, None,
+               torch.bfloat16)
+
+
+def live_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask keeps, per (batch, head)."""
+    q_pos = np.arange(sq, dtype=np.int64) + skv - sq
+    hi = np.minimum(skv - 1, q_pos) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, q_pos - window + 1) if window else np.zeros(sq)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_operands(case, dev, seed):
+    b, h, hk, sq, skv, d, _, _, dt = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dt)
+            for shape in ((b, h, sq, d), (b, hk, skv, d), (b, hk, skv, d))]
+
+
+def flash_check(case, dev, seed):
+    """Kernel against its plain version at ``case``: within the JAX test's
+    tolerance (2e-3 fp32, 2e-2 bf16, relative and absolute) on every query
+    with a live key, exactly 0 on the others (the plain version gives NaN
+    there), and bitwise equal across two runs. Returns the max abs error."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_plain,
+    )
+
+    causal, window, dt = case[6], case[7], case[8]
+    q, k, v = flash_operands(case, dev, seed)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    again = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"flash_attention not bitwise run to run at {case}")
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-3
+    live = torch.isfinite(want.float()).all(dim=-1)
+    err = (got.float() - want.float()).abs()[live]
+    limit = tol + tol * want.float().abs()[live]
+    if bool((err > limit).any()) or bool((got[~live] != 0).any()):
+        raise AssertionError(
+            f"flash_attention disagrees at {case}: max abs err "
+            f"{float(err.max()) if err.numel() else 0.0}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def phase_flash(dev):
+    """The flash kernel against its plain version at the test cases, every
+    head_dim and one full-width glm4-9b layer; then that layer's times:
+    kernel, plain version, and one library call (SDPA) as a yardstick."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_plain,
+    )
+
+    errs = [flash_check(c, dev, i)
+            for i, c in enumerate(FLASH_CASES + FLASH_HEAD_DIM_CASES)]
+    layer_err = flash_check(FLASH_LAYER, dev, 99)
+    b, h, hk, sq, skv, d, causal, window, dt = FLASH_LAYER
+    q, k, v = flash_operands(FLASH_LAYER, dev, 99)
+    kern = timed(lambda: flash_attention_cuda(q, k, v, causal=causal), 10,
+                 "flash_kernel")
+    plain = timed(lambda: flash_attention_plain(q, k, v, causal=causal), 3)
+    lib = timed(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 10)
+    pairs = b * h * live_pairs(sq, skv, causal, window)
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    n_flops = 4 * d * pairs
+    bound, by = bound_ms(n_bytes, n_flops, BF16_FLOPS_PER_S)
+    fp32_bound, _ = bound_ms(n_bytes, n_flops, FP32_FLOPS_PER_S)
+    del q, k, v
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel", "name": "flash_attention",
+          "cases": len(errs) + 1, "max_abs_err_cases": max(errs),
+          "bitwise_run_to_run": True, "shape": list(FLASH_LAYER[:8]),
+          "dtype": "bfloat16", "max_abs_err_layer": layer_err,
+          "kernel": kern, "plain": plain, "library": lib,
+          "live_pairs": pairs, "flops": n_flops, "bytes": n_bytes,
+          "bound_ms_bf16_tensor_core": bound,
+          "bound_ms_fp32_ffma": fp32_bound,
+          "kernel_tflops": n_flops / kern["ms"] / 1e9})
+    return {"route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:106",
+            "max_abs_err": layer_err, **kern, "plain_ms": plain["ms"],
+            "bound_ms": bound, "bound_by": by, "library_ms": lib["ms"]}
+
+
+def _counting(fn, tally, key):
+    """``fn`` that adds the flash kernel's launches during each call to
+    ``tally[key]``."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    def wrapped(*args, **kwargs):
+        before = flash_attention_cuda.launches
+        out = fn(*args, **kwargs)
+        tally[key] += flash_attention_cuda.launches - before
+        return out
+    return wrapped
+
+
+def phase_model_path(dev, counters, smi):
+    """glm4-9b at full width through ``repro_torch.launch.serve.generate``:
+    weights from a seed, an 8192-token prompt, restage, 32 greedy decode
+    steps. Every prefill layer launches the flash kernel once; decode never
+    does. Then one layer's prefill attention, kernel route against the
+    plain ``chunked_attention``. Returns the main path's launch counts and
+    what the profile phase reuses."""
+    import dataclasses
+
+    from repro_torch.configs import demo_batch, get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model, param_count
+    from repro_torch.models.attention import (
+        chunked_attention,
+        long_attention,
+        qkv,
+    )
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.transformer import tree_map
+
+    cfg = get_config(MODEL_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    bundle = build_model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = demo_batch(cfg, "prefill", MODEL_BATCH, PROMPT_LEN, seed=0)
+    tally = {"prefill": 0, "decode": 0}
+    counted = dataclasses.replace(
+        bundle, prefill=_counting(bundle.prefill, tally, "prefill"),
+        decode_step=_counting(bundle.decode_step, tally, "decode"))
+    for fn in counters.values():
+        fn.launches = 0
+    out = generate(counted, params, batch, DECODE_STEPS + 1)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tally != {"prefill": cfg.n_layers, "decode": 0} or launches != {
+            **{n: 0 for n in counters}, "flash_attention": cfg.n_layers}:
+        raise AssertionError(f"model path launches {tally} / {launches}")
+    if tuple(out.logits.shape) != (MODEL_BATCH, DECODE_STEPS + 1,
+                                   cfg.vocab_size):
+        raise AssertionError(f"logits shape {tuple(out.logits.shape)}")
+    if not bool(torch.isfinite(out.logits).all()):
+        raise AssertionError("non-finite logits on the model path")
+
+    # Layer 0's prefill attention: the kernel route the path took, against
+    # the plain chunked scan (bf16 tolerance).
+    layer0 = tree_map(lambda t: t[0], params["stack"]["blocks"][0])
+    x = params["embed"][torch.as_tensor(batch["tokens"], device=dev).long()]
+    h = apply_norm(layer0["norm1"], x, cfg.norm)
+    q, k, v = qkv(layer0["temporal"], h, cfg,
+                  torch.arange(PROMPT_LEN, device=dev))
+    o_kernel = long_attention(q, k, v, True, None, cfg.attn_chunk)
+    o_plain = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    err = (o_kernel.float() - o_plain.float()).abs()
+    if bool((err > 2e-2 + 2e-2 * o_plain.float().abs()).any()):
+        raise AssertionError(
+            f"layer-0 attention: kernel vs chunked max err {float(err.max())}")
+    del x, h, q, k, v, o_kernel, o_plain
+    emit({"phase": "model_path", "arch": MODEL_ARCH, "params":
+          param_count(params), "param_dtype": cfg.param_dtype,
+          "batch": MODEL_BATCH, "prompt_len": PROMPT_LEN,
+          "decode_steps": DECODE_STEPS, "init_s": init_s,
+          "prefill_s": out.prefill_s, "decode_s": out.decode_s,
+          "decode_tokens_per_s": MODEL_BATCH * DECODE_STEPS / out.decode_s,
+          "launches_prefill": tally["prefill"],
+          "launches_decode": tally["decode"], "launches": launches,
+          "logits_finite": True,
+          "layer0_attention_max_abs_err_vs_chunked": float(err.max()),
+          "max_memory_allocated_gb": peak / 1e9,
+          "tokens_head": out.tokens[0, :8].tolist(), "nvidia_smi": smi})
+    return launches, bundle, params, batch
+
+
+def _ranged(fn, name):
+    from torch.profiler import record_function
+
+    def wrapped(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def phase_model_profile(bundle, params, batch):
+    """Where the serving path's time goes: one ``generate`` (prefill of the
+    8192-token prompt, then 8 decode steps) under torch.profiler. The
+    prefill is synchronized before the first decode step, so device entries
+    split at that step's start: device time per phase, its share of the
+    phase's (profiled) wall, and the top device entries by name."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import generate
+
+    ranged = dataclasses.replace(
+        bundle, prefill=_ranged(bundle.prefill, "model.prefill"),
+        decode_step=_ranged(bundle.decode_step, "model.decode_step"))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = generate(ranged, params, batch, PROFILE_DECODE_STEPS + 1)
+    events = prof.events()
+    split = min(e.time_range.start for e in events
+                if e.name == "model.decode_step")
+    phases = {"prefill": {}, "decode": {}}
+    for e in events:
+        # Device entries only; the ranges' own device-side annotations span
+        # their kernels and idle gaps, so they are left out.
+        if (not str(e.device_type).endswith("CUDA")
+                or e.name in ("model.prefill", "model.decode_step")):
+            continue
+        ph = phases["prefill" if e.time_range.start < split else "decode"]
+        us, n = ph.get(e.name, (0.0, 0))
+        ph[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    # The host side of decode: self CPU time by name (the decode range's own
+    # self time is the Python between ops), the ops it dispatches directly,
+    # and the host's waits on the card.
+    host, top_ops = {}, 0
+    for e in events:
+        if str(e.device_type).endswith("CUDA") or e.time_range.start < split:
+            continue
+        us, n = host.get(e.name, (0.0, 0))
+        host[e.name] = (us + e.self_cpu_time_total, n + 1)
+        if e.cpu_parent is not None and e.cpu_parent.name == "model.decode_step":
+            top_ops += 1
+    host_top = sorted(((us, k, n) for k, (us, n) in host.items()),
+                      reverse=True)[:8]
+    waits_us = sum(us for k, (us, _) in host.items()
+                   if "Synchronize" in k or "Memcpy" in k
+                   or k == "aten::_local_scalar_dense")
+    walls = {"prefill": out.prefill_s, "decode": out.decode_s}
+    for name, entries in phases.items():
+        dev_us = sum(us for us, _ in entries.values())
+        top = sorted(((us, k, n) for k, (us, n) in entries.items()),
+                     reverse=True)[:8]
+        row = {"phase": "model_profile", "part": name,
+               "steps": 1 if name == "prefill" else PROFILE_DECODE_STEPS,
+               "wall_s_profiled": walls[name], "device_ms": 1e-3 * dev_us,
+               "device_busy_share": 1e-6 * dev_us / walls[name],
+               "top_device": [[k[:60], us / 1e3, n] for us, k, n in top]}
+        if name == "decode":
+            row.update({
+                "host_ops_per_step": top_ops / PROFILE_DECODE_STEPS,
+                "host_wait_ms": 1e-3 * waits_us,
+                "host_top_self": [[k[:60], us / 1e3, n]
+                                  for us, k, n in host_top]})
+        emit(row)
+
+
+def phase_model_parity(dev):
+    """The port on the card against the port on the host at reduced
+    glm4-9b in fp32, the same weights on both: prompts of 33 (plain
+    attention) and 160 tokens (> attn_chunk = 64: the kernel on the card,
+    the chunked scan on the host), 8 decode steps; logits within 1e-4 of
+    the host's largest, greedy tokens equal."""
+    import dataclasses
+
+    from repro_torch.configs import demo_batch, get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import tree_map
+
+    cfg = dataclasses.replace(get_config(MODEL_ARCH).reduced(),
+                              param_dtype="float32")
+    host, card = build_model(cfg, device="cpu"), build_model(cfg, device=dev)
+    p_host = host.init(torch.Generator().manual_seed(0))
+    p_card = tree_map(lambda t: t.to(dev), p_host)
+    rels = {}
+    for prompt in (33, 160):
+        batch = demo_batch(cfg, "prefill", 2, prompt, seed=prompt)
+        a = generate(host, p_host, batch, 9)
+        b = generate(card, p_card, batch, 9)
+        rel = float((b.logits.cpu() - a.logits).abs().max()
+                    / a.logits.abs().max())
+        if rel > 1e-4 or not torch.equal(a.tokens, b.tokens.cpu()):
+            raise AssertionError(
+                f"card != host at prompt {prompt}: rel {rel}")
+        rels[prompt] = rel
+    emit({"phase": "model_parity", "arch": cfg.name + " (reduced, fp32)",
+          "prompts": [33, 160], "decode_steps": 8,
+          "max_rel_logit_err": rels, "greedy_tokens_equal": True})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.usec_matvec import usec_matvec_cuda
     from repro_torch.kernels.usec_segmented import usec_segmented_cuda
 
@@ -478,15 +800,28 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     kernels = phase_kernels(dev)
 
-    # ---- 4. main path ----
+    # ---- 4. main path: Sec. V power iteration ----
     phase_parity()
     counters = {"usec_matvec": usec_matvec_cuda,
-                "usec_segmented": usec_segmented_cuda}
+                "usec_segmented": usec_segmented_cuda,
+                "flash_attention": flash_attention_cuda}
     totals = phase_main_path(counters)
-    for n, v in totals.items():
-        if v <= 0:
+    for n in ("usec_matvec", "usec_segmented"):
+        if totals[n] <= 0:
             raise AssertionError(f"{n} never launched on the main path")
+    if totals["flash_attention"] != 0:
+        raise AssertionError("flash_attention launched on the Sec. V path")
     phase_profile()
+
+    # ---- 5. main path: the model stack's serving path (glm4-9b) ----
+    kernels["flash_attention"] = phase_flash(dev)
+    model_launches, bundle, params, batch = phase_model_path(
+        dev, counters, smi)
+    totals["flash_attention"] = model_launches["flash_attention"]
+    phase_model_profile(bundle, params, batch)
+    del bundle, params, batch
+    torch.cuda.empty_cache()
+    phase_model_parity(dev)
 
     print(json.dumps({"kernels": [
         {"name": n, **{k: kernels[n][k] for k in ("route", "source",

@@ -13,6 +13,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "error_string.cuh"
+
 namespace usec {
 
 constexpr int kWarp = 32;
@@ -101,8 +103,3 @@ __device__ __forceinline__ void warp_row_dot(const T* __restrict__ row, int k,
 }
 
 }  // namespace usec
-
-// Name of a CUDA error code returned by a launch entry point.
-extern "C" const char* usec_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .ref import matvec_ref, segmented_gather_ref
 from .usec_matvec import usec_matvec_cuda
 from .usec_segmented import segmented_plain, usec_segmented_cuda
@@ -154,10 +155,37 @@ def executor_matmul(mode: Optional[str] = None, workload: str = "matvec"):
     return functools.partial(kernel, mode=mode)
 
 
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    block_q: int = 128,
+    block_k: int = 128,
+    mode: Optional[str] = None,
+) -> torch.Tensor:
+    """Softmax attention. q: (b, h, sq, d); k/v: (b, hk, skv, d), hk | h.
+
+    Matches :func:`repro_torch.kernels.ref.attention_ref` (which materializes
+    the full score matrix; the kernel never does). ``block_q``/``block_k``
+    are the reference's Pallas tile sizes, kept so its calls run unchanged;
+    the Hopper kernel's tiles are fixed (64 query rows x 32 keys) and the
+    plain version has none, so neither route reads them.
+    """
+    if use_kernel(mode, q):
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 scale=scale)
+
+
 __all__ = [
     "MODES",
     "check_mode",
     "executor_matmul",
+    "flash_attention",
     "segmented_gather_ref",
     "usec_matmat",
     "usec_matvec",

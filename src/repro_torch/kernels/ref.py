@@ -10,6 +10,8 @@ kernel against them on the card. Twins of :mod:`repro.kernels.ref` and
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -58,3 +60,39 @@ def segmented_gather_ref(
     xg = gather_block_rows(staged, blk_slot, blk_off, block_rows)
     y = xg.reshape(b * block_rows, -1).to(torch.float32) @ w.to(torch.float32)
     return y.reshape(b, block_rows, w.shape[1])
+
+
+def attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Softmax attention oracle, materializing the full score matrix.
+
+    q: (b, h, sq, d); k/v: (b, h, skv, d). With ``causal``, query i attends to
+    keys j <= i + (skv - sq) (aligned to the *end* of the KV sequence, the
+    decode convention). ``window`` additionally restricts each query to the
+    trailing ``window`` keys. Masked scores are ``-inf``, so a query with no
+    live key gives NaN. Returns (b, h, sq, d) in q's dtype.
+    """
+    sq, d = q.shape[2], q.shape[3]
+    skv = k.shape[2]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None, None], s, float("-inf"))
+    p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
+    p = p / torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32))
+    return o.to(q.dtype)

@@ -1,0 +1,7 @@
+"""Model zoo substrate, serving path: every ported architecture is a config
+over one stack (see transformer.py). Twin of :mod:`repro.models`."""
+
+from .model import ModelBundle, build_model, make_cache, param_count, params_from_reference
+
+__all__ = ["ModelBundle", "build_model", "make_cache", "param_count",
+           "params_from_reference"]

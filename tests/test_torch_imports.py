@@ -28,7 +28,10 @@ def _port_modules():
 
 def test_port_imports_no_jax_and_no_reference_package():
     mods = _port_modules()
-    assert "repro_torch.kernels.usec_segmented" in mods
+    assert {"repro_torch.kernels.usec_segmented",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.models.transformer",
+            "repro_torch.launch.serve"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -47,11 +50,13 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 
 def test_core_and_runtime_host_layers_import_without_torch():
-    """The planners, the simulator and the runner's host-side classes are
-    pure NumPy, as in the reference: importing them pulls in no torch."""
+    """The planners, the simulator, the runner's host-side classes and the
+    model configs are pure NumPy, as in the reference: importing them pulls
+    in no torch."""
     code = textwrap.dedent("""
         import sys
         import repro_torch.core, repro_torch.runtime, repro_torch.api
+        import repro_torch.configs
         assert "torch" not in sys.modules, "torch imported eagerly"
     """)
     env = dict(os.environ, PYTHONPATH=SRC)

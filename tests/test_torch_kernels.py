@@ -18,6 +18,11 @@ jnp = pytest.importorskip("jax.numpy")
 
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    HEAD_DIMS,
+    flash_attention_cuda,
+    flash_attention_plain,
+)
 from repro_torch.kernels.ref import matvec_ref  # noqa: E402
 from repro_torch.kernels.usec_matvec import usec_matvec_cuda  # noqa: E402
 from repro_torch.kernels.usec_segmented import (  # noqa: E402
@@ -206,6 +211,60 @@ def test_unknown_modes_raise(mode):
         ops.executor_matmul(mode)
 
 
+# tests/test_kernels.py's flash-attention cases.
+FLASH_CASES = [
+    (1, 2, 2, 128, 128, 64, True, None, "float32"),
+    (2, 4, 2, 100, 260, 64, True, None, "float32"),    # GQA, ragged
+    (1, 2, 1, 64, 300, 32, False, None, "float32"),    # bidirectional
+    (1, 2, 2, 256, 256, 64, True, 128, "float32"),     # sliding window
+    (1, 4, 4, 1, 384, 64, True, None, "float32"),      # decode shape
+    (1, 2, 2, 200, 200, 128, True, 64, "float32"),
+    (1, 2, 2, 128, 128, 64, True, None, "bfloat16"),
+]
+
+
+def _flash_operands(rng, b, h, hk, sq, skv, d, dtype):
+    arrays = [rng.normal(size=s).astype(np.float32) for s in
+              ((b, h, sq, d), (b, hk, skv, d), (b, hk, skv, d))]
+    return ([jnp.asarray(a, dtype) for a in arrays],
+            [torch.as_tensor(a).to(getattr(torch, dtype)) for a in arrays])
+
+
+@pytest.mark.parametrize("b,h,hk,sq,skv,d,causal,window,dtype", FLASH_CASES)
+def test_flash_attention_plain_vs_reference_kernel(b, h, hk, sq, skv, d,
+                                                   causal, window, dtype):
+    """The port's plain flash attention against the Pallas kernel in
+    interpret mode, within the reference test's own tolerance (2e-3 fp32,
+    2e-2 bf16)."""
+    rng = np.random.default_rng(b + h + sq + skv)
+    (qj, kj, vj), (qt, kt, vt) = _flash_operands(rng, b, h, hk, sq, skv, d,
+                                                 dtype)
+    want = ref_ops.flash_attention(qj, kj, vj, causal=causal, window=window,
+                                   mode="interpret")
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert flash_attention_cuda.launches == before
+    assert got.dtype == qt.dtype and tuple(got.shape) == want.shape
+    tol = 2e-2 if dtype == "bfloat16" else 2e-3
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_attention_routes():
+    q = torch.ones(1, 2, 4, 32)
+    k = torch.ones(1, 1, 4, 32)
+    assert torch.equal(ops.flash_attention(q, k, k, mode="ref"),
+                       flash_attention_plain(q, k, k))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q, k, k, mode="cuda")
+    for mode in ("pallas", "interpret"):
+        with pytest.raises(ValueError, match="'cuda'"):
+            ops.flash_attention(q, k, k, mode=mode)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        flash_attention_plain(q, torch.ones(1, 3, 4, 32), torch.ones(1, 3, 4, 32))
+
+
 # ---------------------------------------------------------------------- #
 # The CUDA kernels themselves (need the card)
 # ---------------------------------------------------------------------- #
@@ -247,3 +306,25 @@ def test_usec_segmented_kernel_vs_plain_on_card(cuda_device, k, c):
     nb = torch.as_tensor([6, 0, 2, 5, 1, 6], dtype=torch.int32, device=dev)
     args = (staged, slot, off, inc, nb, w, br)
     assert torch.equal(usec_segmented_cuda(*args), segmented_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_vs_plain_on_card(cuda_device, d, dtype):
+    """GQA 4:1, causal, ragged lengths; a windowed call; queries with no
+    live key (sq > skv) give 0. Bitwise run to run."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    for (sq, skv, window) in ((200, 333, None), (300, 300, 96), (100, 60, None)):
+        q, k, v = (torch.randn(s, generator=g, device=cuda_device).to(dtype)
+                   for s in ((2, 8, sq, d), (2, 2, skv, d), (2, 2, skv, d)))
+        before = flash_attention_cuda.launches
+        got = ops.flash_attention(q, k, v, causal=True, window=window)
+        assert flash_attention_cuda.launches == before + 1
+        assert torch.equal(got, ops.flash_attention(q, k, v, window=window))
+        want = flash_attention_plain(q, k, v, causal=True, window=window)
+        live = torch.isfinite(want.float()).all(dim=-1)
+        err = (got.float() - want.float()).abs()[live]
+        assert bool((err <= tol + tol * want.float().abs()[live]).all())
+        assert not bool(got[~live].any())
