@@ -212,7 +212,7 @@ class ElasticEngine:
         self.device = None
         self._runner = None  # built lazily on the first device run
         if backend == "device":
-            from repro_torch.runtime.executor import resolve_device
+            from repro_torch.device import resolve_device
 
             if cfg.checkpoint_dir is not None or \
                     cfg.checkpoint_every is not None or \

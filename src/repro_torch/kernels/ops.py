@@ -162,17 +162,14 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
     scale: Optional[float] = None,
-    block_q: int = 128,
-    block_k: int = 128,
     mode: Optional[str] = None,
 ) -> torch.Tensor:
     """Softmax attention. q: (b, h, sq, d); k/v: (b, hk, skv, d), hk | h.
 
     Matches :func:`repro_torch.kernels.ref.attention_ref` (which materializes
-    the full score matrix; the kernel never does). ``block_q``/``block_k``
-    are the reference's Pallas tile sizes, kept so its calls run unchanged;
-    the Hopper kernel's tiles are fixed (64 query rows x 32 keys) and the
-    plain version has none, so neither route reads them.
+    the full score matrix; the kernel never does). The reference's Pallas
+    tile sizes (``block_q``, ``block_k``) have no counterpart: the Hopper
+    kernel's tiles are fixed (64 query rows x 32 keys).
     """
     if use_kernel(mode, q):
         return flash_attention_cuda(q, k, v, causal=causal, window=window,

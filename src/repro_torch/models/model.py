@@ -16,7 +16,7 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
-from repro_torch.runtime.executor import resolve_device
+from repro_torch.device import resolve_device
 
 from .layers import apply_norm, dense_init, dtype_of, init_norm, normal_
 from .transformer import (

@@ -55,7 +55,6 @@ _TORCH_EXPORTS = {
     "from_reference": "executor",
     "make_matvec_executor": "executor",
     "refresh_include": "executor",
-    "resolve_device": "executor",
     "stage_matrix": "executor",
 }
 
@@ -100,7 +99,6 @@ __all__ = [
     "make_matvec_executor",
     "quantize_unit",
     "refresh_include",
-    "resolve_device",
     "simulate_batch",
     "simulate_step",
     "stage_matrix",

@@ -297,7 +297,9 @@ class ElasticRunner:
     ):
         import torch
 
-        from .executor import make_matvec_executor, resolve_device, stage_matrix
+        from repro_torch.device import resolve_device
+
+        from .executor import make_matvec_executor, stage_matrix
 
         self.device = resolve_device(device)
         if workload is None:

@@ -299,19 +299,6 @@ def refresh_include(
 # ---------------------------------------------------------------------- #
 # Device side
 # ---------------------------------------------------------------------- #
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names
-    another. With no CUDA device and no explicit choice it raises; it never
-    drifts onto the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on an NVIDIA GPU; pass "
-            "device='cpu' to run its plain PyTorch versions on the host")
-    return torch.device("cuda", torch.cuda.current_device())
-
-
 @dataclass
 class DevicePlan:
     """A :class:`BlockPlan` on the device, uploaded once per plan.

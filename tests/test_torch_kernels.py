@@ -313,9 +313,10 @@ def test_usec_segmented_kernel_vs_plain_on_card(cuda_device, k, c):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_vs_plain_on_card(cuda_device, d, dtype):
     """GQA 4:1, causal, ragged lengths; a windowed call; queries with no
-    live key (sq > skv) give 0. Bitwise run to run."""
+    live key (sq > skv) give 0. Bitwise run to run. Both sides compute in
+    fp32 and round once, so bf16 allows about 2.5 ulps (rtol 1e-2)."""
     g = torch.Generator(device=cuda_device).manual_seed(d)
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    rtol, atol = (1e-2, 1e-4) if dtype == torch.bfloat16 else (1e-4, 1e-5)
     for (sq, skv, window) in ((200, 333, None), (300, 300, 96), (100, 60, None)):
         q, k, v = (torch.randn(s, generator=g, device=cuda_device).to(dtype)
                    for s in ((2, 8, sq, d), (2, 2, skv, d), (2, 2, skv, d)))
@@ -326,5 +327,5 @@ def test_flash_attention_kernel_vs_plain_on_card(cuda_device, d, dtype):
         want = flash_attention_plain(q, k, v, causal=True, window=window)
         live = torch.isfinite(want.float()).all(dim=-1)
         err = (got.float() - want.float()).abs()[live]
-        assert bool((err <= tol + tol * want.float().abs()[live]).all())
+        assert bool((err <= atol + rtol * want.float().abs()[live]).all())
         assert not bool(got[~live].any())

@@ -3,8 +3,9 @@
 Same numpy-seeded inputs and the same weights (the reference's init carried
 across with ``params_from_reference``) go through ``repro.models`` and
 ``repro_torch.models`` on the CPU, in fp32: layers, the attention paths and
-reduced glm4-9b / stablelm-1.6b / qwen1.5-110b end to end (prefill logits
-and caches, decode logits, greedy tokens against ``examples/decode_demo.py``).
+reduced glm4-9b / stablelm-1.6b / qwen1.5-110b / nemotron-4-15b (layernorm,
+squared-ReLU MLP) end to end (prefill logits and caches, decode logits,
+greedy tokens against ``examples/decode_demo.py``).
 Tolerances: 1e-5 for a layer or an attention call (one fp32 op chain,
 summed in another order), 1e-4 relative for a whole model's logits.
 """
@@ -43,8 +44,8 @@ from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.transformer import tree_leaves  # noqa: E402
 
 TOL = 1e-5
-MODEL_ARCHS = ["glm4-9b", "stablelm-1.6b", "qwen1.5-110b"]
-PORTED = {"glm4-9b", "nemotron-4-15b", "qwen1.5-110b", "stablelm-1.6b"}
+MODEL_ARCHS = ["glm4-9b", "stablelm-1.6b", "qwen1.5-110b", "nemotron-4-15b"]
+PORTED = set(MODEL_ARCHS)
 B, DECODE_STEPS = 2, 8
 
 
