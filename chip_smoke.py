@@ -11,8 +11,9 @@ workers, J = 3, a 6000 x 6000 integer-valued matrix, cyclic and MAN
 placements at S in {0, 1}, scripted churn, 8 steps, ``verify="exact"`` at
 every step, in both executor modes (per-block ``usec_matvec`` and one
 ``usec_segmented`` launch a step). Then the model stack's serving path:
-the flash-attention kernel against its plain version (the JAX tests' cases,
-every head_dim, one full-width glm4-9b layer), glm4-9b at full width with
+the flash-attention kernels against their plain version (the JAX tests'
+cases, every head_dim in both dtypes: bf16 on the tensor-core kernel, fp32
+on the FFMA kernel; one full-width glm4-9b layer), glm4-9b at full width with
 random weights through ``repro_torch.launch.serve.generate`` (an 8192-token
 prompt, 32 greedy decode steps; one kernel launch per prefill layer, none
 in decode), a profiled prefill + decode, and card-vs-host parity at reduced
@@ -113,6 +114,42 @@ def rel_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max()) / scale
 
 
+def reset_launches(counters) -> None:
+    """Set every kernel's launch count to 0 (the flash wrapper's per-route
+    counts too)."""
+    for fn in counters.values():
+        fn.launches = 0
+        for route in ("launches_tc", "launches_ffma"):
+            if hasattr(fn, route):
+                setattr(fn, route, 0)
+
+
+def ptxas_report(lib_path):
+    """Registers and spill bytes per kernel from nvcc's ``-Xptxas -v`` log
+    beside a built library: [{"kernel", "registers", "spill_stores",
+    "spill_loads"}], kernels named ``<name><template args>``."""
+    import re
+
+    rows, cur = [], None
+    for ln in lib_path.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            n = re.search(r"\d([a-z][a-z_]*_kernel)I(\w*?)Li(\d+)E",
+                          m.group(1))
+            cur = {"kernel": (f"{n.group(1)}<{n.group(2) or ''}"
+                              f"{',' if n.group(2) else ''}{n.group(3)}>"
+                              if n else m.group(1)[:60])}
+            rows.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return rows
+
+
 def grid_operands(rng, shape_x, k, c, dev):
     """Integer X and a 2^-4 grid W: every partial sum is exact in fp32."""
     x = torch.as_tensor(rng.integers(-3, 4, size=shape_x).astype(np.float32),
@@ -139,7 +176,7 @@ def phase_kernels(dev):
     from repro_torch.core import USECScheduler, make_placement
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import matvec_ref
-    from repro_torch.kernels.usec_matvec import usec_matvec_cuda
+    from repro_torch.kernels.usec_matvec import CLUSTER, usec_matvec_cuda
     from repro_torch.kernels.usec_segmented import (
         segmented_plain,
         usec_segmented_cuda,
@@ -206,6 +243,7 @@ def phase_kernels(dev):
           "max_rel_err_bf16": max(r[4] for r in rows),
           "shape": [BLOCK_ROWS, DIM, 1], "kernel": mv, "plain": mv_plain,
           "library": mv_lib, "bound_us": 1e3 * mv_bound,
+          "cluster_ctas_per_row": CLUSTER,
           "launches": usec_matvec_cuda.launches})
 
     # ---- usec_segmented: the Sec. V plan, every worker in one launch ----
@@ -362,8 +400,7 @@ def phase_main_path(counters):
         for s_tol in (0, 1):
             outs = {}
             for seg in (None, "auto"):
-                for fn in counters.values():
-                    fn.launches = 0
+                reset_launches(counters)
                 t0 = time.perf_counter()
                 res = power_iteration(None, x, kind, REPLICATION, s_tol, seg,
                                       N_WORKERS, BASE_SPEEDS, SCRIPT, STEPS,
@@ -467,7 +504,11 @@ FLASH_HEAD_DIM_CASES = [
     (2, 8, 2, 300, 300, d, True, None, dt)
     for d in (32, 64, 80, 128, 256) for dt in (torch.float32, torch.bfloat16)
 ] + [(1, 4, 1, 300, 300, 256, True, 96, torch.bfloat16),
-     (1, 4, 2, 100, 60, 64, True, None, torch.float32)]
+     (1, 4, 2, 100, 60, 64, True, None, torch.float32),
+     # GQA 16:1, sq not a multiple of the 128-row query block, skv > sq;
+     # a causal offset (130) that is not a multiple of the KV tile.
+     (1, 16, 1, 200, 333, 128, True, None, torch.bfloat16),
+     (1, 8, 2, 1000, 1130, 128, True, None, torch.bfloat16)]
 # One glm4-9b layer's prefill attention at the model path's prompt length.
 FLASH_LAYER = (1, 32, 2, PROMPT_LEN, PROMPT_LEN, 128, True, None,
                torch.bfloat16)
@@ -522,10 +563,15 @@ def flash_check(case, dev, seed):
 
     causal, window, dt = case[6], case[7], case[8]
     q, k, v = flash_operands(case, dev, seed)
+    route = "launches_tc" if dt == torch.bfloat16 else "launches_ffma"
+    before = getattr(flash_attention_cuda, route)
     got = flash_attention_cuda(q, k, v, causal=causal, window=window)
     again = flash_attention_cuda(q, k, v, causal=causal, window=window)
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    if getattr(flash_attention_cuda, route) != before + 2:
+        raise AssertionError(f"flash_attention at {case} did not go through "
+                             f"{route}")
     if not torch.equal(got, again):
         raise AssertionError(f"flash_attention not bitwise run to run at {case}")
     live = torch.isfinite(want.float()).all(dim=-1)
@@ -539,10 +585,12 @@ def flash_check(case, dev, seed):
             from None
 
 
-def phase_flash(dev):
-    """The flash kernel against its plain version at the test cases, every
-    head_dim and one full-width glm4-9b layer; then that layer's times:
-    kernel, plain version, and one library call (SDPA) as a yardstick."""
+def phase_flash(dev, paths):
+    """The flash kernels against their plain version at the test cases,
+    every head_dim in both dtypes (bf16: tensor-core kernel, fp32: FFMA
+    kernel) and one full-width glm4-9b layer; then that layer's times:
+    kernel, plain version, and one library call (SDPA) as a yardstick; and
+    both kernels' ptxas registers and spills."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
@@ -551,14 +599,18 @@ def phase_flash(dev):
     )
 
     cases = FLASH_CASES + FLASH_HEAD_DIM_CASES
+    routes0 = (flash_attention_cuda.launches_tc,
+               flash_attention_cuda.launches_ffma)
     errs = {str(dt).replace("torch.", ""): max(
         flash_check(c, dev, i) for i, c in enumerate(cases) if c[8] == dt)
         for dt in ATTN_TOL}
     layer_err = flash_check(FLASH_LAYER, dev, 99)
     b, h, hk, sq, skv, d, causal, window, dt = FLASH_LAYER
     q, k, v = flash_operands(FLASH_LAYER, dev, 99)
+    routes = {"launches_tc": flash_attention_cuda.launches_tc - routes0[0],
+              "launches_ffma": flash_attention_cuda.launches_ffma - routes0[1]}
     kern = timed(lambda: flash_attention_cuda(q, k, v, causal=causal), 10,
-                 "flash_kernel")
+                 "flash_tc_kernel")
     plain = timed(lambda: flash_attention_plain(q, k, v, causal=causal), 3)
     lib = timed(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 10)
@@ -579,8 +631,14 @@ def phase_flash(dev):
           "live_pairs": pairs, "flops": n_flops, "bytes": n_bytes,
           "bound_ms_bf16_tensor_core": bound,
           "bound_ms_fp32_ffma": fp32_bound,
-          "kernel_tflops": n_flops / kern["ms"] / 1e9})
-    return {"route": "cuda", "source": "src/repro_torch/csrc/flash_attention.cu",
+          "kernel_tflops": n_flops / kern["ms"] / 1e9,
+          # P.V runs twice (P_hi and P_lo): 6*d FLOPs issued per live pair.
+          "kernel_tflops_issued_6d": 1.5 * n_flops / kern["ms"] / 1e9,
+          "check_launches": routes,
+          "ptxas": {stem: ptxas_report(paths[stem])
+                    for stem in ("flash_attention_tc", "flash_attention")}})
+    return {"route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_tc.cu",
             "replaces": "src/repro/kernels/flash_attention.py:106",
             "max_abs_err": layer_err, **kern, "plain_ms": plain["ms"],
             "bound_ms": bound, "bound_by": by, "library_ms": lib["ms"]}
@@ -602,10 +660,11 @@ def _counting(fn, tally, key):
 def phase_model_path(dev, counters, smi):
     """glm4-9b at full width through ``repro_torch.launch.serve.generate``:
     weights from a seed, an 8192-token prompt, restage, 32 greedy decode
-    steps. Every prefill layer launches the flash kernel once; decode never
-    does. Then one layer's prefill attention, kernel route against the
-    plain ``chunked_attention``. Returns the main path's launch counts and
-    what the profile phase reuses."""
+    steps. Every prefill layer launches the flash kernel once, on the
+    tensor-core route (bf16); decode never does. Then one layer's prefill
+    attention, kernel route against the plain ``chunked_attention``.
+    Returns the main path's launch counts and what the profile phase
+    reuses."""
     import dataclasses
 
     from repro_torch.configs import demo_batch, get_config
@@ -631,14 +690,18 @@ def phase_model_path(dev, counters, smi):
     counted = dataclasses.replace(
         bundle, prefill=_counting(bundle.prefill, tally, "prefill"),
         decode_step=_counting(bundle.decode_step, tally, "decode"))
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launches(counters)
     out = generate(counted, params, batch, DECODE_STEPS + 1)
     launches = {n: fn.launches for n, fn in counters.items()}
+    flash = counters["flash_attention"]
+    routes = {"launches_tc": flash.launches_tc,
+              "launches_ffma": flash.launches_ffma}
     peak = torch.cuda.max_memory_allocated(dev)
     if tally != {"prefill": cfg.n_layers, "decode": 0} or launches != {
-            **{n: 0 for n in counters}, "flash_attention": cfg.n_layers}:
-        raise AssertionError(f"model path launches {tally} / {launches}")
+            **{n: 0 for n in counters}, "flash_attention": cfg.n_layers} \
+            or routes != {"launches_tc": cfg.n_layers, "launches_ffma": 0}:
+        raise AssertionError(f"model path launches {tally} / {launches} / "
+                             f"{routes}")
     if tuple(out.logits.shape) != (MODEL_BATCH, DECODE_STEPS + 1,
                                    cfg.vocab_size):
         raise AssertionError(f"logits shape {tuple(out.logits.shape)}")
@@ -669,6 +732,7 @@ def phase_model_path(dev, counters, smi):
           "decode_tokens_per_s": MODEL_BATCH * DECODE_STEPS / out.decode_s,
           "launches_prefill": tally["prefill"],
           "launches_decode": tally["decode"], "launches": launches,
+          "flash_routes": routes,
           "logits_finite": True,
           "layer0_attention_max_abs_err_vs_chunked": layer0_err,
           "max_memory_allocated_gb": peak / 1e9,
@@ -754,12 +818,13 @@ def phase_model_profile(bundle, params, batch):
 def phase_model_parity(dev):
     """The port on the card against the port on the host at reduced
     glm4-9b in fp32, the same weights on both: prompts of 33 (plain
-    attention) and 160 tokens (> attn_chunk = 64: the kernel on the card,
-    the chunked scan on the host), 8 decode steps; logits within 1e-4 of
-    the host's largest, greedy tokens equal."""
+    attention) and 160 tokens (> attn_chunk = 64: the FFMA kernel on the
+    card, the chunked scan on the host), 8 decode steps; logits within 1e-4
+    of the host's largest, greedy tokens equal."""
     import dataclasses
 
     from repro_torch.configs import demo_batch, get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.launch.serve import generate
     from repro_torch.models import build_model
     from repro_torch.models.transformer import tree_map
@@ -770,6 +835,8 @@ def phase_model_parity(dev):
     p_host = host.init(torch.Generator().manual_seed(0))
     p_card = tree_map(lambda t: t.to(dev), p_host)
     rels = {}
+    ffma0, tc0 = (flash_attention_cuda.launches_ffma,
+                  flash_attention_cuda.launches_tc)
     for prompt in (33, 160):
         batch = demo_batch(cfg, "prefill", 2, prompt, seed=prompt)
         a = generate(host, p_host, batch, 9)
@@ -780,9 +847,14 @@ def phase_model_parity(dev):
             raise AssertionError(
                 f"card != host at prompt {prompt}: rel {rel}")
         rels[prompt] = rel
+    routes = {"launches_ffma": flash_attention_cuda.launches_ffma - ffma0,
+              "launches_tc": flash_attention_cuda.launches_tc - tc0}
+    if routes != {"launches_ffma": cfg.n_layers, "launches_tc": 0}:
+        raise AssertionError(f"fp32 model path flash routes {routes}")
     emit({"phase": "model_parity", "arch": cfg.name + " (reduced, fp32)",
           "prompts": [33, 160], "decode_steps": 8,
-          "max_rel_logit_err": rels, "greedy_tokens_equal": True})
+          "max_rel_logit_err": rels, "greedy_tokens_equal": True,
+          "flash_routes": routes})
 
 
 def main() -> int:
@@ -842,7 +914,7 @@ def main() -> int:
     phase_profile()
 
     # ---- 5. main path: the model stack's serving path (glm4-9b) ----
-    kernels["flash_attention"] = phase_flash(dev)
+    kernels["flash_attention"] = phase_flash(dev, paths)
     model_launches, bundle, params, batch = phase_model_path(
         dev, counters, smi)
     totals["flash_attention"] = model_launches["flash_attention"]

@@ -1,10 +1,12 @@
 // Softmax attention with an online softmax over KV tiles (flash attention),
-// forward only. q: (b, h, sq, d); k, v: (b, hk, skv, d) with hk | h (GQA:
-// kv head = q head / (h / hk)); out: (b, h, sq, d) contiguous, in q's type.
-// fp32 or bf16 in; every product and sum in fp32 FFMA; the output rounded
-// once. Causal masking is aligned to the end of the KV sequence (query row
-// r sits at KV position r + skv - sq), an optional sliding window keeps keys
-// k > q - window, and keys at or past skv are masked in the kernel.
+// forward only, fp32: q: (b, h, sq, d); k, v: (b, hk, skv, d) with hk | h
+// (GQA: kv head = q head / (h / hk)); out: (b, h, sq, d) contiguous fp32.
+// Every product and sum in fp32 FFMA, so the kernel keeps the reference's
+// fp32 rounding (the model path's fp32 runs go through it). bf16 inputs go
+// to the tensor-core kernel of flash_attention_tc.cu. Causal masking is
+// aligned to the end of the KV sequence (query row r sits at KV position
+// r + skv - sq), an optional sliding window keeps keys k > q - window, and
+// keys at or past skv are masked in the kernel.
 //
 // Replaces the TPU kernel repro.kernels.flash_attention.flash_attention_padded
 // / _flash_kernel. There the grid was (b*h, sq/bq, skv/bk) with the KV axis
@@ -25,20 +27,14 @@
 // fixed order (fixed loops, butterfly shuffles, no atomics): two runs give
 // the same bits.
 //
-// Bound on the H100: operations. Causal prefill does 4*d FLOPs per live
-// (query, key) pair against 2*d*sizeof(T) bytes per row of q, k, v and out;
-// at the main path's (1, 32, 8192, 128) bf16 that is 0.55 TFLOP against
-// 0.14 GB, so even the bf16 tensor-core rate (989 TFLOP/s, 0.56 ms) is above
-// the byte time (0.04 ms). This first kernel computes in fp32 FFMA, whose
-// peak is 67 TFLOP/s (8.2 ms for that layer): it keeps the reference's fp32
-// rounding and leaves tensor cores (bf16 P @ V rounds differently) to a
-// tuning change with its own tolerance. What the design does for the FFMA
-// rate: each thread owns a 4 x 2 block of scores and a 4 x d/16 block of the
-// output, the tiles it multiplies are staged in shared memory in fp32 with
-// Q and K transposed, so a thread reads 4 query rows with one 16-byte load
-// and 2 keys with one 8-byte load per step of d (8 FFMA per 2 loads), and
-// the heaviest causal query blocks are scheduled first.
-#include <cuda_bf16.h>
+// Bound on the H100: operations, 4*d FLOPs per live (query, key) pair at
+// the fp32 FFMA peak of 67 TFLOP/s (fp32 has no tensor-core rate that keeps
+// fp32 rounding). What the design does for the FFMA rate: each thread owns
+// a 4 x 2 block of scores and a 4 x d/16 block of the output, the tiles it
+// multiplies are staged in shared memory with Q and K transposed, so a
+// thread reads 4 query rows with one 16-byte load and 2 keys with one
+// 8-byte load per step of d (8 FFMA per 2 loads), and the heaviest causal
+// query blocks are scheduled first.
 #include <cuda_runtime.h>
 
 #include "error_string.cuh"
@@ -69,7 +65,7 @@ struct Params {
   float scale;
 };
 
-// 16-byte vector loads of 4 fp32 or 8 bf16 values, widened to fp32.
+// 16-byte vector loads of 4 fp32 values.
 template <typename T>
 struct Vec;
 
@@ -84,25 +80,6 @@ struct Vec<float> {
     x[3] = q.w;
   }
   __device__ __forceinline__ static float store(float x) { return x; }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int n = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float (&x)[8]) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
-    }
-  }
-  __device__ __forceinline__ static __nv_bfloat16 store(float x) {
-    return __float2bfloat16(x);
-  }
 };
 
 // Load kRowsIn rows of D values starting at row r0 (rows at or past `limit`
@@ -329,19 +306,14 @@ int dispatch(const Params& p, int batch, int d, void* stream) {
 
 }  // namespace
 
-#define FLASH_ENTRY(NAME, T)                                                 \
-  extern "C" int NAME(const void* q, const void* k, const void* v,           \
-                      void* out, long long q_sb, long long q_sh,             \
-                      long long q_ss, long long k_sb, long long k_sh,        \
-                      long long k_ss, long long v_sb, long long v_sh,        \
-                      long long v_ss, int batch, int h, int hk, int sq,      \
-                      int skv, int d, int causal, int window, float scale,   \
-                      void* stream) {                                        \
-    const Params p{q,    k,    v,    out, q_sb, q_sh,   q_ss,   k_sb,       \
-                   k_sh, k_ss, v_sb, v_sh, v_ss, h,    hk,     sq,         \
-                   skv,  causal, window, scale};                             \
-    return dispatch<T>(p, batch, d, stream);                                 \
-  }
-
-FLASH_ENTRY(flash_attention_f32, float)
-FLASH_ENTRY(flash_attention_bf16, __nv_bfloat16)
+extern "C" int flash_attention_f32(
+    const void* q, const void* k, const void* v, void* out, long long q_sb,
+    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss, int batch,
+    int h, int hk, int sq, int skv, int d, int causal, int window, float scale,
+    void* stream) {
+  const Params p{q,    k,    v,    out, q_sb, q_sh,   q_ss,   k_sb,
+                 k_sh, k_ss, v_sb, v_sh, v_ss, h,    hk,     sq,
+                 skv,  causal, window, scale};
+  return dispatch<float>(p, batch, d, stream);
+}

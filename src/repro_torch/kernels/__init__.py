@@ -5,7 +5,9 @@ with plain versions.
   usec_segmented  -- every worker's block list in one launch
                      (csrc/usec_segmented.cu)
   flash_attention -- online-softmax attention over KV tiles, the model
-                     stack's long-sequence attention (csrc/flash_attention.cu)
+                     stack's long-sequence attention: bf16 on the tensor
+                     cores (csrc/flash_attention_tc.cu), fp32 in FFMA
+                     (csrc/flash_attention.cu)
 
 ``ops`` holds the public wrappers (dispatch by device: the kernel for CUDA
 tensors, the plain version for CPU tensors); ``ref`` holds the plain PyTorch

@@ -1,9 +1,11 @@
-"""Hopper kernel for softmax attention with an online softmax over KV tiles.
+"""Hopper kernels for softmax attention with an online softmax over KV tiles.
 
 Replaces the TPU kernel
 :func:`repro.kernels.flash_attention.flash_attention_padded` (body
-``_flash_kernel``), the model stack's long-sequence attention. Source:
-``csrc/flash_attention.cu``; plain version: :func:`flash_attention_plain`
+``_flash_kernel``), the model stack's long-sequence attention. Two routes,
+chosen by dtype alone: bf16 goes to the tensor-core kernel of
+``csrc/flash_attention_tc.cu``, fp32 to the FFMA kernel of
+``csrc/flash_attention.cu``. Plain version: :func:`flash_attention_plain`
 below.
 
 Semantics of ``_flash_kernel``: q (b, h, sq, d), k/v (b, hk, skv, d) with
@@ -12,17 +14,25 @@ the KV sequence (query row r sits at KV position ``r + skv - sq``); an
 optional sliding window keeps keys ``k > q - window``; the scores, running
 max, denominator and accumulator are fp32, masked scores are the finite
 -1e30 and the denominator is clamped at 1e-30, so a query with no live key
-returns 0. The output is in q's dtype.
+returns 0. The output is in q's dtype, rounded once.
 
 Bound on the H100: operations (4·d FLOPs per live (query, key) pair). At
-the model path's (1, 32, 8192, 128) causal bf16 layer that is 0.55 TFLOP;
-the kernel computes in fp32 FFMA (67 TFLOP/s peak), keeping the reference's
-fp32 rounding; tensor cores are a tuning step with a tolerance of its own.
+the model path's (1, 32, 8192, 128) causal bf16 layer that is 0.55 TFLOP,
+0.556 ms at the bf16 tensor-core peak.
 
-Design: one CTA per (batch, head, 64-row query block) walks only its live
-KV tiles of 32 keys in a loop, with m, l and the accumulator in registers
-and the tiles in shared memory; ragged lengths are masked in the kernel, so
-the wrapper pads nothing, and Q, K, V are read through their strides, so a
+- bf16 (``launches_tc``): one CTA per (batch, head, 128-row query block),
+  two consumer warpgroups of 64 rows and one producer thread; K/V tiles
+  arrive by TMA into a 2-stage ring; Q·Kᵀ and P·V run on ``wgmma`` with
+  fp32 accumulation. P is split into two bf16 parts (``p_hi = bf16(p)``,
+  ``p_lo = bf16(p - p_hi)``) whose products go into the same accumulator,
+  which keeps the bf16 output within one ulp of the fp32 reference (a
+  single bf16 P does not: see ``tests/test_torch_kernels.py``).
+- fp32 (``launches_ffma``): one CTA per (batch, head, 64-row query block)
+  over 32-key tiles, every product and sum in fp32 FFMA, so it keeps the
+  reference's fp32 rounding.
+
+Both walk only their live KV tiles, mask ragged lengths in the kernel (the
+wrapper pads nothing) and read Q, K, V through their strides, so a
 (B, S, H, d) activation viewed as (B, H, S, d) is read in place.
 """
 
@@ -40,9 +50,13 @@ __all__ = ["HEAD_DIMS", "flash_attention_cuda", "flash_attention_plain"]
 
 HEAD_DIMS = (32, 64, 80, 128, 256)  # one kernel instance each
 _INT_MAX = 2 ** 31 - 1
-_ENTRY = {torch.float32: "flash_attention_f32",
-          torch.bfloat16: "flash_attention_bf16"}
+# dtype -> (library, entry point, counter): the route is chosen by dtype.
+_ROUTE = {torch.float32: ("flash_attention", "flash_attention_f32",
+                          "launches_ffma"),
+          torch.bfloat16: ("flash_attention_tc", "flash_attention_tc_bf16",
+                           "launches_tc")}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements per 16-byte load
+_ENCODE_ERROR = 10000  # csrc/flash_attention_tc.cu's kEncodeError
 
 
 def flash_attention_plain(
@@ -70,8 +84,9 @@ def flash_attention_plain(
 
 
 def _entry(dtype: torch.dtype):
-    lib = _build.library("flash_attention")
-    fn = getattr(lib, _ENTRY[dtype])
+    stem, name, _ = _ROUTE[dtype]
+    lib = _build.library(stem)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9
@@ -98,18 +113,21 @@ def flash_attention_cuda(
     window: Optional[int] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Launch the kernel. q: (b, h, sq, d); k/v: (b, hk, skv, d), all CUDA,
-    all fp32 or all bf16, unit stride on d, any (batch, head, row) strides
-    that keep rows 16-byte aligned; d in :data:`HEAD_DIMS`. Returns a new
-    contiguous (b, h, sq, d) tensor in q's dtype. Raises on anything the
-    kernel does not take, and on a launch error."""
+    """Launch the kernel for q's dtype: bf16 on the tensor-core kernel
+    (counted in ``launches_tc``), fp32 on the FFMA kernel
+    (``launches_ffma``); ``launches`` counts both. q: (b, h, sq, d); k/v:
+    (b, hk, skv, d), all CUDA, all fp32 or all bf16, unit stride on d, any
+    (batch, head, row) strides that keep rows 16-byte aligned; d in
+    :data:`HEAD_DIMS`. Returns a new contiguous (b, h, sq, d) tensor in q's
+    dtype. Raises on anything the kernel does not take, and on a launch
+    error."""
     if not q.is_cuda:
         raise ValueError("flash_attention_cuda needs CUDA tensors; use the "
                          "plain version (mode='ref') for host tensors")
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"want q (b, h, sq, d) and k, v (b, hk, skv, d); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _ROUTE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must all be float32 or all bfloat16; got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
@@ -141,9 +159,18 @@ def flash_attention_cuda(
         b, h, hk, sq, skv, d, int(bool(causal)), int(window or 0),
         float(scale), _build.stream_handle(q.device),
     )
+    if code >= _ENCODE_ERROR:
+        raise RuntimeError(
+            "flash_attention launch: cuTensorMapEncodeTiled refused a tensor "
+            f"map (CUresult {code - _ENCODE_ERROR}; 0: no driver entry point)")
     _build.check(lib, code, "flash_attention launch")
+    counter = _ROUTE[q.dtype][2]
+    setattr(flash_attention_cuda, counter,
+            getattr(flash_attention_cuda, counter) + 1)
     flash_attention_cuda.launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_tc = 0
+flash_attention_cuda.launches_ffma = 0

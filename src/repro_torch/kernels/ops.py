@@ -167,9 +167,11 @@ def flash_attention(
     """Softmax attention. q: (b, h, sq, d); k/v: (b, hk, skv, d), hk | h.
 
     Matches :func:`repro_torch.kernels.ref.attention_ref` (which materializes
-    the full score matrix; the kernel never does). The reference's Pallas
-    tile sizes (``block_q``, ``block_k``) have no counterpart: the Hopper
-    kernel's tiles are fixed (64 query rows x 32 keys).
+    the full score matrix; the kernels never do). On CUDA tensors the dtype
+    picks the kernel: bf16 the tensor-core kernel (128 query rows x 128 keys,
+    64 keys at head_dim 256), fp32 the FFMA kernel (64 query rows x 32 keys).
+    The reference's Pallas tile sizes (``block_q``, ``block_k``) have no
+    counterpart: the Hopper kernels' tiles are fixed.
     """
     if use_kernel(mode, q):
         return flash_attention_cuda(q, k, v, causal=causal, window=window,

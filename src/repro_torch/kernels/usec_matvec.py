@@ -11,14 +11,16 @@ less than a launch costs, so the per-block executor path pays a launch per
 block whatever the kernel does; the segmented kernel (:mod:`.usec_segmented`)
 is the design's answer to that.
 
-Design: one CTA per output row (and per tile of up to 8 columns). Its 8
-warps each reduce a 16-byte-aligned eighth of K with 16-byte loads and a
-scalar tail, keeping the column accumulators in registers and reducing with
-warp shuffles; one thread per column then sums the 8 partials from shared
-memory in a fixed order. Splitting K keeps a 20-row call from being
-latency-bound on a few SMs. X is taken with its row stride, so a block of the
-staged buffer is a view and is never copied; ragged M, K and C are handled in
-the kernel, so the wrapper pads nothing (the TPU wrapper padded every call).
+Design: K split across a thread block cluster of :data:`CLUSTER` CTAs per
+(output row, tile of up to 8 columns). Each CTA's 4 warps reduce one eighth
+of K with 16-byte loads and a scalar tail (one or two loads a thread at
+K = 6000, all in flight at once) and sum their partials in a fixed order;
+rank 0 then sums the 8 CTA partials in rank order through distributed
+shared memory. No atomics, no global scratch, so two runs give the same
+bits. A 20-row block runs on 160 CTAs instead of 20. X is taken with its
+row stride, so a block of the staged buffer is a view and is never copied;
+ragged M, K and C are handled in the kernel, so the wrapper pads nothing
+(the TPU wrapper padded every call).
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ import torch
 from . import _build
 from .ref import matvec_ref
 
-__all__ = ["matvec_ref", "usec_matvec_cuda"]
+__all__ = ["CLUSTER", "matvec_ref", "usec_matvec_cuda"]
 
+CLUSTER = 8  # CTAs per output row (csrc/usec_matvec.cu's kCluster)
 _INT_MAX = 2 ** 31 - 1
 _ENTRY = {torch.float32: "usec_matvec_f32", torch.bfloat16: "usec_matvec_bf16"}
 
@@ -82,7 +85,8 @@ def usec_matvec_cuda(
         return out
     if not all(t.shape[1] <= 1 or t.stride(1) == 1 for t in (x, w, out)):
         raise ValueError("x, w and out need unit column stride")
-    if max(m, k, c, x.stride(0), w.stride(0), out.stride(0)) > _INT_MAX:
+    if max(m * CLUSTER, k, c, x.stride(0), w.stride(0),
+           out.stride(0)) > _INT_MAX:
         raise ValueError("shape or stride exceeds int32")
     if (c + 7) // 8 > 65535:
         raise ValueError(f"C={c} exceeds the kernel's column-tile grid")

@@ -10,6 +10,8 @@ against the plain versions by the ``cuda``-marked tests at the end, which
 run only with an NVIDIA GPU (and by ``chip_smoke.py``).
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -265,6 +267,89 @@ def test_flash_attention_routes():
         flash_attention_plain(q, torch.ones(1, 3, 4, 32), torch.ones(1, 3, 4, 32))
 
 
+# The bf16 limits of chip_smoke.py's ATTN_TOL: both sides compute in fp32
+# and round once, so they may differ by about 2.5 bf16 ulps.
+BF16_RTOL, BF16_ATOL = 1e-2, 1e-4
+
+
+def _tc_emulation(q, k, v, causal, window, split=True):
+    """The bf16 tensor-core kernel's arithmetic (csrc/flash_attention_tc.cu)
+    in plain PyTorch: KV tiles of 128 keys (64 at d = 256); S = Q·Kᵀ from
+    bf16 operands with fp32 sums; the online softmax in the log2 domain with
+    the finite -1e30 mask; l summed from the fp32 p; P·V from p split into
+    two bf16 parts into one fp32 accumulator (only the first part when
+    ``split`` is False); the output rounded once."""
+    b, h, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(h // hk, dim=1)
+    vf = v.float().repeat_interleave(h // hk, dim=1)
+    qf = q.float()
+    bk = 64 if d > 128 else 128
+    c = d ** -0.5 * math.log2(math.e)
+    qpos = torch.arange(sq)[:, None] + (skv - sq)
+    m = torch.full((b, h, sq, 1), -1e30)
+    l = torch.zeros((b, h, sq, 1))
+    o = torch.zeros((b, h, sq, d))
+    for k0 in range(0, skv, bk):
+        k1 = min(k0 + bk, skv)
+        kpos = torch.arange(k0, k1)[None, :]
+        live = torch.ones((sq, k1 - k0), dtype=torch.bool)
+        if causal:
+            live &= kpos <= qpos
+        if window:
+            live &= kpos > qpos - window
+        s = torch.where(live, (qf @ kf[:, :, k0:k1].transpose(-1, -2)) * c,
+                        -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(live, torch.exp2(s - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p_hi = p.to(torch.bfloat16)
+        o = o * alpha + p_hi.float() @ vf[:, :, k0:k1]
+        if split:
+            p_lo = (p - p_hi.float()).to(torch.bfloat16)
+            o = o + p_lo.float() @ vf[:, :, k0:k1]
+        m = m_new
+    return (o / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def _bf16_attention_operands(seed, h, hk, sq, skv, d):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(size=s).astype(np.float32))
+            .to(torch.bfloat16)
+            for s in ((1, h, sq, d), (1, hk, skv, d), (1, hk, skv, d))]
+
+
+def _outside_bf16_limit(got, want):
+    """How many outputs miss the bf16 limit."""
+    err = (got.float() - want.float()).abs()
+    return int((err > BF16_ATOL + BF16_RTOL * want.float().abs()).sum())
+
+
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_split_p_emulation_within_bf16_limits(d, window):
+    """The tensor-core kernel's rounding (split P) stays within the smoke's
+    bf16 limits of the plain version at every head_dim, causal and
+    windowed, with GQA 2:1 and a KV sequence longer than the queries."""
+    q, k, v = _bf16_attention_operands(d, 4, 2, 700, 1024, d)
+    got = _tc_emulation(q, k, v, True, window)
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    assert got.dtype == torch.bfloat16
+    assert _outside_bf16_limit(got, want) == 0
+
+
+def test_single_bf16_p_misses_bf16_limits():
+    """The limits have teeth: with P rounded once to bf16 (no P_lo), the
+    same arithmetic misses them on some outputs at sq = skv = 1024,
+    d = 128."""
+    q, k, v = _bf16_attention_operands(128, 2, 1, 1024, 1024, 128)
+    want = flash_attention_plain(q, k, v, causal=True)
+    assert _outside_bf16_limit(_tc_emulation(q, k, v, True, None), want) == 0
+    single = _tc_emulation(q, k, v, True, None, split=False)
+    assert _outside_bf16_limit(single, want) > 0
+
+
 # ---------------------------------------------------------------------- #
 # The CUDA kernels themselves (need the card)
 # ---------------------------------------------------------------------- #
@@ -313,16 +398,26 @@ def test_usec_segmented_kernel_vs_plain_on_card(cuda_device, k, c):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_vs_plain_on_card(cuda_device, d, dtype):
     """GQA 4:1, causal, ragged lengths; a windowed call; queries with no
-    live key (sq > skv) give 0. Bitwise run to run. Both sides compute in
-    fp32 and round once, so bf16 allows about 2.5 ulps (rtol 1e-2)."""
+    live key (sq > skv) give 0; GQA 16:1 with sq not a multiple of 128 and
+    skv > sq. Bitwise run to run. bf16 goes to the tensor-core kernel, fp32
+    to the FFMA kernel. Both sides compute in fp32 and round once, so bf16
+    allows about 2.5 ulps (rtol 1e-2)."""
     g = torch.Generator(device=cuda_device).manual_seed(d)
     rtol, atol = (1e-2, 1e-4) if dtype == torch.bfloat16 else (1e-4, 1e-5)
-    for (sq, skv, window) in ((200, 333, None), (300, 300, 96), (100, 60, None)):
+    route = ("launches_tc" if dtype == torch.bfloat16 else "launches_ffma")
+    other = ("launches_ffma" if dtype == torch.bfloat16 else "launches_tc")
+    for (b, h, hk, sq, skv, window) in ((2, 8, 2, 200, 333, None),
+                                        (2, 8, 2, 300, 300, 96),
+                                        (2, 8, 2, 100, 60, None),
+                                        (1, 16, 1, 200, 333, None)):
         q, k, v = (torch.randn(s, generator=g, device=cuda_device).to(dtype)
-                   for s in ((2, 8, sq, d), (2, 2, skv, d), (2, 2, skv, d)))
-        before = flash_attention_cuda.launches
+                   for s in ((b, h, sq, d), (b, hk, skv, d), (b, hk, skv, d)))
+        before = {n: getattr(flash_attention_cuda, n)
+                  for n in ("launches", route, other)}
         got = ops.flash_attention(q, k, v, causal=True, window=window)
-        assert flash_attention_cuda.launches == before + 1
+        assert flash_attention_cuda.launches == before["launches"] + 1
+        assert getattr(flash_attention_cuda, route) == before[route] + 1
+        assert getattr(flash_attention_cuda, other) == before[other]
         assert torch.equal(got, ops.flash_attention(q, k, v, window=window))
         want = flash_attention_plain(q, k, v, causal=True, window=window)
         live = torch.isfinite(want.float()).all(dim=-1)
