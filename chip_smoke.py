@@ -328,7 +328,14 @@ def phase_kernels(dev):
 
 
 def power_iteration(dev, x, kind, replication, s_tol, segmented, n_workers,
-                    speeds, script, steps, block_rows, profiler=None):
+                    speeds, script, steps, block_rows, profiler=None,
+                    arrival="barrier", fuse_steps=1, replan="central",
+                    kill=None, inject=True, on_runner=None, on_warm=None):
+    """One Sec. V engine run. ``inject`` forces one straggler per step at
+    S > 0 (first-arrival derives its own sets when it is False);
+    ``on_runner(runner)`` sees the runner before the run. With ``on_warm``
+    the engine runs once unprofiled first (capturing the window graph), then
+    ``on_warm(runner)`` sees it, so a profile covers a steady run."""
     from repro_torch.api import (
         ElasticEngine,
         EngineConfig,
@@ -348,47 +355,70 @@ def power_iteration(dev, x, kind, replication, s_tol, segmented, n_workers,
         MatVecPowerIteration(seed=0),
         Policy(placement=kind, replication=replication, stragglers=s_tol),
         EngineConfig(block_rows=block_rows, verify="exact",
-                     segmented=segmented),
+                     segmented=segmented, arrival=arrival,
+                     fuse_steps=fuse_steps, replan=replan),
         backend="device", n_machines=n_workers,
         clock=SyntheticSpeedClock(speeds, jitter_sigma=0.03, seed=0),
         device=dev,
     )
-    data = x
+    # Stage X first: a profile covers steps only, and on_runner can wrap.
+    engine._runner = engine._build_runner(x)
+    if on_runner is not None:
+        on_runner(engine._runner)
+
+    def run():
+        return engine.run(
+            None, n_steps=steps, events=scripted_trace(n_workers, script),
+            straggler_sets=one_straggler if s_tol and inject else None,
+            kill_scheduler_at=kill).result
+
+    if on_warm is not None:
+        run()
+        on_warm(engine._runner)
     if profiler is not None:
-        # Stage X before the trace starts: the profile covers steps only.
-        engine._runner = engine._build_runner(x)
-        data = None
         profiler.start()
     try:
-        return engine.run(
-            data, n_steps=steps, events=scripted_trace(n_workers, script),
-            straggler_sets=one_straggler if s_tol else None).result
+        return run()
     finally:
         if profiler is not None:
             torch.cuda.synchronize()
             profiler.stop()
 
 
+PARITY_MODES = {"barrier": {}, "first": {"arrival": "first", "inject": False},
+                "fused4": {"fuse_steps": 4},
+                "fused4_first": {"fuse_steps": 4, "arrival": "first",
+                                 "inject": False}}
+
+
 def phase_parity():
     """The port on the card against the port on the host (the plain
     versions, themselves held against the JAX package by the CPU tests) at
-    the CPU tests' size: bitwise eigvec and residuals."""
+    the CPU tests' size: bitwise eigvec, residuals and realized straggler
+    sets, for the barrier, first-arrival, fused windows of 4 and fused
+    first-arrival."""
     from repro_torch.runtime import make_exact_matrix
 
     x = make_exact_matrix(768, 0)
     script4 = {0: ((3,), ()), 1: ((1,), (3,)), 2: ((), (1,)),
                4: ((2,), ()), 5: ((), (2,))}
-    for seg in (None, "auto"):
-        res = {}
-        for dev in ("cpu", "cuda"):
-            res[dev] = power_iteration(
-                dev, x, "man", 3, 1, seg, 4, [1000.0, 1300.0, 1700.0, 2200.0],
-                script4, 6, 16)
-        same = (np.array_equal(res["cpu"].eigvec, res["cuda"].eigvec)
-                and res["cpu"].residuals == res["cuda"].residuals)
-        if not same:
-            raise AssertionError(f"card != host at segmented={seg}")
-    emit({"phase": "parity", "size": [4, 768], "bitwise_card_vs_host": True})
+    for mode, kw in PARITY_MODES.items():
+        for seg in (None, "auto"):
+            res = {}
+            for dev in ("cpu", "cuda"):
+                res[dev] = power_iteration(
+                    dev, x, "man", 3, 1, seg, 4,
+                    [1000.0, 1300.0, 1700.0, 2200.0], script4, 6, 16, **kw)
+            a, b = res["cpu"], res["cuda"]
+            same = (np.array_equal(a.eigvec, b.eigvec)
+                    and a.residuals == b.residuals
+                    and [r.straggled for r in a.reports]
+                    == [r.straggled for r in b.reports])
+            if not same:
+                raise AssertionError(
+                    f"card != host at {mode}, segmented={seg}")
+    emit({"phase": "parity", "size": [4, 768], "bitwise_card_vs_host": True,
+          "modes": list(PARITY_MODES), "segmented": [None, "auto"]})
 
 
 def phase_main_path(counters):
@@ -396,6 +426,7 @@ def phase_main_path(counters):
 
     x = make_exact_matrix(DIM, 0)
     totals = {name: 0 for name in counters}
+    mains = {}
     for kind in ("cyclic", "man"):
         for s_tol in (0, 1):
             outs = {}
@@ -421,7 +452,7 @@ def phase_main_path(counters):
                 if not (np.all(np.isfinite(res.eigvec))
                         and res.eigvec.shape == (DIM,)):
                     raise AssertionError("eigvec not finite / wrong shape")
-                outs[seg] = res
+                outs[seg] = mains[(kind, s_tol, seg)] = res
                 emit({"phase": "main_path", "placement": kind, "S": s_tol,
                       "segmented": seg, "steps": len(res.reports),
                       "verify": "exact",
@@ -442,7 +473,272 @@ def phase_main_path(counters):
                     and a.residuals == b.residuals):
                 raise AssertionError(
                     f"{kind} S={s_tol}: per-block and segmented differ")
+    return totals, mains
+
+
+class _CountingWindow:
+    """The runner's fused driver, counting the real blocks of the active
+    steps it is given (the per-block mode's launches) and its calls."""
+
+    def __init__(self, inner):
+        self.inner, self.blocks, self.calls = inner, 0, 0
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __call__(self, staged, plans, bad, active, w):
+        self.calls += 1
+        self.blocks += sum(sum(len(b) for b in p.blocks)
+                           for p, a in zip(plans, active.tolist()) if a)
+        return self.inner(staged, plans, bad, active, w)
+
+
+def _expectations(runner, tally):
+    """Wrap a runner's drivers so a run tallies what its launch counts must
+    be: per worker dispatch (first-arrival) its real blocks, per window the
+    real blocks of its active steps; and, from each step's adopted plan, the
+    real blocks and loaded workers the plan says."""
+    if runner._worker_exec is not None:
+        inner = runner._worker_exec
+
+        def worker(staged, widx, plan, w, include):
+            tally["worker_calls"] += 1
+            tally["worker_blocks"] += len(plan.blocks[widx])
+            return inner(staged, widx, plan, w, include)
+
+        runner._worker_exec = worker
+        step = runner.step
+
+        def observed(*a, **k):
+            out = step(*a, **k)
+            nb = runner._current.block.n_blocks
+            tally["plan_blocks"] += int(nb.sum())
+            tally["plan_loaded"] += int((nb > 0).sum())
+            return out
+
+        runner.step = observed
+    if runner._fused is not None:
+        runner._fused = tally["window"] = _CountingWindow(runner._fused)
+
+
+def graph_capture_probe(dev):
+    """usec_matvec launches as a cluster through cudaLaunchKernelEx: capture
+    one launch in a CUDA graph, replay it, and hold it to the eager launch
+    bitwise (the per-block window graph of a later change needs this)."""
+    from repro_torch.kernels.usec_matvec import usec_matvec_cuda
+
+    rng = np.random.default_rng(3)
+    x, w = grid_operands(rng, (BLOCK_ROWS, DIM), DIM, 1, dev)
+    want = usec_matvec_cuda(x, w)
+    out = torch.zeros_like(want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        usec_matvec_cuda(x, w, out=out)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        usec_matvec_cuda(x, w, out=out)
+    out.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError("captured usec_matvec differs from eager")
+    return True
+
+
+def fused_update_probe(dev):
+    """The power iteration's on-card update against the host quantize_unit,
+    bitwise, on Sec. V-sized vectors (the card's sqrt and division must be
+    IEEE round-to-nearest, as the host's)."""
+    from repro_torch.api import MatVecPowerIteration
+    from repro_torch.runtime import make_exact_matrix, quantize_unit
+
+    upd = MatVecPowerIteration().fused_update()
+    rng = np.random.default_rng(4)
+    x = make_exact_matrix(DIM, 0)
+    vs = [rng.normal(size=DIM).astype(np.float32) * s
+          for s in (1.0, 1e3, 1e-3)]
+    w = quantize_unit(rng.normal(size=DIM))
+    vs.append(x @ w)
+    flat = np.ones(400_000, dtype=np.float32)
+    flat[12_345] = 1.1              # all-zero quantization: the fallback
+    vs.append(flat)
+    for v in vs:
+        got = upd(torch.as_tensor(v, device=dev), None).cpu().numpy()
+        if got.tobytes() != quantize_unit(v).tobytes():
+            raise AssertionError("fused_update on the card != quantize_unit")
+    return len(vs)
+
+
+ELASTIC_VARIANTS = {
+    "first": {"arrival": "first", "inject": False},
+    "fused4": {"fuse_steps": 4},
+    "fused4_first": {"fuse_steps": 4, "arrival": "first", "inject": False},
+    "kill2_decentral": {"replan": "decentral", "kill": 2},
+}
+
+
+def _same(a, b, sets: bool = True) -> bool:
+    """Bitwise eigvec and residuals, and (``sets``) the same straggler
+    sets. Derived first-arrival sets follow the plans, and a fused run's
+    plans may differ from stepwise (the EWMA is fed once a window), so
+    fused first-arrival is held to the outputs only."""
+    return (np.array_equal(a.eigvec, b.eigvec) and a.residuals == b.residuals
+            and (not sets or [r.straggled for r in a.reports]
+                 == [r.straggled for r in b.reports]))
+
+
+def phase_elastic_modes(counters, mains, smi):
+    """The engine's other ways to run a step, at the main path's Sec. V
+    configuration (N = 6, J = 3, 6000^2, 8 steps of the same churn), for
+    cyclic and MAN x S in {0, 1} x both executor modes: first-arrival
+    (stepwise), fused windows of 4 (barrier, the main path's forced
+    stragglers) and fused first-arrival, plus the scheduler kill before
+    step 2 under replan="decentral". verify="exact" at every step of every
+    run. Checks: executor_cache_size == 1; first-arrival at S = 0 equals the
+    barrier run; each fused run equals its stepwise twin (same arrival);
+    the kill run equals the run without it; exact launch counts (per-block
+    first-arrival: the loaded workers' real blocks; segmented
+    first-arrival: one per loaded worker a step; fused per-block: the
+    active steps' real blocks; fused segmented: one graph replay a window
+    and usec_segmented launched only at capture: K warm-up + K captured).
+    Returns the launches of these runs."""
+    from repro_torch.runtime import make_exact_matrix
+
+    dev = torch.device("cuda", 0)
+    probes = {"usec_matvec_graph_capture": graph_capture_probe(dev),
+              "fused_update_bitwise_vectors": fused_update_probe(dev)}
+    x = make_exact_matrix(DIM, 0)
+    totals = {name: 0 for name in counters}
+    firsts = {}
+    for kind in ("cyclic", "man"):
+        for s_tol in (0, 1):
+            for seg in (None, "auto"):
+                for variant, kw in ELASTIC_VARIANTS.items():
+                    tally = {"worker_calls": 0, "worker_blocks": 0,
+                             "plan_blocks": 0, "plan_loaded": 0}
+                    reset_launches(counters)
+                    t0 = time.perf_counter()
+                    res = power_iteration(
+                        None, x, kind, REPLICATION, s_tol, seg, N_WORKERS,
+                        BASE_SPEEDS, SCRIPT, STEPS, BLOCK_ROWS,
+                        on_runner=lambda r: _expectations(r, tally), **kw)
+                    seconds = time.perf_counter() - t0
+                    launches = {n: fn.launches for n, fn in counters.items()}
+                    for n, v in launches.items():
+                        totals[n] += v
+                    cell = f"{kind} S={s_tol} segmented={seg} {variant}"
+                    if res.executor_cache_size != 1:
+                        raise AssertionError(
+                            f"{cell}: executor_cache_size "
+                            f"{res.executor_cache_size}")
+                    if not (np.all(np.isfinite(res.eigvec))
+                            and res.eigvec.shape == (DIM,)
+                            and len(res.reports) == STEPS):
+                        raise AssertionError(f"{cell}: bad result shape")
+                    fused = kw.get("fuse_steps", 1) > 1
+                    first = kw.get("arrival") == "first"
+                    want = mains[(kind, s_tol, seg)]
+                    win = tally.get("window")
+                    replays = win.replays if win is not None else 0
+                    if first and not fused:
+                        firsts[(kind, s_tol, seg)] = res
+                        expect_mv = (tally["worker_blocks"] if seg is None
+                                     else 0)
+                        expect_sg = 0 if seg is None else \
+                            tally["worker_calls"]
+                        if (tally["worker_blocks"] != tally["plan_blocks"]
+                                or tally["worker_calls"]
+                                != tally["plan_loaded"]):
+                            raise AssertionError(f"{cell}: dispatch {tally}")
+                        if s_tol == 0 and not _same(res, want):
+                            raise AssertionError(
+                                f"{cell}: first-arrival != barrier at S=0")
+                    elif fused:
+                        twin = (firsts[(kind, s_tol, seg)] if first
+                                else want)
+                        if not _same(res, twin, sets=not first):
+                            raise AssertionError(
+                                f"{cell}: fused != stepwise twin")
+                        expect_mv = win.blocks if seg is None else 0
+                        expect_sg = 0 if seg is None else 2 * 4
+                        if seg is not None and replays != win.calls:
+                            raise AssertionError(
+                                f"{cell}: {replays} replays for "
+                                f"{win.calls} windows")
+                    else:
+                        if not _same(res, want):
+                            raise AssertionError(
+                                f"{cell}: kill run != run without the kill")
+                        expect_mv = expect_sg = None
+                    got = (launches["usec_matvec"], launches["usec_segmented"])
+                    if expect_mv is not None and got != (expect_mv,
+                                                         expect_sg):
+                        raise AssertionError(
+                            f"{cell}: launches {got} != expected "
+                            f"{(expect_mv, expect_sg)}")
+                    if launches["flash_attention"] != 0:
+                        raise AssertionError(f"{cell}: flash launched")
+                    walls = [r.wall_s for r in res.reports]
+                    emit({"phase": "elastic_modes", "placement": kind,
+                          "S": s_tol, "segmented": seg, "variant": variant,
+                          "steps": len(res.reports), "verify": "exact",
+                          "steps_per_s": res.steps_per_sec,
+                          "step_wall_ms": [1e3 * t for t in walls],
+                          "straggled": [list(r.straggled)
+                                        for r in res.reports],
+                          "executor_cache_size": res.executor_cache_size,
+                          "launches": launches,
+                          "dispatches": (win.calls if win is not None
+                                         else tally["worker_calls"] or None),
+                          "graph_replays": replays,
+                          "run_s": seconds, "nvidia_smi": smi})
+    emit({"phase": "elastic_modes_checks", **probes,
+          "first_s0_equals_barrier": True, "fused_equals_stepwise": True,
+          "kill_equals_no_kill": True, "launch_counts_exact": True,
+          "nvidia_smi": smi})
     return totals
+
+
+def phase_elastic_profile(smi):
+    """One fused segmented run (cyclic, S = 0, windows of 4) under
+    torch.profiler, after a warm run that captured the window graph: the
+    window's wall, the device time, the busy share (beside the stepwise
+    segmented mode's in the profile phase), and one graph replay timed alone
+    with CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import make_exact_matrix
+
+    x = make_exact_matrix(DIM, 0)
+    keep = {}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    res = power_iteration(
+        None, x, "cyclic", REPLICATION, 0, "auto", N_WORKERS, BASE_SPEEDS,
+        SCRIPT, STEPS, BLOCK_ROWS, profiler=prof, fuse_steps=4,
+        on_warm=lambda r: keep.update(runner=r, warm=r.device_dispatches))
+    runner = keep["runner"]
+    entries = sorted(
+        ((float(getattr(e, "self_device_time_total", 0) or 0), e.key,
+          int(e.count)) for e in prof.key_averages()
+         if str(e.device_type).endswith("CUDA")), reverse=True)
+    dev_us = sum(e[0] for e in entries)
+    exec_s = sum(r.wall_s for r in res.reports)
+    windows = runner.device_dispatches - keep["warm"]   # the profiled run
+    replay_ms = cuda_ms(runner._fused._graph.replay, 20)
+    emit({"phase": "elastic_profile", "placement": "cyclic", "S": 0,
+          "segmented": "auto", "fuse_steps": 4, "steps": len(res.reports),
+          "windows": windows,
+          "executor_wall_ms_per_window": 1e3 * exec_s / windows,
+          "executor_wall_ms_per_step": 1e3 * exec_s / len(res.reports),
+          "device_ms_per_step": 1e-3 * dev_us / len(res.reports),
+          "device_busy_share_of_executor_wall":
+              (1e-6 * dev_us / exec_s) if exec_s else None,
+          "graph_replay_ms_cuda_events": replay_ms,
+          "graph_replays": runner.window_graph_replays,
+          "top_device": [[k[:60], us, n] for us, k, n in entries[:6]
+                         if us > 0], "nvidia_smi": smi})
 
 
 def phase_profile():
@@ -905,13 +1201,21 @@ def main() -> int:
     counters = {"usec_matvec": usec_matvec_cuda,
                 "usec_segmented": usec_segmented_cuda,
                 "flash_attention": flash_attention_cuda}
-    totals = phase_main_path(counters)
+    totals, mains = phase_main_path(counters)
     for n in ("usec_matvec", "usec_segmented"):
         if totals[n] <= 0:
             raise AssertionError(f"{n} never launched on the main path")
     if totals["flash_attention"] != 0:
         raise AssertionError("flash_attention launched on the Sec. V path")
     phase_profile()
+
+    # ---- 4b. the engine's other step paths at Sec. V ----
+    elastic = phase_elastic_modes(counters, mains, smi)
+    for n in ("usec_matvec", "usec_segmented"):
+        if elastic[n] <= 0:
+            raise AssertionError(f"{n} never launched by elastic_modes")
+        totals[n] += elastic[n]
+    phase_elastic_profile(smi)
 
     # ---- 5. main path: the model stack's serving path (glm4-9b) ----
     kernels["flash_attention"] = phase_flash(dev, paths)

@@ -15,11 +15,14 @@ argument:
   ``usec_segmented`` launch a step with ``segmented=``); churn swaps plan
   arrays, the executor is built once, and per-step results verify against a
   float64 host reference. ``device=None`` means CUDA; with no CUDA device
-  the engine raises unless the caller passes ``device="cpu"``.
+  the engine raises unless the caller passes ``device="cpu"``. Both consume
+  rules (``arrival="barrier"`` / ``"first"``) run, stepwise or in fused
+  windows of ``fuse_steps`` steps, and ``run(kill_scheduler_at=i)`` kills
+  the central scheduler before step ``i``.
 
-Not ported yet: fault injection (``faults=``, ``kill_scheduler_at=``),
-checkpointing (``save_state``/``resume`` and the checkpoint knobs) and the
-reentrant serving entry points (``prepare``/``submit``). Each raises
+Not ported yet: the general fault schedule (``faults=``), checkpointing
+(``save_state``/``resume`` and the checkpoint knobs) and the reentrant
+serving entry points (``prepare``/``submit``). Each raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
@@ -68,14 +71,17 @@ class EngineConfig:
       segmented: block-list execution mode (None = per-block loop;
         "auto"/"cuda"/"ref" = one call over every worker's block list, see
         :class:`~repro_torch.runtime.elastic_runner.RunnerConfig`).
-      fuse_steps, dispatch_timeout, checkpoint_dir, checkpoint_every,
+      fuse_steps: K, steps per device dispatch (1 = stepwise; K > 1 runs
+        fused windows, one CUDA graph replay a window in segmented mode).
+      dispatch_timeout, checkpoint_dir, checkpoint_every,
       checkpoint_on_fault, verify_results: not ported; a device engine
         raises ``NotImplementedError`` unless they keep their defaults.
 
     Both backends:
       arrival: ``"barrier"`` or ``"first"``. The simulate backend prices
         ``"first"`` with the ``"order"`` completion model; the device
-        backend runs ``"barrier"`` only for now.
+        backend runs the paper's first-arrival master (per-worker partials,
+        the first ``N - S`` modeled arrivals consumed).
       replan: re-planning authority on the device backend — ``"central"``
         or ``"decentral"``.
 
@@ -163,6 +169,9 @@ class EngineResult:
     cache_hits: int = 0
     executor_cache_size: int = -1
     stragglers: int = 0
+    # Fault telemetry (device runs with kill_scheduler_at): every fired
+    # fault's FaultRecord.
+    fault_records: List = field(default_factory=list)
 
 
 class ElasticEngine:
@@ -262,20 +271,35 @@ class ElasticEngine:
           straggler_sets: per-step realized stragglers — an indexable of
             index collections, or a callable ``(step, membership) ->
             sequence`` evaluated after the step's event applies (device
-            backend only). ``None`` (or a per-step ``None``) masks nothing.
+            backend only). ``None`` injects nothing: under
+            ``arrival="first"`` the runner then derives each step's realized
+            set from modeled arrival order; under ``arrival="barrier"`` no
+            copies are masked. A callable may also return ``None`` per step.
           operand: step-0 operand override (workloads that own their
             operand ignore it).
-          kill_scheduler_at, faults: fault injection, not ported yet.
+          kill_scheduler_at: fault injection (device backend only) — kill
+            the central scheduler immediately BEFORE planning step index
+            ``kill_scheduler_at`` of this run. Under ``replan="decentral"``
+            the run carries on the replicated local rule with outputs
+            bitwise-equal to the uninterrupted run; under
+            ``replan="central"`` the next plan raises
+            :class:`~repro_torch.core.decentral.SchedulerKilledError`. It is
+            one ``scheduler_kill`` :class:`~repro_torch.faults.chaos.
+            FaultSpec` on the run's injector.
+          faults: the general fault schedule, not ported yet.
         """
-        if kill_scheduler_at is not None:
-            raise not_ported("kill_scheduler_at")
         if faults is not None:
             raise not_ported("faults")
         if self.backend == "device":
             if n_steps is None:
                 raise ValueError("the device backend needs an explicit n_steps")
             return self._run_device(data, int(n_steps), events,
-                                    straggler_sets, operand)
+                                    straggler_sets, operand,
+                                    kill_scheduler_at)
+        if kill_scheduler_at is not None:
+            raise ValueError(
+                "kill_scheduler_at is a device-backend fault injection; "
+                "the simulate backend has no live scheduler to kill")
         return self._run_simulate(n_steps, events)
 
     # ------------------------------------------------------------------ #
@@ -325,7 +349,9 @@ class ElasticEngine:
         return runner
 
     def _run_device(self, data, n_steps, events, straggler_sets,
-                    operand) -> EngineResult:
+                    operand, kill_scheduler_at=None) -> EngineResult:
+        from repro_torch.faults.chaos import FaultInjector, FaultSpec
+
         if self._runner is None:
             self._runner = self._build_runner(data)
         elif data is not None:
@@ -348,18 +374,97 @@ class ElasticEngine:
                 runner.plans_compiled, runner.cache_hits)
         reports: List = []
         last = None
-        for i in range(n_steps):
-            ev = next(ev_iter, None) if ev_iter is not None else None
-            if ev is not None:
-                runner.apply_event(ev)
-            bad = straggler_sets
-            if bad is not None:
-                bad = bad(i, runner.membership) if callable(bad) else bad[i]
-            y, rep = runner.step(
-                w, stragglers=None if bad is None else tuple(bad))
-            reports.append(rep)
-            last = wl.combine(y)
-            w = wl.consume(last, w)
+        fused = runner.cfg.fuse_steps > 1 and runner.fuse_supported
+        kill_at = None if kill_scheduler_at is None else int(kill_scheduler_at)
+        if kill_at is not None and not 0 <= kill_at < n_steps:
+            raise ValueError(
+                f"kill_scheduler_at={kill_at} outside this run's step range "
+                f"[0, {n_steps})")
+        # Engine step i of this run is the runner's absolute step base0+i:
+        # the injector and the window-break peeks speak absolute indices.
+        base0 = runner._step
+        if kill_at is not None:
+            # The scheduler kill is one fault kind of the chaos schedule:
+            # same injection point (before step kill_at plans).
+            runner.fault_injector = FaultInjector(base_step=base0)
+            runner.fault_injector.add(FaultSpec("scheduler_kill", kill_at))
+        inj = runner.fault_injector
+        log_base = 0 if inj is None else len(inj.log)
+
+        def next_event() -> Optional[ElasticEvent]:
+            return next(ev_iter, None) if ev_iter is not None else None
+
+        def step_bad_of(i: int, membership) -> Optional[Tuple[int, ...]]:
+            # None = "no injection": the runner masks nothing (barrier) or
+            # derives the realized set from arrival order (first).
+            if straggler_sets is None:
+                return None
+            got = (straggler_sets(i, membership) if callable(straggler_sets)
+                   else straggler_sets[i])
+            return None if got is None else tuple(got)
+
+        if fused:
+            # Window loop: up to K steps per dispatch. Events are consumed
+            # step-aligned; churn onto a membership whose plan is already
+            # cached stays IN-window (per-step plans are data). A plan-cache
+            # miss (or past-tolerance drift) FLUSHES the window early, so
+            # the steps assembled so far dispatch at once and the solve runs
+            # at the next window's head. A step with a scheduled fault
+            # always lands at a window head (assembly breaks before it).
+            K = runner.cfg.fuse_steps
+            w_carry = w
+            pending = None   # an event read past a flush, for the next window
+            i = 0
+            while i < n_steps:
+                # Fold the previous window's measurements into the EWMA
+                # BEFORE assembling this one, so plan_is_ready (the flush
+                # rule) and the in-window _plan_for judge drift against the
+                # same estimator state.
+                runner.ingest_pending()
+                ev = pending if pending is not None else next_event()
+                pending = None
+                membership = (tuple(sorted(ev.available)) if ev is not None
+                              else runner.membership)
+                evs: List = [ev]
+                sets = [step_bad_of(i, membership)]
+                j = i + 1
+                while j < n_steps and len(sets) < K:
+                    if inj is not None and inj.has_fault(base0 + j):
+                        break
+                    ev_j = next_event()
+                    if ev_j is not None:
+                        new_mem = tuple(sorted(ev_j.available))
+                        if ((ev_j.is_churn or new_mem != membership)
+                                and not runner.plan_is_ready(new_mem)):
+                            pending = ev_j
+                            break  # flush: solve off-window
+                        membership = new_mem
+                    evs.append(ev_j)
+                    sets.append(step_bad_of(j, membership))
+                    j += 1
+                w_carry, ys, ws, reps = runner.step_window(
+                    w_carry, sets, events=evs)
+                reports.extend(reps)
+                # Replay the host-side fold on the window outputs: combine +
+                # consume give the per-step results/statistics exactly as
+                # stepwise; consume's operand is discarded — the card
+                # already carried the (bitwise-identical) iterate.
+                for k in range(len(sets)):
+                    last = wl.combine(ys[k])
+                    wl.consume(last, ws[k])
+                i += len(sets)
+            w = w_carry.cpu().numpy() if not isinstance(w_carry, np.ndarray) \
+                else w_carry
+        else:
+            for i in range(n_steps):
+                ev = next_event()
+                if ev is not None:
+                    runner.apply_event(ev)
+                y, rep = runner.step(
+                    w, stragglers=step_bad_of(i, runner.membership))
+                reports.append(rep)
+                last = wl.combine(y)
+                w = wl.consume(last, w)
 
         return EngineResult(
             backend="device",
@@ -373,6 +478,7 @@ class ElasticEngine:
             cache_hits=runner.cache_hits - base[3],
             executor_cache_size=runner.executor_cache_size,
             stragglers=runner.planning_master.stragglers,
+            fault_records=[] if inj is None else list(inj.log[log_base:]),
         )
 
     # ------------------------------------------------------------------ #

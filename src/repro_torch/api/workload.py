@@ -87,6 +87,23 @@ class Workload:
 
         return fn
 
+    def fused_update(self, mode: Optional[str] = None) -> Optional[Callable]:
+        """The on-device iterate update ``f(raw_result, operand) -> next
+        operand`` the fused window driver applies between its K steps (torch
+        tensors on the card; no host synchronisation). ``raw_result`` is the
+        assembled pre-``combine`` output.
+
+        None opts the workload out of fusion (the engine falls back to
+        stepwise dispatch). The default is the fixed-point identity, but ONLY
+        when :meth:`consume` is not overridden: a workload with its own host
+        consume and no device twin must not silently diverge under fusion.
+        Overrides must be **bitwise-identical** to the host ``consume``
+        operand chain (see :meth:`MatVecPowerIteration.fused_update`)."""
+        del mode
+        if type(self).consume is not Workload.consume:
+            return None
+        return lambda y, w: w
+
     def segmented_fn(
         self, mode: Optional[str] = None, block_rows: int = 16,
     ) -> Optional[Callable]:
@@ -259,6 +276,45 @@ class MatVecPowerIteration(MatVec):
         if self.quantize_bits:
             return quantize_unit(result, self.quantize_bits)
         return unit_vector(result)
+
+    def fused_update(self, mode: Optional[str] = None) -> Optional[Callable]:
+        """The device twin of the host iterate chain: normalize (and snap to
+        the 2^-bits grid) on the card, bitwise-identical to
+        :func:`~repro_torch.runtime.elastic_runner.quantize_unit` /
+        :func:`~repro_torch.runtime.elastic_runner.unit_vector`: both square,
+        tree-reduce, sqrt, divide and round with the same explicit
+        elementwise schedule in float32 (IEEE ops are exact given the order,
+        and nothing here fuses a multiply and an add). The all-zero fallback
+        is chosen by ``torch.where``, not by a branch on device data.
+
+        The per-step residual/eigenvalue statistics stay on the host: the
+        engine replays :meth:`consume` on the window's (ys, ws) outputs and
+        discards its returned operand."""
+        del mode
+        if type(self).consume is not MatVecPowerIteration.consume:
+            # A subclass with its own host consume chain has no device twin
+            # here: fall back to stepwise rather than diverge.
+            return None
+        bits = self.quantize_bits
+
+        def upd(y, w):
+            import torch
+
+            from repro_torch.runtime.elastic_runner import _tree_sumsq
+
+            del w
+            v = y.to(torch.float32)
+            u = v / torch.sqrt(_tree_sumsq(v, torch))
+            if not bits:
+                return u
+            q = (torch.round(u * (1 << bits)) / float(1 << bits)).to(
+                torch.float32)
+            fallback = torch.zeros_like(u).reshape(-1).scatter(
+                0, torch.argmax(torch.abs(v)).reshape(1), 1.0
+            ).reshape(u.shape)
+            return torch.where(torch.any(q != 0), q, fallback)
+
+        return upd
 
     def finalize(self, runner, reports, last_result, last_operand):
         from repro_torch.runtime.elastic_runner import PowerIterationResult

@@ -1,7 +1,7 @@
 """Live elastic execution on the card: the churn-driven device backend.
 
-The port of :mod:`repro.runtime.elastic_runner`, barrier consume, one step
-per dispatch. It closes the loop the paper runs on EC2 (§V): an
+The port of :mod:`repro.runtime.elastic_runner`. It closes the loop the
+paper runs on EC2 (§V): an
 :class:`~repro_torch.core.elastic.AvailabilityTrace` feeds
 :class:`~repro_torch.core.elastic.ElasticEvent`\\ s into a master that
 
@@ -16,12 +16,24 @@ per dispatch. It closes the loop the paper runs on EC2 (§V): an
    ``usec_matvec`` kernel per block, or one ``usec_segmented`` launch for
    every worker's block list (``segmented=``).
 
+Two consume rules (``RunnerConfig.arrival``): ``"barrier"`` combines every
+included worker's partials in one executor call, while ``"first"`` is the
+paper's first-arrival master — each loaded worker's partial is dispatched on
+its own CUDA stream with its own event, the first ``N_t - S`` modeled
+arrivals are consumed, the realized slowest-S set is masked out of a
+host-side winner-gather combine, and every late worker's duration still
+feeds the EWMA. ``fuse_steps = K > 1`` runs windows of K steps in one
+dispatch (:meth:`ElasticRunner.step_window`): include weights and the
+iterate update stay on the card, and in segmented mode the window is one
+CUDA graph replay.
+
 The static-shape contract: every array is padded to the **max-N membership**
 (the full machine population). A preempted machine is a worker slot with
 ``n_blocks == 0`` and all-zero include weights. Membership changes therefore
-swap plan arrays; the executor is built once per runner and the kernel
-library is loaded once per process (:attr:`ElasticRunner.executor_cache_size`
-stays at 1, the reference's jit-cache telemetry).
+swap plan arrays; the executors are built once per runner, the window graph
+is captured once, and the kernel library is loaded once per process
+(:attr:`ElasticRunner.executor_cache_size` stays at 1, the reference's
+jit-cache telemetry).
 
 Per-worker step times: a single card cannot observe heterogeneous worker
 speeds, so the runner takes a pluggable clock — :class:`HostSharedClock`
@@ -30,10 +42,12 @@ apportions the measured step wall time by row share, and
 exercise the EWMA adaptation reproducibly. Real step wall time (host clock
 around a synchronized executor call) is always measured and reported.
 
-Not ported yet (each raises ``NotImplementedError`` at construction, naming
-its ROADMAP.md item): ``arrival="first"``, ``fuse_steps > 1``,
-``dispatch_timeout`` and ``verify_results``. This module imports torch only
-when a runner is built, so the host-side classes work without it.
+Planning faults (``scheduler_kill``, ``stale_plan_table``) fire at a step's
+head through :attr:`ElasticRunner.fault_injector`. Not ported yet (each
+raises ``NotImplementedError`` naming its ROADMAP.md item): the dispatch and
+corruption fault kinds, ``dispatch_timeout`` and ``verify_results``. This
+module imports torch only when a runner is built, so the host-side classes
+work without it.
 """
 
 from __future__ import annotations
@@ -66,9 +80,6 @@ KERNEL_MODES = (None, "auto", "cuda", "ref")
 
 # Where each unported knob will land (ROADMAP.md, Queue 1).
 ROADMAP_ITEM = {
-    "arrival='first'": "item 5 (first-arrival)",
-    "fuse_steps > 1": "item 6 (fused windows)",
-    "kill_scheduler_at": "item 7 (engine scheduler kill)",
     "dispatch_timeout": "item 8 (faults + integrity)",
     "faults": "item 8 (faults + integrity)",
     "verify_results": "item 8 (faults + integrity)",
@@ -115,12 +126,29 @@ class RunnerConfig:
       the next churn event is a plan-cache *hit*.
     plan_cache_size: LRU cap on memoized plans (entries); None keeps the
       cache unbounded.
-    fuse_steps: K, iterations per device dispatch. Only 1 is ported.
+    fuse_steps: K, iterations per device dispatch. 1 is the stepwise path;
+      K > 1 runs windows of K steps through the fused driver
+      (:meth:`ElasticRunner.step_window`): the iterate update and straggler
+      include masks stay on the card, so a window costs one dispatch and
+      one result fetch for K steps. Windows are always K long (flushed and
+      tail steps are inactive padding), so the segmented mode captures its
+      window as ONE CUDA graph for the whole run.
     segmented: per-worker block-list execution — None keeps the per-block
       loop (one ``usec_matvec`` launch per real block); "auto"/"cuda"/"ref"
       route every worker's whole block list through the workload's
       ``segmented_fn`` (one ``usec_segmented`` launch a step on the card).
-    arrival: the master's consume rule. Only ``"barrier"`` is ported.
+    arrival: the master's consume rule. ``"barrier"`` combines every
+      included worker in one executor call. ``"first"`` is the paper's
+      first-arrival master: each loaded worker's unmasked partial is
+      dispatched on its own CUDA stream
+      (:func:`repro_torch.runtime.executor.make_worker_executor`), the master
+      consumes the first ``N_t - S`` completions in modeled arrival order
+      (the clock's durations, never event timings), masks the realized
+      slowest-S set through the ordinary include weights and gathers each
+      row from its winner; late workers' durations still feed the EWMA.
+      Modeled completion is the (N_t - S)-th order statistic. At S = 0 it
+      reduces to the barrier bitwise. Composes with ``fuse_steps > 1``:
+      fused windows derive each step's realized set at assembly time.
     replan: ``"central"`` routes every planning call through the
       Algorithm-1 master; ``"decentral"`` evaluates the pure local rule of
       :mod:`repro_torch.core.decentral` over replicated state (plans are
@@ -155,10 +183,6 @@ class RunnerConfig:
         _validate_choice("segmented", self.segmented, KERNEL_MODES)
         _validate_choice("verify_results", self.verify_results,
                          ("off", "sample", "always"))
-        if self.arrival == "first":
-            raise not_ported("arrival='first'")
-        if self.fuse_steps != 1:
-            raise not_ported("fuse_steps > 1")
         if self.dispatch_timeout is not None:
             raise not_ported("dispatch_timeout")
         if self.verify_results != "off":
@@ -185,7 +209,7 @@ class StepReport:
     modeled_completion: float  # max over loaded workers of clocked duration
     straggled: Tuple[int, ...]
     waste: int                 # transition waste vs the previous step's plan
-    jit_cache_size: int        # executors built so far (stays 1)
+    jit_cache_size: int        # programs run or captured so far (stays 1)
     measured: Dict[int, float] # per-worker durations fed to the EWMA next step
     speeds_hat: np.ndarray     # estimator state the plan was built under
 
@@ -299,7 +323,12 @@ class ElasticRunner:
 
         from repro_torch.device import resolve_device
 
-        from .executor import make_matvec_executor, stage_matrix
+        from .executor import (
+            make_fused_executor,
+            make_matvec_executor,
+            make_worker_executor,
+            stage_matrix,
+        )
 
         self.device = resolve_device(device)
         if workload is None:
@@ -374,13 +403,40 @@ class ElasticRunner:
             seg_mode = None if cfg.segmented == "auto" else cfg.segmented
             seg_fn = workload.segmented_fn(seg_mode,
                                            block_rows=cfg.block_rows)
+        mm = workload.executor_fn(cfg.matmul_mode)
         self._executor = make_matvec_executor(
-            rows_total=q, block_rows=cfg.block_rows,
-            matmul=workload.executor_fn(cfg.matmul_mode),
-            out_cols=workload.out_cols,
-            segmented_fn=seg_fn,
+            rows_total=q, block_rows=cfg.block_rows, matmul=mm,
+            out_cols=workload.out_cols, segmented_fn=seg_fn,
         )
-        self._executors_built = 1
+        # First-arrival dispatches per-worker partials instead of the
+        # all-worker step; the worker id is an argument, so one executor
+        # serves every worker.
+        self._worker_exec = None
+        if cfg.arrival == "first":
+            self._worker_exec = make_worker_executor(
+                rows_total=q, block_rows=cfg.block_rows, matmul=mm,
+                out_cols=workload.out_cols, segmented_fn=seg_fn,
+            )
+        self._worker_streams = None   # one CUDA stream per worker, lazily
+        # The fused window driver shares the stepwise body; the workload's
+        # fused_update is the on-device iterate step. None means the
+        # workload cannot fuse: callers fall back to stepwise dispatch.
+        self._fused = None
+        self.fuse_supported = True
+        if cfg.fuse_steps > 1:
+            upd = workload.fused_update(cfg.matmul_mode)
+            if upd is None:
+                self.fuse_supported = False
+            else:
+                self._fused = make_fused_executor(
+                    rows_total=q, block_rows=cfg.block_rows,
+                    fuse_steps=cfg.fuse_steps, matmul=mm,
+                    out_cols=workload.out_cols, update=upd,
+                    segmented_fn=seg_fn,
+                )
+        # Stepwise drivers that have run (the reference's jit cache grows
+        # at a driver's first call); the fused driver counts its own.
+        self._drivers_run: Set[str] = set()
         # Staged X goes to the device once; plan arrays once per cache entry.
         self._staged_dev = torch.as_tensor(self._staged.staged,
                                            device=self.device)
@@ -406,6 +462,14 @@ class ElasticRunner:
         self.probe_solves = 0         # drift-gate c* pricing solves
         self.precompile_s = 0.0       # host time spent off the critical path
         self.total_waste = 0
+        # Wall estimate for assembly-time clock draws in fused first-arrival
+        # windows (realized sets must be known before dispatch). Clocks that
+        # matter for reproducibility (SyntheticSpeedClock) ignore the wall.
+        self._last_step_wall = 1.0
+        # Unannounced-failure seam (repro_torch.faults): consulted at each
+        # step's head. The planning kinds fire here; the others are not
+        # ported yet and raise.
+        self.fault_injector = None
 
     # ------------------------------------------------------------------ #
     @property
@@ -482,10 +546,20 @@ class ElasticRunner:
 
     @property
     def executor_cache_size(self) -> int:
-        """Executors built by this runner (expected: 1 forever — churn and
-        worker identity are data). The port's analog of the reference's
-        jit cache size; the kernel library itself loads once per process."""
-        return self._executors_built
+        """Programs this runner has run or captured, the port's analog of
+        the reference's jit cache size (expected: 1 forever — a fused run
+        uses only the window driver, whose segmented mode captures one CUDA
+        graph; a stepwise run only the per-step executor; a first-arrival
+        run only the per-worker partial; churn and worker identity are
+        data). The kernel library itself loads once per process."""
+        fused = 0 if self._fused is None else self._fused.cache_size
+        return len(self._drivers_run) + fused
+
+    @property
+    def window_graph_replays(self) -> int:
+        """CUDA graph replays of the fused window driver (one per window in
+        segmented mode on the card; 0 otherwise)."""
+        return 0 if self._fused is None else self._fused.replays
 
     def apply_event(self, ev: ElasticEvent) -> None:
         """Adopt the event's availability set (validates tile reachability)."""
@@ -700,11 +774,207 @@ class ElasticRunner:
                     f"0..{N - 1}")
 
     # ------------------------------------------------------------------ #
+    # Unannounced-failure seams (repro_torch.faults). Faults are consulted
+    # and consumed at each step's head.
+    # ------------------------------------------------------------------ #
+    def _consult_planning_faults(self, t: int) -> None:
+        """Fire planning-path faults scheduled at absolute step ``t``:
+        ``scheduler_kill`` tombstones the central master (the decentral
+        replica keeps the run alive), ``stale_plan_table`` drops every
+        replicated planning artifact. Both are consumed one-shot. Any other
+        kind scheduled at ``t`` raises: its seam is not ported yet."""
+        inj = self.fault_injector
+        if inj is None:
+            return
+        from repro_torch.faults.chaos import FAULT_KINDS, PLANNING_KINDS
+
+        others = tuple(k for k in FAULT_KINDS if k not in PLANNING_KINDS)
+        if inj.has_fault(t, kinds=others):
+            raise not_ported("faults")
+        for spec in inj.take(t, kinds=PLANNING_KINDS):
+            if spec.kind == "scheduler_kill":
+                if self.scheduler_killed:
+                    inj.record(spec, "noop", "scheduler already dead")
+                else:
+                    self.kill_scheduler(
+                        f"chaos: scheduler_kill before step {t}")
+                    inj.record(
+                        spec, "killed",
+                        f"central master tombstoned before step {t}")
+            else:  # stale_plan_table
+                n_plans = len(self._plan_cache)
+                n_table = self.invalidate_plan_state()
+                detail = f"dropped {n_plans} cached plan(s)"
+                if n_table:
+                    detail += f" + {n_table} table entr(ies)"
+                inj.record(spec, "invalidated", detail)
+
+    def _derive_realized(self, durations: Dict[int, float]
+                         ) -> Tuple[int, ...]:
+        """Realized straggler set from modeled arrival order: the master
+        consumes the first ``n_loaded - S`` completions, so the slowest S
+        loaded workers (ties broken by id) are this step's stragglers. At
+        least one worker is always consumed."""
+        S = self._master.stragglers
+        s_eff = min(S, max(len(durations) - 1, 0))
+        if s_eff <= 0:
+            return ()
+        order = sorted(durations, key=lambda n: (durations[n], n))
+        return tuple(sorted(int(n) for n in order[len(order) - s_eff:]))
+
+    def _winner_combine(
+        self,
+        parts: List[np.ndarray],
+        loaded: List[int],
+        entry: _CacheEntry,
+        include: np.ndarray,
+    ) -> np.ndarray:
+        """Host-side first-arrival combine: gather each output row from its
+        winning holder's partial. ``include`` (the ordinary refresh_include
+        weights) marks exactly one surviving copy per segment, so every row
+        has exactly one contributor — the gather returns the same bits the
+        barrier combine would (the sum of the winner and zeros)."""
+        bp = entry.block
+        win = (include > 0) & (bp.blk_seg_t >= 0)
+        n_idx, b_idx = np.nonzero(win)
+        br = self.cfg.block_rows
+        rows = (
+            bp.blk_goff[n_idx, b_idx][:, None]
+            + np.arange(br, dtype=np.int64)
+        ).reshape(-1)
+        winner = np.full(self.rows_total, -1, dtype=np.int64)
+        winner[rows] = np.repeat(n_idx, br)
+        if (winner < 0).any():  # pragma: no cover - plans cover every row
+            missing = int(np.flatnonzero(winner < 0)[0])
+            raise RuntimeError(
+                f"no surviving holder delivered output row {missing}")
+        pos = np.full(self.placement.n_machines, -1, dtype=np.int64)
+        for i, n in enumerate(loaded):
+            pos[n] = i
+        stack = np.stack(parts)
+        return stack[pos[winner], np.arange(self.rows_total)]
+
+    # ------------------------------------------------------------------ #
     def _sync(self) -> None:
         import torch
 
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _dispatch_workers(self, entry: _CacheEntry, loaded: List[int],
+                          w_dev) -> List:
+        """Launch every loaded worker's unmasked partial and wait for all of
+        them. On the card each worker runs on its own stream and records its
+        own event; the host waits on each event. Returns the partials (on
+        the device)."""
+        import torch
+
+        dev = entry.dev
+        if self.device.type != "cuda":
+            return [self._worker_exec(self._staged_dev, n, dev, w_dev,
+                                      dev.valid[n]) for n in loaded]
+        if self._worker_streams is None:
+            self._worker_streams = [
+                torch.cuda.Stream(device=self.device)
+                for _ in range(self.placement.n_machines)]
+        cur = torch.cuda.current_stream(self.device)
+        parts, events = [], []
+        for n in loaded:
+            s = self._worker_streams[n]
+            s.wait_stream(cur)   # the operand's upload is on `cur`
+            with torch.cuda.stream(s):
+                # Allocated on `s`: the caching allocator keeps the partial
+                # and its temporaries until `s` is done with them.
+                parts.append(self._worker_exec(
+                    self._staged_dev, n, dev, w_dev, dev.valid[n]))
+                ev = torch.cuda.Event()
+                ev.record(s)
+            w_dev.record_stream(s)
+            events.append(ev)
+        for ev in events:
+            ev.synchronize()
+        return parts
+
+    def _step_first(
+        self,
+        w: np.ndarray,
+        entry: _CacheEntry,
+        cache_hit: bool,
+        replanned: bool,
+        waste: int,
+        t0: float,
+        injected: Optional[Tuple[int, ...]],
+    ) -> Tuple[np.ndarray, StepReport]:
+        """First-arrival step: per-worker dispatch, consume-first combine.
+
+        Every loaded worker's partial is dispatched on its own (unmasked —
+        arrival order is not known yet). The clock then models arrival
+        order; the slowest S loaded workers become the realized straggler
+        set (unless ``injected`` pins one), the ordinary include weights
+        mask their copies out, and the output gathers each row from its
+        winning holder. Late workers are measurements, not losses: every
+        loaded duration feeds the EWMA. Modeled completion is the
+        (n_loaded - S)-th order statistic — the barrier's max only at S=0.
+        """
+        import torch
+
+        from .executor import refresh_include
+
+        replan_s = time.perf_counter() - t0
+        loaded = [n for n in self._membership
+                  if entry.block.n_blocks[n] > 0]
+        w_dev = torch.as_tensor(w).to(self.device)
+        self._sync()
+        t1 = time.perf_counter()
+        parts_d = self._dispatch_workers(entry, loaded, w_dev)
+        wall = time.perf_counter() - t1
+        self._drivers_run.add("worker")
+        self.device_dispatches += len(parts_d)
+        self._last_step_wall = wall
+        parts = [p.cpu().numpy() for p in parts_d]
+
+        row_loads = entry.block_loads * self.rows_per_tile
+        durations = self.clock.durations(row_loads, self._membership, wall)
+        if injected is None:
+            realized = self._derive_realized(durations)
+        else:
+            realized = tuple(injected)
+        # Host-side feasibility + winner weights: include_mask raises when a
+        # segment lost every holder, exactly like the barrier path.
+        include = refresh_include(entry.block, entry.step_plan.plan, realized)
+        y = self._winner_combine(parts, loaded, entry, include)
+
+        self._pending_loads = {
+            n: float(entry.block_loads[n]) for n in durations
+        }
+        self._pending_durations = durations
+        skipped = set(realized)
+        consumed = [d for n, d in durations.items() if n not in skipped]
+        modeled = max(consumed) if consumed else 0.0
+
+        if self.cfg.verify:
+            self._verify(y, w)
+
+        self._step += 1
+        report = StepReport(
+            step=self._step,
+            available=self._membership,
+            replanned=replanned,
+            plan_cache_hit=cache_hit,
+            replan_s=replan_s,
+            wall_s=wall,
+            modeled_completion=modeled,
+            straggled=realized,
+            waste=waste,
+            jit_cache_size=self.executor_cache_size,
+            measured=durations,
+            speeds_hat=entry.s_plan,
+        )
+        if self.cfg.precompile_neighbors and not cache_hit:
+            t2 = time.perf_counter()
+            self._precompile_neighbors(self._membership)
+            self.precompile_s += time.perf_counter() - t2
+        return y, report
 
     def step(
         self,
@@ -715,11 +985,15 @@ class ElasticRunner:
         """Execute one elastic step ``y = X @ w`` under the current plan.
 
         ``event`` (if any) is applied before planning. ``stragglers=None``
-        masks no copies; an explicit sequence *injects* that realized
-        straggler set — masked copies are dropped from the combine (include
-        weights), exactly one surviving holder per segment delivers. Raises
-        ``ValueError`` on an out-of-range id and errors out if the set
-        exceeds the plan's tolerance. Returns ``y`` as host NumPy.
+        means "no injection": under ``arrival="barrier"`` no copies are
+        masked, under ``arrival="first"`` the realized straggler set is
+        derived from modeled arrival order. An explicit sequence (possibly
+        empty) *injects* that set in either mode — masked copies are
+        dropped from the combine (include weights), exactly one surviving
+        holder per segment delivers. Raises ``ValueError`` on an
+        out-of-range id and errors out if the set exceeds the plan's
+        tolerance. Planning faults scheduled at this step fire first.
+        Returns ``y`` as host NumPy.
         """
         import torch
 
@@ -727,15 +1001,20 @@ class ElasticRunner:
 
         if event is not None:
             self.apply_event(event)
+        self._consult_planning_faults(self._step)
         t0 = time.perf_counter()
         # Feed last step's measured durations into the EWMA (Alg. 1 line 4)
         # BEFORE planning, so the plan sees the freshest estimates.
         self.ingest_pending()
-        bad: Tuple[int, ...] = ()
+        injected: Optional[Tuple[int, ...]] = None
         if stragglers is not None:
-            bad = tuple(sorted({int(s) for s in stragglers}))
-            self._check_straggler_ids(bad)
+            injected = tuple(sorted({int(s) for s in stragglers}))
+            self._check_straggler_ids(injected)
         entry, cache_hit, replanned, waste = self._adopt_plan()
+        if self.cfg.arrival == "first":
+            return self._step_first(
+                w, entry, cache_hit, replanned, waste, t0, injected)
+        bad = injected or ()
         include_d = (
             None if not bad
             else torch.as_tensor(
@@ -751,7 +1030,9 @@ class ElasticRunner:
             self._staged_dev, entry.dev, w_dev.to(self.device), include_d)
         self._sync()
         wall = time.perf_counter() - t1
+        self._drivers_run.add("step")
         self.device_dispatches += 1
+        self._last_step_wall = wall
         y = y.cpu().numpy()
 
         row_loads = entry.block_loads * self.rows_per_tile
@@ -808,6 +1089,217 @@ class ElasticRunner:
                     est.set_speed(n, anchor)
         self._pending_loads, self._pending_durations = {}, {}
 
+    def plan_is_ready(self, avail: Sequence[int]) -> bool:
+        """True when adopting ``avail`` would be a plan-cache HIT (no solve
+        on the step path). The engine's window assembler uses this as the
+        flush rule: churn onto a ready membership is in-window data; churn
+        onto a miss flushes the window so the assembled steps dispatch
+        immediately instead of queueing behind a multi-ms solve. Mirrors
+        :meth:`_plan_for` exactly, including the c*-pricing fallback past
+        the drift tolerance. No scheduler/cache state is touched."""
+        master = self._master
+        key = tuple(sorted(int(a) for a in avail))
+        entry = self._plan_cache.get(key)
+        if entry is None:
+            return False
+        if entry.stragglers != master.stragglers:
+            # Stale tolerance (see _plan_for): adopting would recompile.
+            return False
+        if master.homogeneous:
+            # Membership-only planning: drift cannot stale the entry.
+            return True
+        s_hat = master.speeds
+        if self._plan_drift(entry, key, s_hat) <= self.cfg.speed_tolerance:
+            return True
+        c_new = master.probe_c_star(key)
+        self.probe_solves += 1
+        old_c = entry.step_plan.solution.time_of(master.plan_speeds)
+        return bool(
+            old_c <= (1.0 + self.cfg.speed_tolerance) * c_new + 1e-12)
+
+    def step_window(
+        self,
+        w,
+        straggler_sets: Sequence[Optional[Sequence[int]]] = ((),),
+        events: Optional[Sequence[Optional[ElasticEvent]]] = None,
+    ):
+        """Execute up to ``fuse_steps`` steps in ONE device dispatch.
+
+        A ``None`` entry in ``straggler_sets`` means "no injection" for that
+        step — under ``arrival="first"`` its realized straggler set is
+        derived from modeled arrival order at assembly time (and masked on
+        the card through the include gather); under ``arrival="barrier"``
+        it is an empty set. Explicit sequences inject, as in :meth:`step`.
+
+        Each active step carries its OWN event, straggler set and (cached)
+        plan, so churn inside the window is data; the engine flushes early
+        (``len(sets) < K``) only when a step's membership is a plan-cache
+        miss. The dispatched window is ALWAYS K steps (inactive tail steps
+        have zeroed trip counts and weights and their outputs are
+        discarded), so the segmented mode's window graph is captured once
+        for the whole run.
+
+        ``w`` is the iterate carry: a NumPy array on the first window, the
+        device tensor returned by the previous window afterwards (valid
+        until the next window). Returns ``(w_carry, ys, ws, reports)``: the
+        next carry (device), the per-active-step raw outputs and consumed
+        operands (NumPy — one fetch for the whole window), and one
+        :class:`StepReport` per active step.
+
+        Speed measurements are ingested ONCE per window (window wall /
+        active steps per step, in tile-units/s), so the EWMA and its
+        c*-priced drift gate keep working at any ``fuse_steps``; while the
+        card runs the window, the host overlaps the speculative neighbor
+        precompile of the newest membership.
+        """
+        import torch
+
+        if self._fused is None:
+            raise RuntimeError(
+                "step_window needs fuse_steps > 1 and a fusable workload "
+                "(workload.fused_update returned None)")
+        K = self.cfg.fuse_steps
+        sets = [
+            None if bad is None else tuple(sorted({int(s) for s in bad}))
+            for bad in straggler_sets
+        ]
+        n_active = len(sets)
+        if not 1 <= n_active <= K:
+            raise ValueError(
+                f"window wants {n_active} active steps, fuse_steps={K}")
+        if events is None:
+            events = [None] * n_active
+        if len(events) != n_active:
+            raise ValueError("events and straggler_sets must align per step")
+        # Feed last window's measured durations into the EWMA before any of
+        # this window's planning (idempotent: the engine already did this
+        # before assembling the window).
+        self.ingest_pending()
+
+        N = self.placement.n_machines
+        bad = np.zeros((K, N), dtype=bool)
+        metas = []
+        had_miss = False
+        base = self._step
+        for k in range(n_active):
+            t0 = time.perf_counter()
+            if events[k] is not None:
+                self.apply_event(events[k])
+            # Fault seams fire at assembly time, per step, before anything
+            # dispatches.
+            self._consult_planning_faults(base + k)
+            entry, cache_hit, replanned, waste = self._adopt_plan()
+            had_miss = had_miss or not cache_hit
+            durs_k = None
+            if sets[k] is None:
+                if self.cfg.arrival == "first":
+                    # Derive this step's realized stragglers at assembly
+                    # time: the on-card include gather needs the bitmask
+                    # before dispatch, so the clock is sampled here (once
+                    # per step, in step order, the stepwise cadence)
+                    # against the previous dispatch's per-step wall.
+                    row_loads = entry.block_loads * self.rows_per_tile
+                    durs_k = self.clock.durations(
+                        row_loads, self._membership, self._last_step_wall)
+                    sets[k] = self._derive_realized(durs_k)
+                else:
+                    sets[k] = ()
+            else:
+                self._check_straggler_ids(sets[k])
+            if sets[k]:
+                # Host-side feasibility check (the device gather cannot
+                # raise): include_mask errors out when a segment lost every
+                # holder, exactly like the stepwise path.
+                entry.step_plan.plan.include_mask(sets[k])
+                bad[k, list(sets[k])] = True
+            metas.append((self._membership, entry, replanned, cache_hit,
+                          time.perf_counter() - t0, waste, durs_k))
+        # Pad inactive tail slots with the last entry's plan (masked out on
+        # the card) so the window's shapes never change.
+        plans = [m[1].dev for m in metas]
+        plans += [plans[-1]] * (K - n_active)
+        active = np.zeros((K,), dtype=bool)
+        active[:n_active] = True
+
+        w_dev = (w if torch.is_tensor(w)
+                 else torch.as_tensor(np.asarray(w)).to(self.device))
+        self._sync()
+        t1 = time.perf_counter()
+        w_carry, ys_d, ws_d = self._fused(
+            self._staged_dev, plans, bad, active, w_dev)
+        self.device_dispatches += 1
+        # Overlap: the dispatch is asynchronous on the card — spend the
+        # device time on the churn neighborhood's speculative compile.
+        pre_s = 0.0
+        if self.cfg.precompile_neighbors and had_miss:
+            t2 = time.perf_counter()
+            self._precompile_neighbors(self._membership)
+            pre_s = time.perf_counter() - t2
+            self.precompile_s += pre_s
+        self._sync()
+        # wall_s means "executor time"; a host-run precompile would bill
+        # planning to the clock, so subtract it (on the card, genuine
+        # overlap makes this an under- rather than over-estimate).
+        wall = max(time.perf_counter() - t1 - pre_s, 1e-9)
+        ys = ys_d.cpu().numpy()[:n_active]
+        ws = ws_d.cpu().numpy()[:n_active]
+
+        # Per-window per-worker times: the window wall divided over its
+        # active steps is the per-step equivalent the EWMA expects. Loads and
+        # durations accumulate over the window's per-step plans and are
+        # reported as ONE measurement at the next window.
+        per_step_wall = wall / n_active
+        self._last_step_wall = per_step_wall
+        loads_sum: Dict[int, float] = {}
+        dur_sum: Dict[int, float] = {}
+        per_step_durs = []
+        for k in range(n_active):
+            entry = metas[k][1]
+            durs = metas[k][6]
+            if durs is None:
+                row_loads = entry.block_loads * self.rows_per_tile
+                durs = self.clock.durations(
+                    row_loads, metas[k][0], per_step_wall)
+            per_step_durs.append(durs)
+            for n, d in durs.items():
+                loads_sum[n] = loads_sum.get(n, 0.0) \
+                    + float(entry.block_loads[n])
+                dur_sum[n] = dur_sum.get(n, 0.0) + d
+        self._pending_loads = loads_sum
+        self._pending_durations = dur_sum
+
+        if self.cfg.verify:
+            for k in range(n_active):
+                self._verify(ys[k], ws[k])
+
+        reports = []
+        for k, (avail, entry, replanned, cache_hit, replan_s, waste,
+                _d) in enumerate(metas):
+            self._step += 1
+            durs = per_step_durs[k]
+            if self.cfg.arrival == "first":
+                # First-arrival completion: the master stops at the last
+                # CONSUMED worker; realized stragglers are not waited on.
+                skipped = set(sets[k])
+                consumed = [d for n, d in durs.items() if n not in skipped]
+            else:
+                consumed = list(durs.values())
+            reports.append(StepReport(
+                step=self._step,
+                available=avail,
+                replanned=replanned,
+                plan_cache_hit=cache_hit,
+                replan_s=replan_s,
+                wall_s=per_step_wall,
+                modeled_completion=max(consumed) if consumed else 0.0,
+                straggled=sets[k],
+                waste=waste,
+                jit_cache_size=self.executor_cache_size,
+                measured=durs,
+                speeds_hat=entry.s_plan,
+            ))
+        return w_carry, ys, ws, reports
+
     def _verify(self, y: np.ndarray, w: np.ndarray) -> None:
         # The reference is the workload's business: X @ w for matvec,
         # X @ W for matmat, the NumPy row map for map-reduce.
@@ -821,19 +1313,22 @@ class ElasticRunner:
 def _tree_sumsq(v, xp):
     """Sum of squares by an explicit binary tree of elementwise adds.
 
-    ``xp`` is the array module (numpy here). Library reductions choose their
-    own accumulation order, so a host value and a device twin can disagree
-    in the last ulp. This reduction pins the order: square, zero-pad to a
-    power of two, halve by adding strided slices. Every step is an
-    elementwise IEEE op, so any backend that follows the schedule produces
-    the SAME bits as the reference package's :func:`quantize_unit`.
+    ``xp`` is the array module: numpy on the host, torch for the fused
+    window's on-device update. Library reductions choose their own
+    accumulation order, so a host value and a device twin can disagree in
+    the last ulp. This reduction pins the order: square, zero-pad to a power
+    of two, halve by adding strided slices. Every step is an elementwise
+    IEEE op, so any backend that follows the schedule produces the SAME bits
+    as the reference package's :func:`quantize_unit`.
     """
     s = v * v
     n = 1
     while n < s.shape[0]:
         n *= 2
     if n != s.shape[0]:
-        s = xp.concatenate([s, xp.zeros(n - s.shape[0], s.dtype)])
+        pad = (xp.zeros(n - s.shape[0], s.dtype) if xp is np
+               else s.new_zeros(n - s.shape[0]))
+        s = xp.concatenate([s, pad])
     while s.shape[0] > 1:
         s = s[0::2] + s[1::2]
     return s[0]

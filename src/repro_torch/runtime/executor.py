@@ -305,9 +305,11 @@ class DevicePlan:
 
     slot/off: (N, B) int32; include: (N, B) float32 (no-straggler weights);
     n_blocks: (N,) int32; rows: (N * B * block_rows,) int64 output row of
-    every compact partial row (the combine's scatter index); blocks: each
-    worker's real (slot, offset) pairs as host ints, which the per-block
-    path walks on the host.
+    every compact partial row (the combine's scatter index); prio: (N, B,
+    1+S) int32 combine-priority order of each block's segment (-1 on
+    padding; None when the block plan carries none); valid: (N, B) float32,
+    1.0 on real blocks; blocks: each worker's real (slot, offset) pairs as
+    host ints, which the per-block path walks on the host.
     """
 
     slot: torch.Tensor
@@ -315,6 +317,8 @@ class DevicePlan:
     include: torch.Tensor
     n_blocks: torch.Tensor
     rows: torch.Tensor
+    prio: Optional[torch.Tensor]
+    valid: torch.Tensor
     blocks: List[List[Tuple[int, int]]]
     block_rows: int
 
@@ -332,11 +336,16 @@ def device_plan(bp: BlockPlan, device) -> DevicePlan:
         list(zip(bp.blk_slot[n, :nb].tolist(), bp.blk_off[n, :nb].tolist()))
         for n, nb in enumerate(bp.n_blocks.tolist())
     ]
+    valid = (
+        bp.blk_seg_t >= 0 if bp.blk_seg_t is not None
+        else np.arange(bp.b_max)[None, :] < bp.n_blocks[:, None]
+    )
     return DevicePlan(
         slot=put(bp.blk_slot, torch.int32), off=put(bp.blk_off, torch.int32),
         include=put(bp.blk_include, torch.float32),
         n_blocks=put(bp.n_blocks, torch.int32), rows=put(rows, torch.int64),
-        blocks=blocks, block_rows=br,
+        prio=None if bp.blk_prio is None else put(bp.blk_prio, torch.int32),
+        valid=put(valid, torch.float32), blocks=blocks, block_rows=br,
     )
 
 
@@ -365,9 +374,89 @@ def from_reference(
     return sm, device_plan(bp, dev)
 
 
+def device_include_weights(
+    prio: torch.Tensor, valid: torch.Tensor, bad: torch.Tensor
+) -> torch.Tensor:
+    """On-device twin of :func:`refresh_include`: (N, B) combine weights
+    from a straggler bitmask, without a host round trip.
+
+    For every block the winner is the first **non-straggling** machine in
+    its segment's combine-priority order (exactly
+    :meth:`CompiledPlan.include_mask`); the weight is 1.0 iff this worker is
+    that winner and the block is real. Gathers and compares only, so a
+    straggler set inside a fused window is device data.
+
+    Args:
+      prio: (N, B, 1+S) int32, -1 on padding (:attr:`BlockPlan.blk_prio`).
+      valid: (N, B), nonzero on real blocks.
+      bad: (N,) bool straggler bitmask over the machine population.
+
+    The caller validates feasibility on the host (some non-straggler per
+    segment); with a dead segment this picks its highest-priority holder
+    instead of raising.
+    """
+    idx = prio.clamp(min=0).to(torch.int64)
+    ok = torch.logical_not(
+        torch.index_select(bad, 0, idx.reshape(-1)).reshape(idx.shape))
+    # argmax takes no bool on CUDA; on ties it returns the first index.
+    first = torch.argmax(ok.to(torch.int32), dim=-1, keepdim=True)
+    winner = torch.gather(prio, -1, first)[..., 0]
+    ids = torch.arange(prio.shape[0], dtype=prio.dtype,
+                       device=prio.device)[:, None]
+    return ((winner == ids) & (valid != 0)).to(torch.float32)
+
+
 def _default_matmul(xb, w2, out=None):
     y = xb.to(torch.float32) @ w2.to(torch.float32)
     return y if out is None else out.copy_(y)
+
+
+def _make_body(
+    rows_total: int,
+    block_rows: int,
+    mm: Callable,
+    out_cols: Optional[int],
+    segmented_fn: Optional[Callable],
+) -> Callable:
+    """The one-step computation shared by the stepwise, per-worker and fused
+    executors, so the three drivers run the same math.
+
+    ``body(staged, slot, off, n_blocks, rows, blocks, include, w) -> y`` runs
+    the workers of ``staged`` (all N, or a one-worker slice) on their (n, B)
+    plan rows: per-block, one ``mm`` per host-listed block into a compact
+    (n, B, block_rows, cols) buffer, then the include weights; segmented,
+    one ``segmented_fn`` call over every listed worker's block list. Then
+    one ``index_add_`` of the compact partials into the output rows. Every
+    row gets exactly one included holder and exact zeros otherwise, so the
+    combine is exact on any data.
+    """
+
+    def body(staged, slot, off, n_blocks, rows, blocks, include, w):
+        w2 = w if w.ndim == 2 else w[:, None]
+        cols = w2.shape[1] if out_cols is None else out_cols
+        n, b = slot.shape
+        if segmented_fn is not None:
+            compact = segmented_fn(staged, slot, off, include, w2,
+                                   n_blocks=n_blocks)
+        else:
+            # Zero-trip blocks (padding, preempted workers) keep their
+            # zeros, as the reference's per-worker fori_loop never writes
+            # past its trip count.
+            compact = torch.zeros((n, b, block_rows, cols),
+                                  dtype=torch.float32, device=staged.device)
+            for wk, blks in enumerate(blocks):
+                st = staged[wk]
+                for i, (s, o) in enumerate(blks):
+                    mm(st[s, o: o + block_rows], w2, out=compact[wk, i])
+            compact.mul_(include[:, :, None, None])
+        y = torch.zeros((rows_total, cols), dtype=torch.float32,
+                        device=staged.device)
+        y.index_add_(0, rows, compact.reshape(-1, cols))
+        # A 1-d operand squeezes back to a vector only when the output width
+        # follows the operand; an explicit out_cols keeps its matrix shape.
+        return y if (w.ndim == 2 or out_cols is not None) else y[:, 0]
+
+    return body
 
 
 def make_matvec_executor(
@@ -398,32 +487,197 @@ def make_matvec_executor(
     (a workload's ``segmented_fn(mode)``: the ``usec_segmented`` kernel on
     the card).
     """
-    mm = matmul or _default_matmul
+    body = _make_body(rows_total, block_rows, matmul or _default_matmul,
+                      out_cols, segmented_fn)
 
     def step(staged, plan: DevicePlan, w, include=None):
         inc = plan.include if include is None else include
-        w2 = w if w.ndim == 2 else w[:, None]
-        cols = w2.shape[1] if out_cols is None else out_cols
-        n, b = plan.slot.shape
-        if segmented_fn is not None:
-            compact = segmented_fn(staged, plan.slot, plan.off, inc, w2,
-                                   n_blocks=plan.n_blocks)
-        else:
-            # Zero-trip blocks (padding, preempted workers) keep their
-            # zeros, as the reference's per-worker fori_loop never writes
-            # past its trip count.
-            compact = torch.zeros((n, b, block_rows, cols),
-                                  dtype=torch.float32, device=staged.device)
-            for wk, blocks in enumerate(plan.blocks):
-                st = staged[wk]
-                for i, (slot, off) in enumerate(blocks):
-                    mm(st[slot, off: off + block_rows], w2, out=compact[wk, i])
-            compact.mul_(inc[:, :, None, None])
-        y = torch.zeros((rows_total, cols), dtype=torch.float32,
-                        device=staged.device)
-        y.index_add_(0, plan.rows, compact.reshape(-1, cols))
-        # A 1-d operand squeezes back to a vector only when the output width
-        # follows the operand; an explicit out_cols keeps its matrix shape.
-        return y if (w.ndim == 2 or out_cols is not None) else y[:, 0]
+        return body(staged, plan.slot, plan.off, plan.n_blocks, plan.rows,
+                    plan.blocks, inc, w)
 
     return step
+
+
+def make_worker_executor(
+    rows_total: int,
+    block_rows: int,
+    matmul: Optional[Callable] = None,
+    out_cols: Optional[int] = None,
+    segmented_fn: Optional[Callable] = None,
+) -> Callable:
+    """Build the per-worker partial of first-arrival execution.
+
+    Returns ``partial(staged, widx, plan, w, include) -> y_n``: worker
+    ``widx``'s **unmasked** (rows_total[, c]) partial over its block list in
+    ``plan`` (a :class:`DevicePlan`). The caller passes ``plan.valid[widx]``
+    as ``include`` (weight 1 on every real block): the realized straggler
+    set is not known at dispatch, so first-arrival masking is the master's
+    business, applied on the host per row once arrivals decide the winners.
+
+    Per-block mode launches the block compute once per real block of that
+    worker; segmented mode makes one ``segmented_fn`` call over the
+    ``[widx:widx+1]`` slices of the staged buffer and the plan, which are
+    contiguous. The math is :func:`make_matvec_executor`'s body on a
+    one-worker slice, so a winner gather of these partials is
+    bitwise-equal to the barrier combine on the same plan.
+    """
+    body = _make_body(rows_total, block_rows, matmul or _default_matmul,
+                      out_cols, segmented_fn)
+
+    def partial(staged, widx: int, plan: DevicePlan, w, include):
+        n, b = plan.slot.shape
+        sl = slice(widx, widx + 1)
+        return body(staged[sl], plan.slot[sl], plan.off[sl],
+                    plan.n_blocks[sl], plan.rows.view(n, -1)[widx],
+                    [plan.blocks[widx]], include.reshape(1, b), w)
+
+    return partial
+
+
+_WINDOW_FIELDS = ("slot", "off", "n_blocks", "rows", "prio", "valid")
+
+
+class FusedExecutor:
+    """The K-step window driver (see :func:`make_fused_executor`).
+
+    ``cache_size`` counts the programs it has built: the captured CUDA
+    graphs of the segmented mode on the card (one for the whole run: churn
+    is data and the window is always K long), else 1 once it has run.
+    ``replays`` counts graph replays (one per window).
+    """
+
+    def __init__(self, body, fuse_steps: int, update: Callable,
+                 segmented: bool):
+        self.body = body
+        self.fuse_steps = fuse_steps
+        self.update = update
+        self.segmented = segmented
+        self.cache_size = 0
+        self.replays = 0
+        self._graph = None
+        self._static = None
+        self._out = None
+
+    def _loop(self, staged, stacks, blocks, bad, active, w):
+        """K steps on device data only: no fetch, no branch on a device
+        value. ``stacks`` maps each of :data:`_WINDOW_FIELDS` to a sequence
+        of K per-step tensors (or a (K, ...) stack)."""
+        ys, ws = [], []
+        for k in range(self.fuse_steps):
+            act = active[k]
+            include = device_include_weights(
+                stacks["prio"][k], stacks["valid"][k], bad[k])
+            # Inactive padding: zero trip counts and weights, so the body
+            # degenerates to a combine of zeros.
+            include = include * act.to(torch.float32)
+            nblk = stacks["n_blocks"][k] * act.to(torch.int32)
+            y = self.body(staged, stacks["slot"][k], stacks["off"][k], nblk,
+                          stacks["rows"][k], blocks[k], include, w)
+            # ... and the padding iterate carries through unchanged (the
+            # update of a zero output may be NaN; where discards it).
+            w_next = torch.where(act, self.update(y, w), w)
+            ys.append(y)
+            ws.append(w)
+            w = w_next
+        return w, torch.stack(ys), torch.stack(ws)
+
+    def __call__(self, staged, plans: Sequence[DevicePlan], bad: np.ndarray,
+                 active: np.ndarray, w):
+        K = self.fuse_steps
+        if len(plans) != K or bad.shape[0] != K or active.shape[0] != K:
+            raise ValueError(f"a window is {K} steps: got {len(plans)} "
+                             f"plans, bad {bad.shape}, active {active.shape}")
+        dev = staged.device
+        bad_d = torch.as_tensor(np.ascontiguousarray(bad, dtype=bool),
+                                device=dev)
+        act_d = torch.as_tensor(np.ascontiguousarray(active, dtype=bool),
+                                device=dev)
+        if not (self.segmented and staged.is_cuda):
+            # Per-block mode (its launch count follows the plan) and the
+            # host: the same loop, eagerly. Inactive steps walk no blocks.
+            blocks = [p.blocks if a else [[]] * len(p.blocks)
+                      for p, a in zip(plans, active.tolist())]
+            stacks = {f: [getattr(p, f) for p in plans]
+                      for f in _WINDOW_FIELDS}
+            self.cache_size = 1
+            return self._loop(staged, stacks, blocks, bad_d, act_d, w)
+        if self._graph is None:
+            self._capture(staged, plans, bad_d, act_d, w)
+        st = self._static
+        for k, p in enumerate(plans):
+            for f in _WINDOW_FIELDS:
+                st[f][k].copy_(getattr(p, f))
+        st["bad"].copy_(bad_d)
+        st["active"].copy_(act_d)
+        st["w"].copy_(w)
+        self._graph.replay()
+        self.replays += 1
+        return self._out
+
+    def _capture(self, staged, plans, bad_d, act_d, w):
+        """Capture the window loop once over static buffers. A capture that
+        fails raises: there is no eager fallback on the card."""
+        st = {f: torch.stack([getattr(p, f) for p in plans])
+              for f in _WINDOW_FIELDS}
+        st.update(bad=bad_d.clone(), active=act_d.clone(), w=w.clone())
+        blocks = [None] * self.fuse_steps
+
+        def run():
+            return self._loop(staged, st, blocks, st["bad"], st["active"],
+                              st["w"])
+
+        # Warm up on a side stream first (library loads, allocator pools),
+        # as CUDA graph capture requires.
+        side = torch.cuda.Stream(device=staged.device)
+        side.wait_stream(torch.cuda.current_stream(staged.device))
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream(staged.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = run()
+        self._static, self._out, self._graph = st, out, graph
+        self.cache_size += 1
+
+
+def make_fused_executor(
+    rows_total: int,
+    block_rows: int,
+    fuse_steps: int,
+    matmul: Optional[Callable] = None,
+    out_cols: Optional[int] = None,
+    update: Optional[Callable] = None,
+    segmented_fn: Optional[Callable] = None,
+) -> FusedExecutor:
+    """Build the K-step fused window driver.
+
+    Returns ``window(staged, plans, bad, active, w) -> (w_out, ys, ws)``:
+
+      plans:  K :class:`DevicePlan`\\ s, one per step, so a membership change
+              inside the window is data (the runner pads a short window
+              with its last plan).
+      bad:    (K, N) bool host array, per-step straggler bitmasks.
+      active: (K,) bool host array, live steps. Inactive padding steps get
+              zero trip counts and zero weights, and the iterate carries
+              through them unchanged, so the window is always K steps long.
+      w:      the iterate carry, (r,) or (r, c), on the device.
+      ys:     (K, rows_total[, c]) per-step raw outputs, on the device.
+      ws:     (K, ...) the operand each step consumed.
+
+    Include weights are computed on the device from ``bad``
+    (:func:`device_include_weights`) and ``update`` (the workload's
+    ``fused_update``, e.g. the power-iteration normalize + quantize) runs on
+    the device between steps: there is no host synchronisation inside a
+    window. The per-step body is the stepwise executor's, so a window is
+    bitwise-equal to K stepwise steps.
+
+    In segmented mode on the card the K-step loop is captured once as a CUDA
+    graph over static buffers; each window copies its plans, masks and carry
+    into them and replays the graph (the returned tensors are the graph's
+    outputs, valid until the next window). Per-block mode walks the host
+    block lists eagerly: its launch count follows the plan.
+    """
+    body = _make_body(rows_total, block_rows, matmul or _default_matmul,
+                      out_cols, segmented_fn)
+    upd = update if update is not None else (lambda y, w: w)
+    return FusedExecutor(body, fuse_steps, upd, segmented_fn is not None)

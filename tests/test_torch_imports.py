@@ -31,7 +31,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert {"repro_torch.kernels.usec_segmented",
             "repro_torch.kernels.flash_attention",
             "repro_torch.models.transformer",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve",
+            "repro_torch.faults",
+            "repro_torch.faults.chaos"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -50,13 +52,13 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 
 def test_core_and_runtime_host_layers_import_without_torch():
-    """The planners, the simulator, the runner's host-side classes and the
-    model configs are pure NumPy, as in the reference: importing them pulls
-    in no torch."""
+    """The planners, the simulator, the runner's host-side classes, the
+    fault schedule and the model configs are pure NumPy, as in the
+    reference: importing them pulls in no torch."""
     code = textwrap.dedent("""
         import sys
         import repro_torch.core, repro_torch.runtime, repro_torch.api
-        import repro_torch.configs
+        import repro_torch.configs, repro_torch.faults
         assert "torch" not in sys.modules, "torch imported eagerly"
     """)
     env = dict(os.environ, PYTHONPATH=SRC)
@@ -84,8 +86,6 @@ def test_device_engine_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(arrival="first"), "item 5"),
-    (dict(fuse_steps=4), "item 6"),
     (dict(dispatch_timeout=1.0), "item 8"),
     (dict(verify_results="always"), "item 8"),
     (dict(checkpoint_dir="ckpt"), "item 9"),
@@ -105,8 +105,6 @@ def test_unported_entry_points_raise():
                         n_machines=4, device="cpu")
     for call, item in ((lambda: eng.prepare(), "item 10"),
                        (lambda: eng.save_state("d"), "item 9"),
-                       (lambda: eng.run(None, 1, kill_scheduler_at=0),
-                        "item 7"),
                        (lambda: eng.run(None, 1, faults=[]), "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             call()
