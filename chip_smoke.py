@@ -5,25 +5,31 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds the hand-written kernels from src/repro_torch/csrc with nvcc (into
 build/kernels/), holds each kernel against its plain PyTorch version on the
-card, then drives the paper's Sec. V experiment through the normal front
-door, ``ElasticEngine(MatVecPowerIteration, backend="device")``: N = 6
-workers, J = 3, a 6000 x 6000 integer-valued matrix, cyclic and MAN
-placements at S in {0, 1}, scripted churn, 8 steps, ``verify="exact"`` at
-every step, in both executor modes (per-block ``usec_matvec`` and one
-``usec_segmented`` launch a step). Then the model stack's serving path:
-the flash-attention kernels against their plain version (the JAX tests'
-cases, every head_dim in both dtypes: bf16 on the tensor-core kernel, fp32
-on the FFMA kernel; one full-width glm4-9b layer), glm4-9b at full width with
+card and times it (the flash-attention kernels at the JAX tests' cases,
+every head_dim in both dtypes: bf16 on the tensor-core kernel, fp32 on the
+FFMA kernel; one full-width glm4-9b layer), then drives the paper's Sec. V
+experiment through the normal front door, ``ElasticEngine(
+MatVecPowerIteration, backend="device")``: N = 6 workers, J = 3, a
+6000 x 6000 integer-valued matrix, cyclic and MAN placements at S in
+{0, 1}, scripted churn, 8 steps, ``verify="exact"`` at every step, in both
+executor modes (per-block ``usec_matvec`` and one ``usec_segmented`` launch
+a step). Then the model stack's serving path: glm4-9b at full width with
 random weights through ``repro_torch.launch.serve.generate`` (an 8192-token
 prompt, 32 greedy decode steps; one kernel launch per prefill layer, none
 in decode), a profiled prefill + decode, and card-vs-host parity at reduced
-size. Every phase prints one JSON line; the
+size. Last, ``elastic_faults`` injects every fault kind into the Sec. V
+runs (covered at S = 1, uncovered at S = 0, silent corruption with the
+integrity checker on) and holds each to the clean run bitwise, with the
+staged buffer repaired in place on the card and exact launch counts; it
+runs after every profiled phase, since the profiler's trace loses kernel
+records after it. Every phase prints one JSON line; the
 line before the last lists every kernel with its launches on the main path,
 its time, its bound and its plain version's time; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero,
 and without a CUDA device it exits non-zero before printing a result.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -99,14 +105,18 @@ def device_times(fn, iters: int):
     return out
 
 
-def device_ms(fn, iters: int, tag: str = ""):
+def device_ms(fn, iters: int, tag: str = "", tries: int = 3):
     """Mean device ms per call of ``fn``, over the device entries whose
-    name contains ``tag`` (all of them by default); None when the trace
-    shows none."""
-    hits = [v for k, v in device_times(fn, iters).items() if tag in k]
-    if not hits:
-        return None
-    return 1e-3 * sum(h[0] for h in hits) / iters
+    name contains ``tag`` (all of them by default), from the first of
+    ``tries`` traces that kept every record; None when none did. A trace
+    lost records when it shows no entry, or an entry counted a number of
+    times that is not a multiple of ``iters`` (each call launches the same
+    work)."""
+    for _ in range(tries):
+        hits = [v for k, v in device_times(fn, iters).items() if tag in k]
+        if hits and not any(n % iters for _, n in hits):
+            return 1e-3 * sum(h[0] for h in hits) / iters
+    return None
 
 
 def rel_err(got, want) -> float:
@@ -159,15 +169,17 @@ def grid_operands(rng, shape_x, k, c, dev):
     return x, w
 
 
-def timed(fn, iters: int, tag: str = ""):
+def timed(fn, iters: int, tag: str = "", bound: float = 0.0):
     """A call's time: device time from the profiler's trace (``ms``), and
     the CUDA-event time of back-to-back calls, which includes the host's
-    dispatch (``dispatch_ms``). Where the trace shows no device entry the
-    event time stands in, and ``ms_source`` says so."""
+    dispatch (``dispatch_ms``). Where the trace shows no device entry,
+    lost records, or less time than the work's ``bound`` (ms), the event
+    time stands in, and ``ms_source`` says so (``trace_ms`` keeps what the
+    trace said)."""
     dispatch = cuda_ms(fn, iters)
     dev = device_ms(fn, iters, tag)
-    if dev is None:
-        return {"ms": dispatch, "ms_source": "cuda_events",
+    if dev is None or dev < bound:
+        return {"ms": dispatch, "ms_source": "cuda_events", "trace_ms": dev,
                 "dispatch_ms": dispatch}
     return {"ms": dev, "ms_source": "profiler", "dispatch_ms": dispatch}
 
@@ -227,15 +239,16 @@ def phase_kernels(dev):
     it = iter(range(10 ** 9))
     mv_err = float((usec_matvec_cuda(blocks[0], w1)
                     - matvec_ref(blocks[0], w1)).abs().max())
-    mv = timed(lambda: usec_matvec_cuda(
-        blocks[next(it) % len(blocks)], w1, out=out), 900, "matvec_kernel")
-    mv_plain = timed(lambda: matvec_ref(
-        blocks[next(it) % len(blocks)], w1), 900)
-    mv_lib = timed(lambda: torch.matmul(
-        blocks[next(it) % len(blocks)], w1), 900)
     mv_bound, mv_by = bound_ms(
         BLOCK_ROWS * DIM * 4 + DIM * 4 + BLOCK_ROWS * 4,
         2 * BLOCK_ROWS * DIM)
+    mv = timed(lambda: usec_matvec_cuda(
+        blocks[next(it) % len(blocks)], w1, out=out), 900, "matvec_kernel",
+        mv_bound)
+    mv_plain = timed(lambda: matvec_ref(
+        blocks[next(it) % len(blocks)], w1), 900, bound=mv_bound)
+    mv_lib = timed(lambda: torch.matmul(
+        blocks[next(it) % len(blocks)], w1), 900, bound=mv_bound)
     del big, blocks
     emit({"phase": "kernel", "name": "usec_matvec",
           "cases": len(rows), "bitwise_integer_grid": True,
@@ -296,14 +309,14 @@ def phase_kernels(dev):
     sg_err = float((usec_segmented_cuda(*args)
                     - segmented_plain(*args)).abs().max())
     out4 = torch.empty((N_WORKERS, b_max, BLOCK_ROWS, 1), device=dev)
-    sg = timed(lambda: usec_segmented_cuda(*args, out=out4), 50,
-               "segmented_kernel")
-    sg_plain = timed(lambda: segmented_plain(*args), 20)
     real_rows = int(bp.n_blocks.sum()) * BLOCK_ROWS
     sg_bound, sg_by = bound_ms(
         real_rows * DIM * 4 + DIM * 4 + out4.numel() * 4
         + N_WORKERS * b_max * 12 + N_WORKERS * 4,
         2 * real_rows * DIM)
+    sg = timed(lambda: usec_segmented_cuda(*args, out=out4), 50,
+               "segmented_kernel", sg_bound)
+    sg_plain = timed(lambda: segmented_plain(*args), 20, bound=sg_bound)
     emit({"phase": "kernel", "name": "usec_segmented",
           "bitwise_integer_grid": True, "cases_c": [1, 3, 128],
           "max_rel_err_fp32": max(seg_errs), "real_rows": real_rows,
@@ -330,12 +343,16 @@ def phase_kernels(dev):
 def power_iteration(dev, x, kind, replication, s_tol, segmented, n_workers,
                     speeds, script, steps, block_rows, profiler=None,
                     arrival="barrier", fuse_steps=1, replan="central",
-                    kill=None, inject=True, on_runner=None, on_warm=None):
+                    kill=None, inject=True, on_runner=None, on_warm=None,
+                    faults=None, cfg=None):
     """One Sec. V engine run. ``inject`` forces one straggler per step at
     S > 0 (first-arrival derives its own sets when it is False);
     ``on_runner(runner)`` sees the runner before the run. With ``on_warm``
     the engine runs once unprofiled first (capturing the window graph), then
-    ``on_warm(runner)`` sees it, so a profile covers a steady run."""
+    ``on_warm(runner)`` sees it, so a profile covers a steady run.
+    ``faults`` goes to ``run(faults=)`` and ``cfg`` updates the
+    EngineConfig (e.g. ``verify_results``, ``dispatch_timeout``). Returns
+    the (last) run's EngineResult; its ``result`` is the power iteration's."""
     from repro_torch.api import (
         ElasticEngine,
         EngineConfig,
@@ -351,12 +368,13 @@ def power_iteration(dev, x, kind, replication, s_tol, segmented, n_workers,
         """One forced straggler per step, drawn from the live membership."""
         return (int(rng.choice(membership)),) if len(membership) > 1 else ()
 
+    ecfg = dict(block_rows=block_rows, verify="exact", segmented=segmented,
+                arrival=arrival, fuse_steps=fuse_steps, replan=replan)
+    ecfg.update(cfg or {})
     engine = ElasticEngine(
         MatVecPowerIteration(seed=0),
         Policy(placement=kind, replication=replication, stragglers=s_tol),
-        EngineConfig(block_rows=block_rows, verify="exact",
-                     segmented=segmented, arrival=arrival,
-                     fuse_steps=fuse_steps, replan=replan),
+        EngineConfig(**ecfg),
         backend="device", n_machines=n_workers,
         clock=SyntheticSpeedClock(speeds, jitter_sigma=0.03, seed=0),
         device=dev,
@@ -370,7 +388,7 @@ def power_iteration(dev, x, kind, replication, s_tol, segmented, n_workers,
         return engine.run(
             None, n_steps=steps, events=scripted_trace(n_workers, script),
             straggler_sets=one_straggler if s_tol and inject else None,
-            kill_scheduler_at=kill).result
+            kill_scheduler_at=kill, faults=faults)
 
     if on_warm is not None:
         run()
@@ -408,7 +426,8 @@ def phase_parity():
             for dev in ("cpu", "cuda"):
                 res[dev] = power_iteration(
                     dev, x, "man", 3, 1, seg, 4,
-                    [1000.0, 1300.0, 1700.0, 2200.0], script4, 6, 16, **kw)
+                    [1000.0, 1300.0, 1700.0, 2200.0], script4, 6, 16,
+                    **kw).result
             a, b = res["cpu"], res["cuda"]
             same = (np.array_equal(a.eigvec, b.eigvec)
                     and a.residuals == b.residuals
@@ -435,7 +454,7 @@ def phase_main_path(counters):
                 t0 = time.perf_counter()
                 res = power_iteration(None, x, kind, REPLICATION, s_tol, seg,
                                       N_WORKERS, BASE_SPEEDS, SCRIPT, STEPS,
-                                      BLOCK_ROWS)
+                                      BLOCK_ROWS).result
                 seconds = time.perf_counter() - t0
                 launches = {n: fn.launches for n, fn in counters.items()}
                 for n, v in launches.items():
@@ -495,9 +514,20 @@ class _CountingWindow:
 
 def _expectations(runner, tally):
     """Wrap a runner's drivers so a run tallies what its launch counts must
-    be: per worker dispatch (first-arrival) its real blocks, per window the
-    real blocks of its active steps; and, from each step's adopted plan, the
-    real blocks and loaded workers the plan says."""
+    be: per barrier executor call its real blocks (``step_*``; counted
+    around ``_barrier_dispatch``, outside the wall it times), per worker
+    dispatch (first-arrival) its real blocks, per window the real blocks of
+    its active steps; and, from each step's adopted plan, the real blocks
+    and loaded workers the plan says."""
+    tally.update(step_calls=0, step_blocks=0)
+    inner_step = runner._barrier_dispatch
+
+    def stepwise(entry, w, bad):
+        tally["step_calls"] += 1
+        tally["step_blocks"] += sum(len(b) for b in entry.dev.blocks)
+        return inner_step(entry, w, bad)
+
+    runner._barrier_dispatch = stepwise
     if runner._worker_exec is not None:
         inner = runner._worker_exec
 
@@ -589,6 +619,32 @@ def _same(a, b, sets: bool = True) -> bool:
                  == [r.straggled for r in b.reports]))
 
 
+def check_launches(cell, seg, arrival, fuse, tally, launches, repaired=0):
+    """The run's kernel launches are exactly what its dispatches say: per
+    real block of every barrier executor call, worker dispatch or active
+    window step (per-block); one per barrier executor call or worker
+    dispatch, or 2 x K at the window graph's capture with one replay a
+    window (segmented); plus one ``usec_matvec`` per row chunk a fused
+    window recomputed from a replica tile (``repaired``)."""
+    win = tally.get("window")
+    if fuse > 1:
+        want = (win.blocks if seg is None else 0,
+                0 if seg is None else 2 * fuse)
+        if seg is not None and win.replays != win.calls:
+            raise AssertionError(f"{cell}: {win.replays} replays for "
+                                 f"{win.calls} windows")
+    elif arrival == "first":
+        want = (tally["worker_blocks"] if seg is None else 0,
+                0 if seg is None else tally["worker_calls"])
+    else:
+        want = (tally["step_blocks"] if seg is None else 0,
+                0 if seg is None else tally["step_calls"])
+    want = (want[0] + repaired, want[1])
+    got = (launches["usec_matvec"], launches["usec_segmented"])
+    if got != want or launches["flash_attention"] != 0:
+        raise AssertionError(f"{cell}: launches {launches}, want {want}")
+
+
 def phase_elastic_modes(counters, mains, smi):
     """The engine's other ways to run a step, at the main path's Sec. V
     configuration (N = 6, J = 3, 6000^2, 8 steps of the same churn), for
@@ -623,7 +679,8 @@ def phase_elastic_modes(counters, mains, smi):
                     res = power_iteration(
                         None, x, kind, REPLICATION, s_tol, seg, N_WORKERS,
                         BASE_SPEEDS, SCRIPT, STEPS, BLOCK_ROWS,
-                        on_runner=lambda r: _expectations(r, tally), **kw)
+                        on_runner=lambda r: _expectations(r, tally),
+                        **kw).result
                     seconds = time.perf_counter() - t0
                     launches = {n: fn.launches for n, fn in counters.items()}
                     for n, v in launches.items():
@@ -637,17 +694,15 @@ def phase_elastic_modes(counters, mains, smi):
                             and res.eigvec.shape == (DIM,)
                             and len(res.reports) == STEPS):
                         raise AssertionError(f"{cell}: bad result shape")
-                    fused = kw.get("fuse_steps", 1) > 1
-                    first = kw.get("arrival") == "first"
+                    fuse = kw.get("fuse_steps", 1)
+                    arrival = kw.get("arrival", "barrier")
+                    first = arrival == "first"
                     want = mains[(kind, s_tol, seg)]
                     win = tally.get("window")
                     replays = win.replays if win is not None else 0
-                    if first and not fused:
+                    check_launches(cell, seg, arrival, fuse, tally, launches)
+                    if first and fuse == 1:
                         firsts[(kind, s_tol, seg)] = res
-                        expect_mv = (tally["worker_blocks"] if seg is None
-                                     else 0)
-                        expect_sg = 0 if seg is None else \
-                            tally["worker_calls"]
                         if (tally["worker_blocks"] != tally["plan_blocks"]
                                 or tally["worker_calls"]
                                 != tally["plan_loaded"]):
@@ -655,31 +710,15 @@ def phase_elastic_modes(counters, mains, smi):
                         if s_tol == 0 and not _same(res, want):
                             raise AssertionError(
                                 f"{cell}: first-arrival != barrier at S=0")
-                    elif fused:
+                    elif fuse > 1:
                         twin = (firsts[(kind, s_tol, seg)] if first
                                 else want)
                         if not _same(res, twin, sets=not first):
                             raise AssertionError(
                                 f"{cell}: fused != stepwise twin")
-                        expect_mv = win.blocks if seg is None else 0
-                        expect_sg = 0 if seg is None else 2 * 4
-                        if seg is not None and replays != win.calls:
-                            raise AssertionError(
-                                f"{cell}: {replays} replays for "
-                                f"{win.calls} windows")
-                    else:
-                        if not _same(res, want):
-                            raise AssertionError(
-                                f"{cell}: kill run != run without the kill")
-                        expect_mv = expect_sg = None
-                    got = (launches["usec_matvec"], launches["usec_segmented"])
-                    if expect_mv is not None and got != (expect_mv,
-                                                         expect_sg):
+                    elif not _same(res, want):
                         raise AssertionError(
-                            f"{cell}: launches {got} != expected "
-                            f"{(expect_mv, expect_sg)}")
-                    if launches["flash_attention"] != 0:
-                        raise AssertionError(f"{cell}: flash launched")
+                            f"{cell}: kill run != run without the kill")
                     walls = [r.wall_s for r in res.reports]
                     emit({"phase": "elastic_modes", "placement": kind,
                           "S": s_tol, "segmented": seg, "variant": variant,
@@ -701,6 +740,406 @@ def phase_elastic_modes(counters, mains, smi):
     return totals
 
 
+# ---------------------------------------------------------------------- #
+# Faults + integrity at Sec. V
+# ---------------------------------------------------------------------- #
+FAULT_STEP, CRASH_STEP, UNVERIFIED_STEP = 4, 6, 5
+FAULT_GRID = (("barrier", 1), ("first", 4))
+
+def timeout_s(dim: int) -> float:
+    """A dispatch deadline only worker 0 misses: at step 0 the planner still
+    believes every speed equal (no prior), so each of the 5 live workers
+    gets ~2 * dim / 5 rows, and worker 0 (1000 rows/s) takes ~dim / 2500 s
+    (2.4 s at 6000^2) against worker 1's ~dim / 5000 s."""
+    return dim / 3000.0
+
+PARITY_FAULT_SEED = 4
+
+
+def _record_plans(runner, plans):
+    """Append each adopted plan entry to ``plans`` (one per executed step,
+    in step order, on runs without a retry)."""
+    adopt = runner._adopt_plan
+
+    def recorded():
+        got = adopt()
+        plans.append(got[0])
+        return got
+
+    runner._adopt_plan = recorded
+
+
+def _time_integrity(runner, times):
+    """Host seconds of every call of the runner's integrity checker's
+    audit and Freivalds checks, by method name."""
+    chk = runner._integrity
+    if chk is None:
+        return
+    for name in ("audit_tiles", "check_output", "check_chunks", "locate"):
+        def timed(*a, _fn=getattr(chk, name), _name=name, **k):
+            t0 = time.perf_counter()
+            got = _fn(*a, **k)
+            times.setdefault(_name, []).append(time.perf_counter() - t0)
+            return got
+        setattr(chk, name, timed)
+
+
+def _tile_fault_moves_output(runner, entry, bad, n, w) -> bool:
+    """Would ``tile_corruption`` of worker ``n`` change this step's output
+    (straggler set ``bad``, operand ``w``)? It flips bits in the first
+    elements of the first row of ``n``'s first stored tile: ``n`` must
+    deliver that row, and the flip must move the row's product with ``w``
+    by more than fp32 rounding (a flipped zero is a denormal)."""
+    from repro_torch.faults.integrity import corrupt_tile
+    from repro_torch.runtime import refresh_include
+
+    bp = entry.block
+    slot_of = runner._staged.slot_of[n]
+    slot = int(slot_of[int(np.flatnonzero(slot_of >= 0)[0])])
+    inc = refresh_include(bp, entry.step_plan.plan, tuple(sorted(bad)))
+    if not ((inc[n] > 0) & (bp.blk_slot[n] == slot) & (bp.blk_off[n] == 0)
+            & (bp.blk_seg_t[n] >= 0)).any():
+        return False
+    row = np.array(runner._staged.staged[n, slot, 0])
+    flipped = row.copy()
+    corrupt_tile(flipped)
+    moved = (flipped.astype(np.float64) - row) @ np.asarray(w, np.float64)
+    return abs(float(moved)) >= 2.0 ** -10
+
+
+def phase_elastic_faults(counters, smi):
+    """Faults and integrity at the Sec. V configuration (cyclic, N = 6,
+    J = 3, 6000^2, 8 steps of the churn script, verify="exact" at every
+    step), both executor modes, no forced stragglers. Covered faults at
+    S = 1 under (barrier, 1) and (first, 4) — every dispatch, planning and
+    corruption kind and a dispatch timeout — and the corruption kinds in
+    segmented (barrier, 4) (the window graph): bitwise the clean run, no
+    recovery, the reference's action. Uncovered faults at S = 0: demoted
+    and re-executed to the clean bits. After every tile fault the staged
+    buffer on the card is the one staged (same address) and equals the
+    host copy; a tile corrupted at a step verify_results="sample" skips
+    reaches the kernel (per-block stepwise, and segmented through the
+    graph). Exact launch counts in every run: a barrier quarantine adds
+    one executor call (the plan's real blocks per-block, one
+    usec_segmented segmented), first-arrival dispatches no silent worker,
+    the window graph captures once and replays once a window, and a
+    window's corrupt row chunk is recomputed from a replica tile on the
+    card by one usec_matvec launch. Then a
+    seeded fault schedule at 768^2, card against host. Returns the
+    launches of these runs."""
+    from repro_torch.faults import ChaosPlan, FaultSpec, IntegrityChecker
+    from repro_torch.runtime import make_exact_matrix
+
+    t_phase = time.perf_counter()
+    x = make_exact_matrix(DIM, 0)
+    totals = {name: 0 for name in counters}
+
+    def go(seg, arrival, fuse, s_tol=1, faults=(), cfg=None):
+        # Earlier runs' runners hold 432 MB on the card each and sit in
+        # reference cycles (their wrapped methods): free them first.
+        gc.collect()
+        tally = {"worker_calls": 0, "worker_blocks": 0, "plan_blocks": 0,
+                 "plan_loaded": 0}
+        keep, plans, times, operands = {}, [], {}, []
+
+        def on_runner(r):
+            keep.update(runner=r, ptr=r._staged_dev.data_ptr())
+            _expectations(r, tally)
+            _record_plans(r, plans)
+            _time_integrity(r, times)
+            consume = r.workload.consume
+
+            def recorded(y, w):
+                operands.append(np.array(w))
+                return consume(y, w)
+
+            r.workload.consume = recorded
+
+        plan = ChaosPlan([FaultSpec(*f) for f in faults]) if faults else None
+        reset_launches(counters)
+        t0 = time.perf_counter()
+        run = power_iteration(
+            None, x, "cyclic", REPLICATION, s_tol, seg, N_WORKERS,
+            BASE_SPEEDS, SCRIPT, STEPS, BLOCK_ROWS, arrival=arrival,
+            fuse_steps=fuse, inject=False, on_runner=on_runner, faults=plan,
+            cfg=cfg)
+        res = run.result
+        run_s = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        for n, v in launches.items():
+            totals[n] += v
+        cell = (f"elastic_faults segmented={seg} {arrival}/{fuse} S={s_tol} "
+                f"{faults} {cfg}")
+        win = tally.get("window")
+        repaired = keep["runner"].integrity["repaired_rows"] // BLOCK_ROWS
+        check_launches(cell, seg, arrival, fuse, tally, launches, repaired)
+        if fuse > 1 and run.integrity.get("quarantined") and not repaired:
+            raise AssertionError(f"{cell}: a window quarantine recomputed "
+                                 f"no row chunk")
+        if run.executor_cache_size != 1 or len(run.reports) != STEPS \
+                or not np.all(np.isfinite(res.eigvec)):
+            raise AssertionError(
+                f"{cell}: executor_cache_size {run.executor_cache_size}, "
+                f"{len(run.reports)} steps")
+        return {"res": res, "run": run, "runner": keep["runner"],
+                "ptr": keep["ptr"], "plans": plans, "times": times,
+                "operands": operands,
+                "tally": tally, "launches": launches, "run_s": run_s,
+                "cell": cell, "windows": win.calls if win else None}
+
+    def staged_intact(r, cell):
+        runner = r["runner"]
+        if runner._staged_dev.data_ptr() != r["ptr"] or not torch.equal(
+                runner._staged_dev.cpu(),
+                torch.from_numpy(runner._staged.staged)):
+            raise AssertionError(f"{cell}: staged buffer re-bound or != host")
+
+    def actions(r):
+        return [rec.action for rec in r["run"].fault_records]
+
+    def emit_run(kind, r, clean, step):
+        walls = [rep.wall_s for rep in clean["run"].reports]
+        times = r["times"]
+        checks = times.get("check_output", []) + times.get("check_chunks", [])
+        recs = r["run"].fault_records
+        emit({"phase": "elastic_faults", "cell": r["cell"], "kind": kind,
+              "actions": actions(r),
+              "workers": [rec.spec.worker for rec in recs],
+              "recoveries": r["run"].recoveries,
+              "integrity": r["run"].integrity,
+              "fault_step": step,
+              "fault_step_wall_ms": (1e3 * r["run"].reports[step].wall_s
+                                     if step is not None else None),
+              "clean_median_wall_ms": 1e3 * float(np.median(walls)),
+              "dispatches": r["runner"].device_dispatches,
+              "clean_dispatches": clean["runner"].device_dispatches,
+              "windows": r["windows"],
+              "recomputed_chunks": (r["runner"].integrity["repaired_rows"]
+                                    // BLOCK_ROWS),
+              "recover_s": [rec.recover_s for rec in recs
+                            if rec.action == "demoted"],
+              "audit_ms_per_call": (1e3 * float(np.mean(
+                  times["audit_tiles"])) if "audit_tiles" in times else None),
+              "freivalds_ms_per_check": (1e3 * float(np.mean(checks))
+                                         if checks else None),
+              "launches": r["launches"], "run_s": r["run_s"],
+              "nvidia_smi": smi})
+
+    def winners(clean, step, s_tol):
+        """Workers delivering rows at ``step`` of the clean run, most
+        blocks first."""
+        runner, e = clean["runner"], clean["plans"][step]
+        bad = set(clean["run"].reports[step].straggled)
+        ws = [n for n in runner.membership if n not in bad
+              and runner._first_winner_row(e, bad, n) is not None]
+        return sorted(ws, key=lambda n: -int(e.block.n_blocks[n]))
+
+    checker_s = None
+    n_runs = 0
+    for seg in (None, "auto"):
+        cleans = {}
+        for arrival, fuse in FAULT_GRID:
+            verify = "always" if (arrival, fuse) == ("barrier", 1) \
+                else "sample"
+            clean = cleans[arrival] = go(seg, arrival, fuse,
+                                         cfg={"verify_results": verify})
+            n_runs += 1
+            integ = clean["run"].integrity
+            if integ["sketch_failures"] != 0 or integ["checks"] <= 0:
+                raise AssertionError(f"{clean['cell']}: clean {integ}")
+            emit_run("clean", clean, clean, None)
+            if checker_s is None:
+                rn = clean["runner"]
+                t0 = time.perf_counter()
+                IntegrityChecker(
+                    x, staged=rn._staged.staged, slot_of=rn._staged.slot_of,
+                    holders=rn.placement.holders, block_rows=BLOCK_ROWS,
+                    linear=True, exact=True)
+                checker_s = time.perf_counter() - t0
+            t4 = winners(clean, FAULT_STEP, 1)[0]
+            t6 = winners(clean, CRASH_STEP, 1)[0]
+            sample = {"verify_results": "sample"}
+            covered = {
+                "worker_crash": ([("worker_crash", CRASH_STEP, t6)], None,
+                                 CRASH_STEP, ["masked"]),
+                "result_drop": ([("result_drop", CRASH_STEP, t6)], None,
+                                CRASH_STEP, ["masked"]),
+                "speed_report_loss": ([("speed_report_loss", FAULT_STEP)],
+                                      None, FAULT_STEP, ["report_dropped"]),
+                "stale_plan_table": ([("stale_plan_table", FAULT_STEP)],
+                                     None, FAULT_STEP, ["invalidated"]),
+                "tile_corruption": ([("tile_corruption", FAULT_STEP, t4)],
+                                    sample, FAULT_STEP, ["restaged"]),
+                "result_corruption": ([("result_corruption", FAULT_STEP,
+                                        t4)], sample, FAULT_STEP,
+                                      ["quarantined"]),
+                "dispatch_timeout": ((), {"dispatch_timeout": timeout_s(DIM)}, 0,
+                                     None),
+            }
+            for kind, (faults, cfg, step, want) in covered.items():
+                r = go(seg, arrival, fuse, faults=faults, cfg=cfg)
+                n_runs += 1
+                acts = actions(r)
+                if kind == "dispatch_timeout":
+                    ok = (acts and set(acts) == {"masked"} and
+                          {rec.spec.worker for rec in r["run"].fault_records}
+                          == {0})
+                else:
+                    ok = acts == want
+                sketch = r["run"].integrity["sketch_failures"]
+                if not (ok and _same(r["res"], clean["res"], sets=False)
+                        and r["run"].recoveries == 0
+                        and sketch == (kind == "result_corruption")):
+                    raise AssertionError(
+                        f"{r['cell']}: {kind} actions {acts}, recoveries "
+                        f"{r['run'].recoveries}, sketch failures {sketch}, "
+                        f"bitwise {_same(r['res'], clean['res'], False)}")
+                if kind == "tile_corruption":
+                    staged_intact(r, r["cell"])
+                if kind == "result_corruption" and fuse == 1:
+                    # The quarantine's masked re-dispatch: one more executor
+                    # call with the plan's real blocks.
+                    blocks = [int(e.block.n_blocks.sum()) for e in r["plans"]]
+                    tl = r["tally"]
+                    if (tl["step_calls"], tl["step_blocks"],
+                            r["runner"].device_dispatches) != (
+                            STEPS + 1, sum(blocks) + blocks[FAULT_STEP],
+                            STEPS + 1):
+                        raise AssertionError(f"{r['cell']}: re-dispatch {tl}")
+                emit_run(kind, r, clean, step)
+
+            # Uncovered at S = 0: demote, replan, re-execute.
+            clean0 = go(seg, arrival, fuse, s_tol=0)
+            n_runs += 1
+            u6 = winners(clean0, CRASH_STEP, 0)[0]
+            u4 = winners(clean0, FAULT_STEP, 0)[0]
+            for kind, faults, cfg, step, target in (
+                    ("worker_crash", [("worker_crash", CRASH_STEP, u6)],
+                     None, CRASH_STEP, u6),
+                    ("result_corruption",
+                     [("result_corruption", FAULT_STEP, u4)], sample,
+                     FAULT_STEP, u4)):
+                r = go(seg, arrival, fuse, s_tol=0, faults=faults, cfg=cfg)
+                n_runs += 1
+                run = r["run"]
+                # A fused window recomputes a corrupt chunk from a replica
+                # tile instead (the reference's behavior; on the card one
+                # usec_matvec launch a chunk, counted by check_launches).
+                in_window = kind == "result_corruption" and fuse > 1
+                want = (["quarantined"], 0) if in_window \
+                    else (["demoted"], 1)
+                later = [rep.available for rep in run.reports[step + 1:]]
+                ok = ((actions(r), run.recoveries) == want
+                      and _same(r["res"], clean0["res"], sets=False)
+                      and (in_window or (
+                          all(target not in a for a in later)
+                          and run.fault_records[0].recover_s > 0)))
+                if not ok:
+                    raise AssertionError(
+                        f"{r['cell']}: uncovered {kind} {actions(r)}, "
+                        f"recoveries {run.recoveries}, available {later}")
+                emit_run(f"uncovered_{kind}", r, clean0, step)
+
+            if arrival == "first":
+                # First-arrival stepwise: the crashed worker is never
+                # dispatched at its step.
+                r = go(seg, "first", 1, faults=[
+                    ("worker_crash", CRASH_STEP, t6)])
+                n_runs += 1
+                tl = r["tally"]
+                if tl["worker_calls"] != tl["plan_loaded"] - 1 \
+                        or actions(r) != ["masked"]:
+                    raise AssertionError(f"{r['cell']}: dispatches {tl}")
+                emit_run("first_stepwise_worker_crash", r, r, CRASH_STEP)
+
+        # Segmented (barrier, 4): the corruption kinds through the window
+        # graph; then, once per executor mode, a tile corrupted at a step
+        # verify_results="sample" skips must reach the kernel.
+        if seg is None:
+            base = cleans["barrier"]
+        else:
+            base = go(seg, "barrier", 4, cfg={"verify_results": "sample"})
+            n_runs += 1
+            t4 = winners(base, FAULT_STEP, 1)[0]
+            for kind, action in (("tile_corruption", "restaged"),
+                                 ("result_corruption", "quarantined")):
+                r = go(seg, "barrier", 4, faults=[(kind, FAULT_STEP, t4)],
+                       cfg={"verify_results": "sample"})
+                n_runs += 1
+                if actions(r) != [action] or r["run"].recoveries != 0 \
+                        or not _same(r["res"], base["res"], sets=False):
+                    raise AssertionError(f"{r['cell']}: {actions(r)}")
+                if kind == "tile_corruption":
+                    staged_intact(r, r["cell"])
+                emit_run(kind, r, base, FAULT_STEP)
+        runner = base["runner"]
+        tu = next(n for n in runner.membership if _tile_fault_moves_output(
+            runner, base["plans"][UNVERIFIED_STEP],
+            set(base["run"].reports[UNVERIFIED_STEP].straggled), n,
+            base["operands"][UNVERIFIED_STEP]))
+        r = go(seg, "barrier", 4 if seg else 1,
+               faults=[("tile_corruption", UNVERIFIED_STEP, tu)],
+               cfg={"verify_results": "sample", "verify": None})
+        n_runs += 1
+        got, want = r["res"].residuals, base["res"].residuals
+        # The step's output (its residual) leaves the clean run's; the
+        # quantized eigvec may round back onto the clean grid point.
+        if got[:UNVERIFIED_STEP] != want[:UNVERIFIED_STEP] \
+                or got[UNVERIFIED_STEP] == want[UNVERIFIED_STEP] \
+                or r["run"].fault_records:
+            raise AssertionError(
+                f"{r['cell']}: unverified tile corruption did not reach "
+                f"the kernel")
+        staged_intact(r, r["cell"])
+        emit_run("unverified_tile_corruption", r, base, UNVERIFIED_STEP)
+    parity = faults_parity()
+    emit({"phase": "elastic_faults_checks", "runs": n_runs,
+          "covered_bitwise_clean": True, "uncovered_demoted_bitwise": True,
+          "executor_cache_size_1": True, "staged_buffer_in_place": True,
+          "unverified_corruption_reaches_kernel": True,
+          "launch_counts_exact": True, "card_vs_host_seeded": parity,
+          "checker_build_s": checker_s,
+          "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    return totals
+
+
+def faults_parity():
+    """One seeded fault schedule over every kind (768^2, MAN, N = 4, S = 1,
+    decentral re-planning, verify_results="always"): the port on the card
+    against the port on the host, bitwise eigvec, residuals, realized sets
+    and fault records, stepwise barrier and fused first-arrival, both
+    executor modes. Returns the schedule's kinds."""
+    from repro_torch.faults import FAULT_KINDS, ChaosPlan
+    from repro_torch.runtime import make_exact_matrix
+
+    x = make_exact_matrix(768, 0)
+    script4 = {0: ((3,), ()), 1: ((1,), (3,)), 2: ((), (1,)),
+               4: ((2,), ()), 5: ((), (2,))}
+    plan = ChaosPlan.generate(STEPS, 4, n_faults=3, seed=PARITY_FAULT_SEED,
+                              kinds=FAULT_KINDS)
+    for mode in ("barrier", "fused4_first"):
+        kw = dict(PARITY_MODES[mode])
+        kw["inject"] = False
+        for seg in (None, "auto"):
+            res = {}
+            for dev in ("cpu", "cuda"):
+                res[dev] = power_iteration(
+                    dev, x, "man", 3, 1, seg, 4,
+                    [1000.0, 1300.0, 1700.0, 2200.0], script4, STEPS, 16,
+                    replan="decentral", faults=plan,
+                    cfg={"verify_results": "always"}, **kw)
+            a, b = res["cpu"], res["cuda"]
+            recs = [[(r.spec.step, r.spec.kind, r.spec.worker, r.action)
+                     for r in e.fault_records] for e in (a, b)]
+            if not (_same(a.result, b.result) and recs[0] == recs[1]
+                    and a.recoveries == b.recoveries
+                    and a.integrity == b.integrity):
+                raise AssertionError(
+                    f"faulted card != host at {mode}, segmented={seg}: "
+                    f"{recs}")
+    return [f.kind for f in plan]
+
+
 def phase_elastic_profile(smi):
     """One fused segmented run (cyclic, S = 0, windows of 4) under
     torch.profiler, after a warm run that captured the window graph: the
@@ -717,7 +1156,8 @@ def phase_elastic_profile(smi):
     res = power_iteration(
         None, x, "cyclic", REPLICATION, 0, "auto", N_WORKERS, BASE_SPEEDS,
         SCRIPT, STEPS, BLOCK_ROWS, profiler=prof, fuse_steps=4,
-        on_warm=lambda r: keep.update(runner=r, warm=r.device_dispatches))
+        on_warm=lambda r: keep.update(runner=r, warm=r.device_dispatches)
+    ).result
     runner = keep["runner"]
     entries = sorted(
         ((float(getattr(e, "self_device_time_total", 0) or 0), e.key,
@@ -757,7 +1197,7 @@ def phase_profile():
         t0 = time.perf_counter()
         res = power_iteration(None, x, "cyclic", REPLICATION, 0, seg,
                               N_WORKERS, BASE_SPEEDS, SCRIPT, STEPS,
-                              BLOCK_ROWS, profiler=prof)
+                              BLOCK_ROWS, profiler=prof).result
         run_s = time.perf_counter() - t0
         # Device-side entries only (kernels, memcpys, memsets): a CPU op's
         # device time is its kernels' time again.
@@ -905,16 +1345,17 @@ def phase_flash(dev, paths):
     q, k, v = flash_operands(FLASH_LAYER, dev, 99)
     routes = {"launches_tc": flash_attention_cuda.launches_tc - routes0[0],
               "launches_ffma": flash_attention_cuda.launches_ffma - routes0[1]}
-    kern = timed(lambda: flash_attention_cuda(q, k, v, causal=causal), 10,
-                 "flash_tc_kernel")
-    plain = timed(lambda: flash_attention_plain(q, k, v, causal=causal), 3)
-    lib = timed(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 10)
     pairs = b * h * live_pairs(sq, skv, causal, window)
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     n_flops = 4 * d * pairs
     bound, by = bound_ms(n_bytes, n_flops, BF16_FLOPS_PER_S)
     fp32_bound, _ = bound_ms(n_bytes, n_flops, FP32_FLOPS_PER_S)
+    kern = timed(lambda: flash_attention_cuda(q, k, v, causal=causal), 10,
+                 "flash_tc_kernel", bound)
+    plain = timed(lambda: flash_attention_plain(q, k, v, causal=causal), 3,
+                  bound=bound)
+    lib = timed(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 10, bound=bound)
     del q, k, v
     torch.cuda.empty_cache()
     emit({"phase": "kernel", "name": "flash_attention",
@@ -1195,6 +1636,9 @@ def main() -> int:
     # ---- 3. kernels vs their plain versions ----
     dev = torch.device("cuda", 0)
     kernels = phase_kernels(dev)
+    # Timed here, before any Sec. V or model run: later in the process the
+    # profiler's trace of a few calls loses kernel records.
+    kernels["flash_attention"] = phase_flash(dev, paths)
 
     # ---- 4. main path: Sec. V power iteration ----
     phase_parity()
@@ -1218,7 +1662,6 @@ def main() -> int:
     phase_elastic_profile(smi)
 
     # ---- 5. main path: the model stack's serving path (glm4-9b) ----
-    kernels["flash_attention"] = phase_flash(dev, paths)
     model_launches, bundle, params, batch = phase_model_path(
         dev, counters, smi)
     totals["flash_attention"] = model_launches["flash_attention"]
@@ -1226,6 +1669,17 @@ def main() -> int:
     del bundle, params, batch
     torch.cuda.empty_cache()
     phase_model_parity(dev)
+
+    # ---- 6. faults + integrity at Sec. V ----
+    # Last: the runs with the integrity checker on make the profiler's
+    # trace lose kernel records for the rest of the process (gc and
+    # empty_cache do not bring them back), so every profiled phase runs
+    # before it.
+    faulted = phase_elastic_faults(counters, smi)
+    for n in ("usec_matvec", "usec_segmented"):
+        if faulted[n] <= 0:
+            raise AssertionError(f"{n} never launched by elastic_faults")
+        totals[n] += faulted[n]
 
     print(json.dumps({"kernels": [
         {"name": n, **{k: kernels[n][k] for k in ("route", "source",

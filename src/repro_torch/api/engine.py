@@ -17,19 +17,23 @@ argument:
   float64 host reference. ``device=None`` means CUDA; with no CUDA device
   the engine raises unless the caller passes ``device="cpu"``. Both consume
   rules (``arrival="barrier"`` / ``"first"``) run, stepwise or in fused
-  windows of ``fuse_steps`` steps, and ``run(kill_scheduler_at=i)`` kills
-  the central scheduler before step ``i``.
+  windows of ``fuse_steps`` steps. ``run(faults=...)`` injects unannounced
+  failures (:mod:`repro_torch.faults`): covered losses are masked, and an
+  uncovered one aborts the step, demotes the dead workers and re-executes
+  the step (``kill_scheduler_at=i`` is one such fault). ``dispatch_timeout``
+  and ``verify_results`` arm the runner's timeout and corruption defenses.
 
-Not ported yet: the general fault schedule (``faults=``), checkpointing
-(``save_state``/``resume`` and the checkpoint knobs) and the reentrant
-serving entry points (``prepare``/``submit``). Each raises
-``NotImplementedError`` naming its ROADMAP.md item.
+Not ported yet: checkpointing (``save_state``/``resume`` and the checkpoint
+knobs) and the reentrant serving entry points (``prepare``/``submit``).
+Each raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+import time
 
 import numpy as np
 
@@ -73,9 +77,22 @@ class EngineConfig:
         :class:`~repro_torch.runtime.elastic_runner.RunnerConfig`).
       fuse_steps: K, steps per device dispatch (1 = stepwise; K > 1 runs
         fused windows, one CUDA graph replay a window in segmented mode).
-      dispatch_timeout, checkpoint_dir, checkpoint_every,
-      checkpoint_on_fault, verify_results: not ported; a device engine
-        raises ``NotImplementedError`` unless they keep their defaults.
+      dispatch_timeout: modeled per-dispatch deadline (seconds). A worker
+        whose clocked duration exceeds it is treated as silent: masked as
+        a realized straggler when the S budget covers it, demoted +
+        re-executed otherwise. None disables the detector.
+      max_fault_retries: recovery budget per step index — how many times
+        :meth:`ElasticEngine.run` demotes + replans + re-executes one step
+        after :class:`~repro_torch.faults.chaos.FaultAbort` before giving
+        up and re-raising.
+      verify_results: silent-corruption defense override — None inherits
+        ``policy.verify_results``; ``"off"`` / ``"sample"`` / ``"always"``
+        force the runner's tile-audit + Freivalds cadence (see
+        :class:`~repro_torch.faults.integrity.IntegrityChecker`). The
+        simulate backend ignores it.
+      checkpoint_dir, checkpoint_every, checkpoint_on_fault: not ported; a
+        device engine raises ``NotImplementedError`` unless they keep their
+        defaults.
 
     Both backends:
       arrival: ``"barrier"`` or ``"first"``. The simulate backend prices
@@ -106,8 +123,9 @@ class EngineConfig:
     plan_cache_size: Optional[int] = None
     fuse_steps: int = 1
     segmented: Optional[str] = None
-    # device, not ported yet
+    # device: unannounced-failure tolerance (+ checkpointing, not ported)
     dispatch_timeout: Optional[float] = None
+    max_fault_retries: int = 3
     checkpoint_dir: Optional[str] = None
     checkpoint_every: Optional[int] = None
     checkpoint_on_fault: bool = False
@@ -136,6 +154,22 @@ class EngineConfig:
         _validate_choice("segmented", self.segmented, KERNEL_MODES)
         _validate_choice("verify_results", self.verify_results,
                          (None, "off", "sample", "always"))
+        if self.dispatch_timeout is not None and self.dispatch_timeout <= 0:
+            raise ValueError(
+                f"dispatch_timeout must be > 0 (modeled seconds), got "
+                f"{self.dispatch_timeout}")
+        if self.max_fault_retries < 0:
+            raise ValueError(
+                f"max_fault_retries must be >= 0, got {self.max_fault_retries}")
+        if self.checkpoint_every is not None and self.checkpoint_every < 1:
+            raise ValueError(
+                f"checkpoint_every must be >= 1 steps, got "
+                f"{self.checkpoint_every}")
+        if self.checkpoint_dir is None and (
+                self.checkpoint_every is not None or self.checkpoint_on_fault):
+            raise ValueError(
+                "checkpoint_every / checkpoint_on_fault need a "
+                "checkpoint_dir to write to")
 
     @property
     def completion_model(self) -> str:
@@ -169,9 +203,16 @@ class EngineResult:
     cache_hits: int = 0
     executor_cache_size: int = -1
     stragglers: int = 0
-    # Fault telemetry (device runs with kill_scheduler_at): every fired
-    # fault's FaultRecord.
+    # Unannounced-failure telemetry (device runs with faults/timeouts):
+    # every fired fault's FaultRecord and the number of abort→demote→
+    # replan→re-execute cycles.
     fault_records: List = field(default_factory=list)
+    recoveries: int = 0
+    # Silent-corruption telemetry (device runs with verify_results on):
+    # this run's Freivalds checks / sketch failures / tile audits and the
+    # recovery actions they triggered (restaged tiles, quarantined
+    # partials, rows recomputed in a fused window, graylist events).
+    integrity: Dict[str, int] = field(default_factory=dict)
 
 
 class ElasticEngine:
@@ -286,20 +327,31 @@ class ElasticEngine:
             :class:`~repro_torch.core.decentral.SchedulerKilledError`. It is
             one ``scheduler_kill`` :class:`~repro_torch.faults.chaos.
             FaultSpec` on the run's injector.
-          faults: the general fault schedule, not ported yet.
+          faults: unannounced-failure schedule (device backend only) — a
+            :class:`~repro_torch.faults.chaos.ChaosPlan`, an iterable of
+            :class:`~repro_torch.faults.chaos.FaultSpec`, or a pre-built
+            :class:`~repro_torch.faults.chaos.FaultInjector` (used as-is:
+            its indices are absolute). Plan and spec step indices count
+            steps of THIS run. Covered losses are masked as realized
+            stragglers; uncovered losses abort the dispatch, the dead
+            workers are demoted like a preemption, and the step re-executes
+            (at most ``cfg.max_fault_retries`` times per step index) —
+            outputs stay bitwise-equal to the clean run.
         """
-        if faults is not None:
-            raise not_ported("faults")
         if self.backend == "device":
             if n_steps is None:
                 raise ValueError("the device backend needs an explicit n_steps")
             return self._run_device(data, int(n_steps), events,
                                     straggler_sets, operand,
-                                    kill_scheduler_at)
+                                    kill_scheduler_at, faults)
         if kill_scheduler_at is not None:
             raise ValueError(
                 "kill_scheduler_at is a device-backend fault injection; "
                 "the simulate backend has no live scheduler to kill")
+        if faults is not None:
+            raise ValueError(
+                "faults= is a device-backend injection; the simulate "
+                "backend has no live dispatches to fail")
         return self._run_simulate(n_steps, events)
 
     # ------------------------------------------------------------------ #
@@ -349,8 +401,13 @@ class ElasticEngine:
         return runner
 
     def _run_device(self, data, n_steps, events, straggler_sets,
-                    operand, kill_scheduler_at=None) -> EngineResult:
-        from repro_torch.faults.chaos import FaultInjector, FaultSpec
+                    operand, kill_scheduler_at=None,
+                    faults=None) -> EngineResult:
+        from repro_torch.faults.chaos import (
+            FaultAbort,
+            FaultInjector,
+            FaultSpec,
+        )
 
         if self._runner is None:
             self._runner = self._build_runner(data)
@@ -372,6 +429,7 @@ class ElasticEngine:
         # THIS run's share, so repeated run() calls don't double-count.
         base = (runner.total_waste, runner.churn_events,
                 runner.plans_compiled, runner.cache_hits)
+        integrity_base = runner.integrity_snapshot()
         reports: List = []
         last = None
         fused = runner.cfg.fuse_steps > 1 and runner.fuse_supported
@@ -383,16 +441,71 @@ class ElasticEngine:
         # Engine step i of this run is the runner's absolute step base0+i:
         # the injector and the window-break peeks speak absolute indices.
         base0 = runner._step
+        inj = FaultInjector.coerce(faults, base_step=base0)
         if kill_at is not None:
             # The scheduler kill is one fault kind of the chaos schedule:
             # same injection point (before step kill_at plans).
-            runner.fault_injector = FaultInjector(base_step=base0)
-            runner.fault_injector.add(FaultSpec("scheduler_kill", kill_at))
+            if inj is None:
+                inj = FaultInjector(base_step=base0)
+            inj.add(FaultSpec("scheduler_kill", kill_at))
+        if inj is None and self.cfg.dispatch_timeout is not None \
+                and runner.fault_injector is None:
+            # Timeouts are detected runner-side but *recorded* through the
+            # injector: install an empty one so a fault-free timed run
+            # still reports its masked/demoted workers in fault_records.
+            inj = FaultInjector(base_step=base0)
+        if inj is not None:
+            runner.fault_injector = inj
         inj = runner.fault_injector
         log_base = 0 if inj is None else len(inj.log)
 
-        def next_event() -> Optional[ElasticEvent]:
-            return next(ev_iter, None) if ev_iter is not None else None
+        # Events are consumed from the iterator EXACTLY once per step index
+        # and replayed from this cache when a faulted step re-executes —
+        # an aborted window must not eat trace events.
+        ev_cache: Dict[int, Optional[ElasticEvent]] = {}
+
+        def ev_for(j: int) -> Optional[ElasticEvent]:
+            if j not in ev_cache:
+                ev_cache[j] = (
+                    next(ev_iter, None) if ev_iter is not None else None)
+            return ev_cache[j]
+
+        # Workers demoted by fault recovery: the trace doesn't know they
+        # died, so its later events are filtered against this set (and an
+        # explicit `arrived` revives — the machine came back). Preempted/
+        # arrived are recomputed against the live membership so retried
+        # events stay idempotent.
+        dead: set = set()
+
+        def filt(ev: Optional[ElasticEvent]) -> Optional[ElasticEvent]:
+            if ev is None or not dead:
+                return ev
+            dead.difference_update(ev.arrived)
+            avail = tuple(sorted(set(ev.available) - dead))
+            cur = set(runner.membership)
+            return ElasticEvent(
+                step=ev.step,
+                preempted=tuple(sorted(cur - set(avail))),
+                arrived=tuple(sorted(set(avail) - cur)),
+                available=avail,
+            )
+
+        def demote(step: int, gone) -> None:
+            # A synthesized preemption of the dead workers.
+            dead.update(gone)
+            cur = set(runner.membership)
+            runner.apply_event(ElasticEvent(
+                step=step, preempted=tuple(sorted(set(gone) & cur)),
+                arrived=(), available=tuple(sorted(cur - set(gone)))))
+
+        def drain_demotions(i: int) -> None:
+            # A covered crash was masked as a realized straggler; its
+            # demotion lands before the next step, exactly like an
+            # announced event one step late.
+            if runner.pending_demotions:
+                gone = set(runner.pending_demotions)
+                runner.pending_demotions.clear()
+                demote(base0 + i, gone)
 
         def step_bad_of(i: int, membership) -> Optional[Tuple[int, ...]]:
             # None = "no injection": the runner masks nothing (barrier) or
@@ -403,6 +516,37 @@ class ElasticEngine:
                    else straggler_sets[i])
             return None if got is None else tuple(got)
 
+        recoveries = 0
+        retries: Dict[int, int] = {}
+        recover_t0: Dict[int, float] = {}
+
+        def recover(fa: FaultAbort, i: int) -> None:
+            # The abort fired BEFORE anything dispatched: the carry is
+            # valid, nothing partial was consumed. Demote the dead workers
+            # as if a preemption event had arrived, and let the loop
+            # re-plan + re-execute the same step index. Only FaultAbort
+            # gets here: a kernel or CUDA error propagates.
+            nonlocal recoveries
+            n = retries.get(i, 0) + 1
+            retries[i] = n
+            if n > self.cfg.max_fault_retries:
+                raise fa
+            recoveries += 1
+            recover_t0.setdefault(i, time.perf_counter())
+            if fa.demote:
+                demote(fa.step, fa.demote)
+
+        def settle_recovery(i: int) -> None:
+            # The re-executed step completed: stamp the measured host-side
+            # abort→replan→re-execute latency onto the demotion records.
+            t0 = recover_t0.pop(i, None)
+            if t0 is None or inj is None:
+                return
+            dt = time.perf_counter() - t0
+            for rec in inj.log:
+                if rec.action == "demoted" and rec.recover_s == 0.0:
+                    rec.recover_s = dt
+
         if fused:
             # Window loop: up to K steps per dispatch. Events are consumed
             # step-aligned; churn onto a membership whose plan is already
@@ -410,10 +554,11 @@ class ElasticEngine:
             # miss (or past-tolerance drift) FLUSHES the window early, so
             # the steps assembled so far dispatch at once and the solve runs
             # at the next window's head. A step with a scheduled fault
-            # always lands at a window head (assembly breaks before it).
+            # always lands at a window HEAD (assembly breaks before it): an
+            # uncovered loss then aborts before the window draws any clock
+            # samples, so the retry replays an identical window.
             K = runner.cfg.fuse_steps
             w_carry = w
-            pending = None   # an event read past a flush, for the next window
             i = 0
             while i < n_steps:
                 # Fold the previous window's measurements into the EWMA
@@ -421,8 +566,8 @@ class ElasticEngine:
                 # rule) and the in-window _plan_for judge drift against the
                 # same estimator state.
                 runner.ingest_pending()
-                ev = pending if pending is not None else next_event()
-                pending = None
+                drain_demotions(i)
+                ev = filt(ev_for(i))
                 membership = (tuple(sorted(ev.available)) if ev is not None
                               else runner.membership)
                 evs: List = [ev]
@@ -430,20 +575,26 @@ class ElasticEngine:
                 j = i + 1
                 while j < n_steps and len(sets) < K:
                     if inj is not None and inj.has_fault(base0 + j):
+                        # Break so the fault fires at the next window's
+                        # head — an abort there discards nothing.
                         break
-                    ev_j = next_event()
+                    ev_j = filt(ev_for(j))
                     if ev_j is not None:
                         new_mem = tuple(sorted(ev_j.available))
                         if ((ev_j.is_churn or new_mem != membership)
                                 and not runner.plan_is_ready(new_mem)):
-                            pending = ev_j
                             break  # flush: solve off-window
                         membership = new_mem
                     evs.append(ev_j)
                     sets.append(step_bad_of(j, membership))
                     j += 1
-                w_carry, ys, ws, reps = runner.step_window(
-                    w_carry, sets, events=evs)
+                try:
+                    w_carry, ys, ws, reps = runner.step_window(
+                        w_carry, sets, events=evs)
+                except FaultAbort as fa:
+                    recover(fa, i)
+                    continue
+                settle_recovery(i)
                 reports.extend(reps)
                 # Replay the host-side fold on the window outputs: combine +
                 # consume give the per-step results/statistics exactly as
@@ -456,15 +607,23 @@ class ElasticEngine:
             w = w_carry.cpu().numpy() if not isinstance(w_carry, np.ndarray) \
                 else w_carry
         else:
-            for i in range(n_steps):
-                ev = next_event()
+            i = 0
+            while i < n_steps:
+                drain_demotions(i)
+                ev = filt(ev_for(i))
                 if ev is not None:
                     runner.apply_event(ev)
-                y, rep = runner.step(
-                    w, stragglers=step_bad_of(i, runner.membership))
+                try:
+                    y, rep = runner.step(
+                        w, stragglers=step_bad_of(i, runner.membership))
+                except FaultAbort as fa:
+                    recover(fa, i)
+                    continue
+                settle_recovery(i)
                 reports.append(rep)
                 last = wl.combine(y)
                 w = wl.consume(last, w)
+                i += 1
 
         return EngineResult(
             backend="device",
@@ -479,6 +638,10 @@ class ElasticEngine:
             executor_cache_size=runner.executor_cache_size,
             stragglers=runner.planning_master.stragglers,
             fault_records=[] if inj is None else list(inj.log[log_base:]),
+            recoveries=recoveries,
+            integrity={
+                k: v - integrity_base.get(k, 0)
+                for k, v in runner.integrity_snapshot().items()},
         )
 
     # ------------------------------------------------------------------ #

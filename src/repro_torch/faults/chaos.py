@@ -1,9 +1,7 @@
 """Deterministic chaos schedules and the fault-injection hook.
 
-A NumPy copy of :mod:`repro.faults.chaos` (no torch, no JAX). This slice of
-the port consumes only the planning kinds (``scheduler_kill``,
-``stale_plan_table``); the runner raises ``NotImplementedError`` for the
-others (ROADMAP.md Queue 1 item 8).
+A NumPy copy of :mod:`repro.faults.chaos` (no torch, no JAX). The port's
+runner consumes every kind at the same seams as the reference's.
 
 Seven fault kinds, covering every unannounced-failure mode the engine
 and serving layer recover from:
@@ -39,9 +37,9 @@ and serving layer recover from:
     Silent bit-rot in one worker's staged replica tile BEFORE the step
     dispatches. Unlike every kind above, nothing goes absent — the
     worker computes on garbage and answers on time. Detected by the
-    staging-time tile fingerprints of the integrity checker (when
-    ``verify_results`` is on; ROADMAP.md Queue 1 item 8, not ported yet)
-    and repaired by re-staging the tile from
+    staging-time tile fingerprints of
+    :class:`~repro_torch.faults.integrity.IntegrityChecker` (when
+    ``verify_results`` is on) and repaired by re-staging the tile from
     a surviving replica holder — the uncoded-redundancy recovery.
 ``result_corruption``
     One worker's returned partial is silently perturbed after compute.

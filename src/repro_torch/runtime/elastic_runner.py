@@ -42,12 +42,19 @@ apportions the measured step wall time by row share, and
 exercise the EWMA adaptation reproducibly. Real step wall time (host clock
 around a synchronized executor call) is always measured and reported.
 
-Planning faults (``scheduler_kill``, ``stale_plan_table``) fire at a step's
-head through :attr:`ElasticRunner.fault_injector`. Not ported yet (each
-raises ``NotImplementedError`` naming its ROADMAP.md item): the dispatch and
-corruption fault kinds, ``dispatch_timeout`` and ``verify_results``. This
-module imports torch only when a runner is built, so the host-side classes
-work without it.
+Unannounced failures (:mod:`repro_torch.faults`) fire at the reference's
+seams through :attr:`ElasticRunner.fault_injector`: planning faults at a
+step's head, dispatch faults (crash, result drop) classified against the S
+budget before anything dispatches (covered: masked as realized stragglers;
+not covered: :class:`~repro_torch.faults.chaos.FaultAbort` for the engine's
+demote → replan → re-execute loop), ``dispatch_timeout`` on the modeled
+durations, and the silent-corruption defense of ``verify_results``: a host
+tile audit with in-place re-staging on the card, and Freivalds checks of
+the fetched results with a masked re-dispatch through the same executor
+(barrier), a realized straggler (first-arrival) or a recompute of the
+corrupt rows from a replica tile (fused windows; on the card one
+``usec_matvec`` launch a row chunk). This module imports torch only when a runner
+is built, so the host-side classes work without it.
 """
 
 from __future__ import annotations
@@ -80,9 +87,6 @@ KERNEL_MODES = (None, "auto", "cuda", "ref")
 
 # Where each unported knob will land (ROADMAP.md, Queue 1).
 ROADMAP_ITEM = {
-    "dispatch_timeout": "item 8 (faults + integrity)",
-    "faults": "item 8 (faults + integrity)",
-    "verify_results": "item 8 (faults + integrity)",
     "checkpointing": "item 9 (checkpoint)",
     "prepare/submit": "item 10 (serving)",
 }
@@ -154,7 +158,25 @@ class RunnerConfig:
       :mod:`repro_torch.core.decentral` over replicated state (plans are
       bitwise-identical, and :meth:`ElasticRunner.kill_scheduler` mid-run
       does not stop the job).
-    dispatch_timeout / verify_results: not ported; must stay None / "off".
+    dispatch_timeout: modeled per-dispatch deadline (seconds). A worker
+      whose clocked duration exceeds it is silent for this step: masked as
+      a realized straggler (one re-dispatch without it under the barrier)
+      when the S budget covers it, :class:`~repro_torch.faults.chaos.
+      FaultAbort` otherwise. None disables the detector.
+    verify_results: silent-corruption defense (``"off"`` | ``"sample"``
+      | ``"always"``). On verified steps the runner (1) audits every
+      staged replica tile (host copy) against its staging-time CRC32 and
+      re-stages a corrupt tile from a surviving replica holder, on the
+      host and in place on the card, and (2) Freivalds-checks the step
+      output against seeded ±1 sketches of X (linear workloads; see
+      :class:`repro_torch.faults.integrity.IntegrityChecker`). A corrupt
+      partial is discarded (first-arrival: realized straggler; barrier:
+      masked + re-dispatched through the same executor; fused: rows
+      recomputed from a replica tile, by the kernel on the card), its
+      timing is censored
+      from the EWMA, and repeat offenders are graylisted. ``"sample"``
+      verifies every :data:`repro_torch.faults.integrity.SAMPLE_PERIOD`-th
+      step.
     """
 
     block_rows: int = 16
@@ -183,10 +205,10 @@ class RunnerConfig:
         _validate_choice("segmented", self.segmented, KERNEL_MODES)
         _validate_choice("verify_results", self.verify_results,
                          ("off", "sample", "always"))
-        if self.dispatch_timeout is not None:
-            raise not_ported("dispatch_timeout")
-        if self.verify_results != "off":
-            raise not_ported("verify_results")
+        if self.dispatch_timeout is not None and self.dispatch_timeout <= 0:
+            raise ValueError(
+                f"dispatch_timeout must be > 0 (modeled seconds), got "
+                f"{self.dispatch_timeout}")
 
 
 def _validate_choice(name: str, value, allowed) -> None:
@@ -403,7 +425,7 @@ class ElasticRunner:
             seg_mode = None if cfg.segmented == "auto" else cfg.segmented
             seg_fn = workload.segmented_fn(seg_mode,
                                            block_rows=cfg.block_rows)
-        mm = workload.executor_fn(cfg.matmul_mode)
+        mm = self._matmul = workload.executor_fn(cfg.matmul_mode)
         self._executor = make_matvec_executor(
             rows_total=q, block_rows=cfg.block_rows, matmul=mm,
             out_cols=workload.out_cols, segmented_fn=seg_fn,
@@ -466,10 +488,50 @@ class ElasticRunner:
         # windows (realized sets must be known before dispatch). Clocks that
         # matter for reproducibility (SyntheticSpeedClock) ignore the wall.
         self._last_step_wall = 1.0
-        # Unannounced-failure seam (repro_torch.faults): consulted at each
-        # step's head. The planning kinds fire here; the others are not
-        # ported yet and raise.
+        # Unannounced-failure seams (repro_torch.faults): the injector is
+        # consulted at each step's head; pending_demotions collects workers
+        # whose covered crash was masked this step — the engine turns them
+        # into a synthesized preemption before the next step. Uncovered
+        # faults raise FaultAbort before anything dispatches.
         self.fault_injector = None
+        self.pending_demotions: Set[int] = set()
+        # Silent-corruption defense (cfg.verify_results): tile fingerprints
+        # and Freivalds sketch products built from the SAME host bits the
+        # card holds, so a clean run can never disagree with its checker.
+        self._integrity = None
+        if cfg.verify_results != "off":
+            from repro_torch.faults.integrity import IntegrityChecker
+
+            self._integrity = IntegrityChecker(
+                x,
+                staged=self._staged.staged,
+                slot_of=self._staged.slot_of,
+                holders=placement.holders,
+                block_rows=cfg.block_rows,
+                linear=getattr(workload, "linear", False),
+                exact=(cfg.verify == "exact"),
+            )
+        # Injected-but-undetected corruption specs by worker: consumed at
+        # the injection seam, recorded when (if) the defense catches them.
+        self._live_tile_specs: Dict[int, object] = {}
+        self._live_result_specs: Dict[int, object] = {}
+        self.integrity = {
+            "restaged": 0,
+            "quarantined": 0,
+            "repaired_rows": 0,
+            "graylist_events": 0,
+        }
+
+    def integrity_snapshot(self) -> Dict[str, int]:
+        """Integrity counters: runner-side recovery counts plus the
+        checker's check/failure/audit totals (zeros when off)."""
+        out = dict(self.integrity)
+        if self._integrity is not None:
+            out.update(self._integrity.counters())
+        else:
+            out.update({"checks": 0, "sketch_failures": 0,
+                        "tile_audits": 0})
+        return out
 
     # ------------------------------------------------------------------ #
     @property
@@ -775,22 +837,20 @@ class ElasticRunner:
 
     # ------------------------------------------------------------------ #
     # Unannounced-failure seams (repro_torch.faults). Faults are consulted
-    # and consumed at each step's head.
+    # and consumed at each step's head; a fault the S budget cannot absorb
+    # raises FaultAbort BEFORE any state-mutating dispatch, so the caller's
+    # operand/carry stays valid and the step can re-execute after a replan.
     # ------------------------------------------------------------------ #
     def _consult_planning_faults(self, t: int) -> None:
         """Fire planning-path faults scheduled at absolute step ``t``:
         ``scheduler_kill`` tombstones the central master (the decentral
         replica keeps the run alive), ``stale_plan_table`` drops every
-        replicated planning artifact. Both are consumed one-shot. Any other
-        kind scheduled at ``t`` raises: its seam is not ported yet."""
+        replicated planning artifact. Both are consumed one-shot."""
         inj = self.fault_injector
         if inj is None:
             return
-        from repro_torch.faults.chaos import FAULT_KINDS, PLANNING_KINDS
+        from repro_torch.faults.chaos import PLANNING_KINDS
 
-        others = tuple(k for k in FAULT_KINDS if k not in PLANNING_KINDS)
-        if inj.has_fault(t, kinds=others):
-            raise not_ported("faults")
         for spec in inj.take(t, kinds=PLANNING_KINDS):
             if spec.kind == "scheduler_kill":
                 if self.scheduler_killed:
@@ -809,18 +869,167 @@ class ElasticRunner:
                     detail += f" + {n_table} table entr(ies)"
                 inj.record(spec, "invalidated", detail)
 
-    def _derive_realized(self, durations: Dict[int, float]
-                         ) -> Tuple[int, ...]:
+    def _take_dispatch_faults(self, t: int):
+        """Consume the dispatch faults (crash / result drop) scheduled at
+        absolute step ``t``; a target outside the membership is a recorded
+        noop (it is already gone). Returns ``[(spec, worker), ...]``."""
+        inj = self.fault_injector
+        if inj is None:
+            return []
+        from repro_torch.faults.chaos import DISPATCH_KINDS
+
+        out = []
+        for spec in inj.take(t, kinds=DISPATCH_KINDS):
+            n = int(spec.worker)
+            if n not in self._membership:
+                inj.record(spec, "noop",
+                           f"worker {n} not in the membership")
+                continue
+            out.append((spec, n))
+        return out
+
+    def _coverable(self, entry: _CacheEntry, bad: Set[int]) -> bool:
+        """Can this step proceed with every worker in ``bad`` silent? True
+        when the plan's S budget covers the set (include_mask finds a
+        surviving copy of every segment) AND at least one loaded worker
+        remains to be consumed."""
+        if not bad:
+            return True
+        if len(bad) > entry.stragglers:
+            return False
+        loaded = [n for n in self._membership
+                  if entry.block.n_blocks[n] > 0]
+        if len(set(loaded) - bad) < 1:
+            return False
+        try:
+            entry.step_plan.plan.include_mask(tuple(sorted(bad)))
+        except Exception:
+            return False
+        return True
+
+    def _resolve_lost(
+        self,
+        t: int,
+        entry: _CacheEntry,
+        dfaults,
+        injected: Optional[Tuple[int, ...]],
+    ) -> Tuple[int, ...]:
+        """Classify this step's dispatch faults against the S budget.
+
+        Covered: the lost workers become realized stragglers — the fault
+        is *masked* (and a crash queues its demotion for the caller).
+        Not covered: record the demotions and raise :class:`FaultAbort`
+        before anything dispatches — the caller demotes, replans, and
+        re-executes this step. Returns the loaded lost set to mask."""
+        from repro_torch.faults.chaos import FaultAbort
+
+        inj = self.fault_injector
+        loaded = {n for n in self._membership
+                  if entry.block.n_blocks[n] > 0}
+        lost = tuple(sorted({n for _, n in dfaults if n in loaded}))
+        bad_all = set(injected or ()) | set(lost)
+        if self._coverable(entry, bad_all):
+            for spec, n in dfaults:
+                if n not in loaded:
+                    inj.record(spec, "noop",
+                               f"worker {n} holds no rows this step")
+                    continue
+                inj.record(
+                    spec, "masked",
+                    f"step {t}: silent worker {n} covered by S="
+                    f"{entry.stragglers}; realized straggler")
+                if spec.kind == "worker_crash":
+                    self.pending_demotions.add(n)
+            return lost
+        demote = tuple(sorted({n for _, n in dfaults}))
+        for spec, n in dfaults:
+            inj.record(
+                spec, "demoted",
+                f"step {t}: loss of worker {n} exceeds S="
+                f"{entry.stragglers}; abort, demote, replan, re-execute")
+        raise FaultAbort(
+            t, dfaults[0][0].kind, lost=lost, demote=demote,
+            detail=f"S={entry.stragglers} cannot cover {sorted(bad_all)}")
+
+    def _take_speed_loss(self, t: int) -> bool:
+        """Fire a scheduled ``speed_report_loss`` at absolute step ``t``:
+        the step's measured durations never reach the master, so its EWMA
+        feed is dropped by the caller. Output bits are already final.
+        Returns True when a loss fired (one-shot)."""
+        inj = self.fault_injector
+        if inj is None:
+            return False
+        fired = False
+        for spec in inj.take(t, kinds=("speed_report_loss",)):
+            inj.record(
+                spec, "report_dropped",
+                f"step {t}: measured durations lost in transit; "
+                f"EWMA update skipped")
+            fired = True
+        return fired
+
+    def _timeout_check(
+        self,
+        t: int,
+        entry: _CacheEntry,
+        durations: Dict[int, float],
+        already_bad: Set[int],
+    ) -> Tuple[int, ...]:
+        """Apply ``cfg.dispatch_timeout`` to modeled durations: workers
+        past the deadline are silent as far as this step's master is
+        concerned. Covered → returned (to mask as realized stragglers and
+        censor from the EWMA). Not covered → FaultAbort with the timed-out
+        set demoted (a worker this late is treated as dead)."""
+        timeout = self.cfg.dispatch_timeout
+        if timeout is None:
+            return ()
+        timed = tuple(sorted(
+            n for n, d in durations.items()
+            if d > timeout and n not in already_bad))
+        if not timed:
+            return ()
+        if not self._coverable(entry, already_bad | set(timed)):
+            from repro_torch.faults.chaos import FaultAbort
+
+            raise FaultAbort(
+                t, "dispatch_timeout", lost=timed, demote=timed,
+                detail=f"worker(s) {list(timed)} exceeded "
+                       f"dispatch_timeout={timeout} beyond the S budget")
+        if self.fault_injector is not None:
+            from repro_torch.faults.chaos import FaultSpec
+
+            for n in timed:
+                self.fault_injector.record(
+                    FaultSpec("result_drop", max(t, 0), worker=n),
+                    "masked",
+                    f"step {t}: worker {n} past dispatch_timeout="
+                    f"{timeout}; realized straggler",
+                    detect_s=float(timeout))
+        return timed
+
+    def _derive_realized(
+        self,
+        durations: Dict[int, float],
+        forced: Sequence[int] = (),
+    ) -> Tuple[int, ...]:
         """Realized straggler set from modeled arrival order: the master
         consumes the first ``n_loaded - S`` completions, so the slowest S
         loaded workers (ties broken by id) are this step's stragglers. At
-        least one worker is always consumed."""
+        least one worker is always consumed. ``forced`` pins workers whose
+        results are already known lost (faults/timeouts) into the set —
+        they spend budget first; only the remainder of S is derived from
+        arrival order."""
         S = self._master.stragglers
-        s_eff = min(S, max(len(durations) - 1, 0))
-        if s_eff <= 0:
-            return ()
-        order = sorted(durations, key=lambda n: (durations[n], n))
-        return tuple(sorted(int(n) for n in order[len(order) - s_eff:]))
+        forced = tuple(sorted({int(n) for n in forced}))
+        pool = sorted(set(durations) | set(forced))
+        s_eff = min(S, max(len(pool) - 1, 0))
+        extra = s_eff - len(forced)
+        if extra <= 0:
+            return forced
+        rest = [n for n in sorted(durations) if n not in set(forced)]
+        order = sorted(rest, key=lambda n: (durations[n], n))
+        derived = order[len(order) - extra:]
+        return tuple(sorted(set(forced) | {int(n) for n in derived}))
 
     def _winner_combine(
         self,
@@ -853,6 +1062,423 @@ class ElasticRunner:
             pos[n] = i
         stack = np.stack(parts)
         return stack[pos[winner], np.arange(self.rows_total)]
+
+    # ------------------------------------------------------------------ #
+    # Silent-corruption defense (cfg.verify_results)
+    # ------------------------------------------------------------------ #
+    def _verifying(self, t: int) -> bool:
+        """Does ``verify_results`` check absolute step ``t``?"""
+        if self._integrity is None:
+            return False
+        from repro_torch.faults.integrity import should_verify
+
+        return should_verify(self.cfg.verify_results, t)
+
+    def _mirror_tile(self, n: int, slot: int, src=None) -> None:
+        """Write worker ``n``'s staged ``slot`` on the card: from the host
+        copy, or (``src = (donor, donor_slot)``) device to device. In place:
+        the fused window's CUDA graph holds the staged buffer by address,
+        so the buffer is never re-bound (and never re-uploaded)."""
+        import torch
+
+        dst = self._staged_dev[n, slot]
+        if src is None:
+            dst.copy_(torch.from_numpy(self._staged.staged[n, slot]))
+        else:
+            dst.copy_(self._staged_dev[src[0], src[1]])
+
+    def _consume_tile_corruption(self, t: int) -> None:
+        """Fire scheduled ``tile_corruption`` faults: flip bits in the
+        target's first stored replica tile (host copy, mirrored in place on
+        the card). The fault is silent — detection is the fingerprint
+        audit's job."""
+        inj = self.fault_injector
+        if inj is None:
+            return
+        from repro_torch.faults.integrity import corrupt_tile
+
+        for spec in inj.take(t, kinds=("tile_corruption",)):
+            n = int(spec.worker)
+            stored = np.flatnonzero(self._staged.slot_of[n] >= 0)
+            if n not in self._membership or stored.size == 0:
+                inj.record(spec, "noop",
+                           f"worker {n} stores no tiles")
+                continue
+            slot = int(self._staged.slot_of[n, int(stored[0])])
+            corrupt_tile(self._staged.staged[n, slot])
+            self._mirror_tile(n, slot)
+            self._live_tile_specs[n] = spec
+
+    def _audit_and_restage(self, t: int) -> None:
+        """Pre-dispatch tile audit: re-checksum every staged replica (host
+        copy) against its staging-time fingerprint. A corrupt tile is
+        repaired IN PLACE from a surviving replica holder whose own copy
+        still matches — on the host, and on the card as a device-to-device
+        copy from the donor's slot. The plan (and therefore the output
+        bits) is untouched and nobody is demoted. Only when no clean
+        replica survives does the holder get demoted via
+        :class:`FaultAbort`."""
+        chk = self._integrity
+        if chk is None or not chk.fingerprints:
+            return
+        mismatches = chk.audit_tiles(self._staged.staged)
+        if not mismatches:
+            return
+        from repro_torch.faults.chaos import FaultAbort, FaultSpec
+
+        inj = self.fault_injector
+        for n, slot, g in mismatches:
+            spec = self._live_tile_specs.pop(n, None) or FaultSpec(
+                "tile_corruption", max(t, 0), worker=n)
+            donor = chk.find_donor(
+                self._staged.staged, g, n, self._membership)
+            if donor is None:
+                if inj is not None:
+                    inj.record(
+                        spec, "demoted",
+                        f"step {t}: tile {g} corrupt on worker {n} with "
+                        f"no clean surviving replica; demote")
+                raise FaultAbort(
+                    t, "tile_corruption", lost=(n,), demote=(n,),
+                    detail=f"tile {g} has no clean surviving replica")
+            chk.restage(self._staged.staged, n, slot, g, donor)
+            self._mirror_tile(
+                n, slot, (donor, int(self._staged.slot_of[donor, g])))
+            self.integrity["restaged"] += 1
+            if inj is not None:
+                inj.record(
+                    spec, "restaged",
+                    f"step {t}: tile {g} on worker {n} failed its "
+                    f"staging fingerprint; re-staged from replica holder "
+                    f"{donor} — capacity restored, plan untouched")
+
+    def _graylist_forced(self, t: int, entry: _CacheEntry,
+                         already: Set[int]) -> Set[int]:
+        """Graylisted workers (repeat corruption offenders on probation)
+        to force into this step's realized straggler set. Probation is
+        best-effort: when the S budget cannot cover the distrusted
+        worker, its (sketch-verified) result is consumed anyway."""
+        chk = self._integrity
+        if chk is None:
+            return set()
+        gray = chk.health.graylisted(t) & set(self._membership)
+        gray -= set(already)
+        if not gray or not self._coverable(entry, set(already) | gray):
+            return set()
+        return gray
+
+    def _note_quarantine(self, t: int, workers: Set[int]) -> Set[int]:
+        """Strike each corrupt worker's health ledger; returns the subset
+        this strike newly graylisted."""
+        gray = set()
+        for n in sorted(workers):
+            if self._integrity.health.strike(n, t):
+                gray.add(n)
+                self.integrity["graylist_events"] += 1
+        return gray
+
+    def _first_winner_row(self, entry: _CacheEntry, bad: Set[int],
+                          n: int) -> Optional[int]:
+        """First global output row worker ``n`` delivers under the
+        current include weights (None when it wins no rows)."""
+        from .executor import refresh_include
+
+        include = refresh_include(
+            entry.block, entry.step_plan.plan, tuple(sorted(bad)))
+        win = (include[n] > 0) & (entry.block.blk_seg_t[n] >= 0)
+        bs = np.nonzero(win)[0]
+        if bs.size == 0:
+            return None
+        return int(entry.block.blk_goff[n, int(bs[0])])
+
+    def _chunk_winners(self, entry: _CacheEntry, bad: Set[int],
+                       chunks) -> Set[int]:
+        """The workers that delivered the given ``block_rows`` row chunks
+        under the current include weights — the localization step that
+        turns a failed sketch into a named culprit."""
+        from .executor import refresh_include
+
+        include = refresh_include(
+            entry.block, entry.step_plan.plan, tuple(sorted(bad)))
+        bp = entry.block
+        win = (include > 0) & (bp.blk_seg_t >= 0)
+        n_idx, b_idx = np.nonzero(win)
+        chunk_of = bp.blk_goff[n_idx, b_idx] // self.cfg.block_rows
+        want = {int(c) for c in chunks}
+        return {int(n) for n, c in zip(n_idx, chunk_of) if int(c) in want}
+
+    def _record_result_spec(self, t: int, n: int, action: str,
+                            detail: str) -> None:
+        """Record the (injected or detected) result corruption of worker
+        ``n`` at step ``t`` with ``action``."""
+        from repro_torch.faults.chaos import FaultSpec
+
+        spec = self._live_result_specs.pop(n, None) or FaultSpec(
+            "result_corruption", max(t, 0), worker=n)
+        if self.fault_injector is not None:
+            self.fault_injector.record(spec, action, detail)
+
+    def _integrity_first(
+        self,
+        t: int,
+        entry: _CacheEntry,
+        parts: List[np.ndarray],
+        loaded: List[int],
+        w,
+        silent: Set[int],
+        durations: Dict[int, float],
+        injected,
+    ) -> Tuple[Set[int], Dict[int, float]]:
+        """First-arrival corruption seam: inject scheduled
+        ``result_corruption`` into the fetched partials, then Freivalds-
+        check each loaded worker's rows. A corrupt worker becomes a
+        realized straggler — its rows are served by a surviving holder
+        through the ordinary winner gather, its timing is censored from
+        the EWMA — or, past the S budget, it is demoted via FaultAbort
+        before the combine."""
+        from repro_torch.faults.chaos import FaultAbort
+        from repro_torch.faults.integrity import corrupt_result
+
+        inj = self.fault_injector
+        bp = entry.block
+        if inj is not None:
+            for spec in inj.take(t, kinds=("result_corruption",)):
+                n = int(spec.worker)
+                if n not in loaded:
+                    inj.record(spec, "noop",
+                               f"worker {n} has no partial this step")
+                    continue
+                # A host view of a device-run output may alias the
+                # executor's tensor: corrupt a copy.
+                i = loaded.index(n)
+                p = np.array(parts[i])
+                corrupt_result(p, int(bp.blk_goff[n, 0]))
+                parts[i] = p
+                self._live_result_specs[n] = spec
+        chk = self._integrity
+        if chk is None or not chk.linear or not self._verifying(t):
+            return silent, durations
+        br = self.cfg.block_rows
+        corrupt: Set[int] = set()
+        for i, n in enumerate(loaded):
+            nb = int(bp.n_blocks[n])
+            chunks = (bp.blk_goff[n, :nb] // br).tolist()
+            if not chk.check_chunks(t, parts[i], w, chunks):
+                corrupt.add(n)
+        if not corrupt:
+            return silent, durations
+        newly_gray = self._note_quarantine(t, corrupt)
+        lost = tuple(sorted(corrupt))
+        if not self._coverable(
+                entry, silent | corrupt | set(injected or ())):
+            for n in lost:
+                self._record_result_spec(
+                    t, n, "demoted",
+                    f"step {t}: corrupt partial from worker {n} "
+                    f"exceeds S={entry.stragglers}; abort, demote, "
+                    f"replan, re-execute")
+            raise FaultAbort(
+                t, "result_corruption", lost=lost, demote=lost,
+                detail=f"S={entry.stragglers} cannot cover corrupt "
+                       f"worker(s) {list(lost)}")
+        self.integrity["quarantined"] += len(corrupt)
+        for n in lost:
+            self._record_result_spec(
+                t, n, "quarantined",
+                f"step {t}: worker {n}'s partial failed the "
+                f"Freivalds sketch; realized straggler, rows served "
+                f"by a surviving holder, timing censored"
+                + (", graylisted" if n in newly_gray else ""))
+        return silent | corrupt, {
+            n: d for n, d in durations.items() if n not in corrupt}
+
+    def _integrity_barrier(
+        self,
+        t: int,
+        entry: _CacheEntry,
+        y: np.ndarray,
+        w,
+        bad: Tuple[int, ...],
+        durations: Dict[int, float],
+    ) -> Tuple[np.ndarray, Dict[int, float], Tuple[int, ...], float]:
+        """Barrier corruption seam: inject scheduled
+        ``result_corruption`` into the fetched output, Freivalds-check
+        it, and on failure localize the corrupt row chunks to their
+        producing worker. Recovery mirrors the covered-timeout template:
+        the SAME executor re-dispatches with the culprit's copies masked
+        out of the include weights (bit-identical output, nothing
+        rebuilt); past the S budget the culprit is demoted via
+        FaultAbort. Returns ``(y, durations, bad, re-dispatch wall)``."""
+        from repro_torch.faults.chaos import FaultAbort
+        from repro_torch.faults.integrity import corrupt_result
+
+        inj = self.fault_injector
+        bad_set = set(bad)
+        if inj is not None:
+            for spec in inj.take(t, kinds=("result_corruption",)):
+                n = int(spec.worker)
+                row = (self._first_winner_row(entry, bad_set, n)
+                       if n in self._membership else None)
+                if row is None:
+                    inj.record(spec, "noop",
+                               f"worker {n} delivers no output rows "
+                               f"this step")
+                    continue
+                # The fetched output may alias the executor's tensor.
+                y = np.array(y)
+                corrupt_result(y, row)
+                self._live_result_specs[n] = spec
+        chk = self._integrity
+        if chk is None or not chk.linear or not self._verifying(t) \
+                or chk.check_output(t, y, w):
+            return y, durations, tuple(sorted(bad_set)), 0.0
+        bad_chunks = chk.locate(t, y, w)
+        culprits = self._chunk_winners(entry, bad_set, bad_chunks)
+        culprits -= bad_set
+        if not culprits:
+            # Defensive: a tripped sketch with no attributable producer.
+            # Abort with nothing demoted — the engine's recovery loop
+            # re-executes the step (the injection, being one-shot, is
+            # already consumed).
+            raise FaultAbort(
+                t, "result_corruption", lost=(), demote=(),
+                detail="sketch failure with no attributable producer")
+        newly_gray = self._note_quarantine(t, culprits)
+        lost = tuple(sorted(culprits))
+        bad_new = tuple(sorted(bad_set | culprits))
+        if not self._coverable(entry, set(bad_new)):
+            for n in lost:
+                self._record_result_spec(
+                    t, n, "demoted",
+                    f"step {t}: corrupt output rows from worker {n} "
+                    f"exceed S={entry.stragglers}; abort, demote, "
+                    f"replan, re-execute")
+            raise FaultAbort(
+                t, "result_corruption", lost=lost, demote=lost,
+                detail=f"S={entry.stragglers} cannot cover corrupt "
+                       f"worker(s) {list(lost)}")
+        y, wall = self._barrier_dispatch(entry, w, bad_new)
+        durations = {n: d for n, d in durations.items()
+                     if n not in culprits}
+        self.integrity["quarantined"] += len(culprits)
+        for n in lost:
+            self._record_result_spec(
+                t, n, "quarantined",
+                f"step {t}: worker {n}'s output rows failed the "
+                f"Freivalds sketch; masked and re-dispatched without "
+                f"it, timing censored"
+                + (", graylisted" if n in newly_gray else ""))
+        if not chk.check_output(t, y, w):  # pragma: no cover - belt
+            raise FaultAbort(
+                t, "result_corruption", lost=lost, demote=lost,
+                detail="re-dispatched output still fails the sketch")
+        return y, durations, bad_new, wall
+
+    def _integrity_window(
+        self,
+        base: int,
+        n_active: int,
+        metas,
+        sets,
+        ys: np.ndarray,
+        ws: np.ndarray,
+        ws_d,
+    ) -> List[Set[int]]:
+        """Fused-window corruption seam (post-fetch): inject scheduled
+        ``result_corruption`` into each active step's fetched output
+        (a host copy), Freivalds-check each step, and repair corrupt row
+        chunks by recomputing them from a surviving replica holder's
+        staged tile (:meth:`_replica_recompute`; ``ws_d`` is the window's
+        operands on the device) — the realized include is baked into the
+        already-replayed window, and a stepwise re-dispatch would leave
+        the one-program contract. The
+        device carry was computed from the device partials, which the
+        host-side corruption never touched, so later windows stay clean.
+        Returns the per-step quarantined sets (censored from the EWMA)."""
+        from repro_torch.faults.chaos import FaultAbort
+        from repro_torch.faults.integrity import corrupt_result
+
+        inj = self.fault_injector
+        chk = self._integrity
+        out: List[Set[int]] = [set() for _ in range(n_active)]
+        for k in range(n_active):
+            tk = base + k
+            entry = metas[k][1]
+            rspecs = metas[k][8]
+            bad_set = set(sets[k])
+            for spec in rspecs:
+                n = int(spec.worker)
+                row = (self._first_winner_row(entry, bad_set, n)
+                       if n in metas[k][0] else None)
+                if row is None:
+                    if inj is not None:
+                        inj.record(spec, "noop",
+                                   f"worker {n} delivers no output rows "
+                                   f"this step")
+                    continue
+                corrupt_result(ys[k], row)
+                self._live_result_specs[n] = spec
+            if chk is None or not chk.linear or not self._verifying(tk):
+                continue
+            if chk.check_output(tk, ys[k], ws[k]):
+                continue
+            bad_chunks = chk.locate(tk, ys[k], ws[k])
+            culprits = self._chunk_winners(entry, bad_set, bad_chunks)
+            culprits -= bad_set
+            if not culprits:  # pragma: no cover - defensive
+                raise FaultAbort(
+                    tk, "result_corruption", lost=(), demote=(),
+                    detail="sketch failure with no attributable producer")
+            newly_gray = self._note_quarantine(tk, culprits)
+            alive = set(metas[k][0]) - culprits
+            for c in bad_chunks:
+                owners = self._chunk_winners(entry, bad_set, [c])
+                owner = sorted(owners)[0] if owners else -1
+                g = (c * self.cfg.block_rows) // self.rows_per_tile
+                donor = chk.find_donor(
+                    self._staged.staged, g, owner, alive)
+                if donor is None:
+                    lost = tuple(sorted(culprits))
+                    raise FaultAbort(
+                        tk, "result_corruption", lost=lost, demote=lost,
+                        detail=f"no clean replica holder covers tile {g}")
+                fixed = self._replica_recompute(donor, c, ws[k], ws_d[k])
+                ys[k][chk.chunk_rows(c)] = fixed.astype(ys.dtype)
+                self.integrity["repaired_rows"] += self.cfg.block_rows
+            self.integrity["quarantined"] += len(culprits)
+            for n in sorted(culprits):
+                self._record_result_spec(
+                    tk, n, "quarantined",
+                    f"step {tk}: worker {n}'s rows failed the "
+                    f"Freivalds sketch inside a fused window; "
+                    f"recomputed from a replica holder's tile, "
+                    f"timing censored"
+                    + (", graylisted" if n in newly_gray else ""))
+            out[k] |= culprits
+            if not chk.check_output(tk, ys[k], ws[k]):  # pragma: no cover
+                raise RuntimeError(
+                    f"step {tk}: repaired window output still fails the "
+                    f"integrity sketch")
+        return out
+
+    def _replica_recompute(self, donor: int, chunk: int, w,
+                           w_dev) -> np.ndarray:
+        """One ``block_rows`` row chunk recomputed from ``donor``'s
+        staged replica tile. On the card: one call of the workload's block
+        kernel (``usec_matvec``) on the card's copy of the tile — the bits
+        the kernels read — with the operand ``w_dev`` already there, so
+        the result is the kernel's own. On the host: the checker's float64
+        recompute over the host copy, as the reference. The two agree bit
+        for bit on the integer grid."""
+        if self.device.type != "cuda":
+            return self._integrity.replica_recompute(
+                self._staged.staged, donor, chunk, w, self.rows_per_tile)
+        start = chunk * self.cfg.block_rows
+        g = start // self.rows_per_tile
+        off = start - g * self.rows_per_tile
+        slot = int(self._staged.slot_of[donor, g])
+        xb = self._staged_dev[donor, slot, off:off + self.cfg.block_rows]
+        return self._matmul(xb, w_dev).cpu().numpy()
 
     # ------------------------------------------------------------------ #
     def _sync(self) -> None:
@@ -904,6 +1530,7 @@ class ElasticRunner:
         waste: int,
         t0: float,
         injected: Optional[Tuple[int, ...]],
+        lost: Tuple[int, ...] = (),
     ) -> Tuple[np.ndarray, StepReport]:
         """First-arrival step: per-worker dispatch, consume-first combine.
 
@@ -915,14 +1542,20 @@ class ElasticRunner:
         winning holder. Late workers are measurements, not losses: every
         loaded duration feeds the EWMA. Modeled completion is the
         (n_loaded - S)-th order statistic — the barrier's max only at S=0.
+
+        ``lost`` (pre-classified, covered dispatch faults) are workers
+        whose partial never arrives: they are not dispatched, spend the S
+        budget first in the realized set, and are censored from the EWMA.
         """
         import torch
 
         from .executor import refresh_include
 
+        t = self._step
         replan_s = time.perf_counter() - t0
+        silent = set(lost)
         loaded = [n for n in self._membership
-                  if entry.block.n_blocks[n] > 0]
+                  if entry.block.n_blocks[n] > 0 and n not in silent]
         w_dev = torch.as_tensor(w).to(self.device)
         self._sync()
         t1 = time.perf_counter()
@@ -934,11 +1567,25 @@ class ElasticRunner:
         parts = [p.cpu().numpy() for p in parts_d]
 
         row_loads = entry.block_loads * self.rows_per_tile
+        # The clock still models EVERY loaded worker (the lost one was
+        # assigned its rows and the speed process keeps its cadence);
+        # censoring happens after the draw — the measurement never arrives.
         durations = self.clock.durations(row_loads, self._membership, wall)
+        for n in silent:
+            durations.pop(n, None)
+        timed = self._timeout_check(
+            t, entry, durations, silent | set(injected or ()))
+        if timed:
+            silent |= set(timed)
+            for n in timed:
+                durations.pop(n, None)
+        silent, durations = self._integrity_first(
+            t, entry, parts, loaded, w, silent, durations, injected)
+        forced = tuple(sorted(silent))
         if injected is None:
-            realized = self._derive_realized(durations)
+            realized = self._derive_realized(durations, forced=forced)
         else:
-            realized = tuple(injected)
+            realized = tuple(sorted(set(injected) | silent))
         # Host-side feasibility + winner weights: include_mask raises when a
         # segment lost every holder, exactly like the barrier path.
         include = refresh_include(entry.block, entry.step_plan.plan, realized)
@@ -948,6 +1595,8 @@ class ElasticRunner:
             n: float(entry.block_loads[n]) for n in durations
         }
         self._pending_durations = durations
+        if self._take_speed_loss(t):
+            self._pending_loads, self._pending_durations = {}, {}
         skipped = set(realized)
         consumed = [d for n, d in durations.items() if n not in skipped]
         modeled = max(consumed) if consumed else 0.0
@@ -992,16 +1641,26 @@ class ElasticRunner:
         dropped from the combine (include weights), exactly one surviving
         holder per segment delivers. Raises ``ValueError`` on an
         out-of-range id and errors out if the set exceeds the plan's
-        tolerance. Planning faults scheduled at this step fire first.
-        Returns ``y`` as host NumPy.
+        tolerance. Returns ``y`` as host NumPy.
+
+        With a :attr:`fault_injector` installed, faults scheduled at this
+        step fire here: planning faults before the EWMA ingest, tile
+        corruption (and, on verified steps, the audit and re-staging)
+        before anything dispatches, dispatch faults (crash / result drop)
+        classified against the S budget — covered losses are masked as
+        realized stragglers (censored from the EWMA), uncovered losses
+        raise :class:`~repro_torch.faults.chaos.FaultAbort` before anything
+        dispatches — and result corruption after the fetch.
         """
-        import torch
-
-        from .executor import refresh_include
-
         if event is not None:
             self.apply_event(event)
-        self._consult_planning_faults(self._step)
+        t = self._step
+        self._consult_planning_faults(t)
+        # Tile corruption fires (and is audited + re-staged) BEFORE the
+        # dispatch reads the staged bits, uniform across arrival modes.
+        self._consume_tile_corruption(t)
+        if self._verifying(t):
+            self._audit_and_restage(t)
         t0 = time.perf_counter()
         # Feed last step's measured durations into the EWMA (Alg. 1 line 4)
         # BEFORE planning, so the plan sees the freshest estimates.
@@ -1010,39 +1669,60 @@ class ElasticRunner:
         if stragglers is not None:
             injected = tuple(sorted({int(s) for s in stragglers}))
             self._check_straggler_ids(injected)
+        lost: Tuple[int, ...] = ()
+        dfaults = self._take_dispatch_faults(t)
+        if dfaults:
+            # Peek the plan BEFORE adoption: an uncovered fault must abort
+            # with the plan/waste accounting untouched, so the re-executed
+            # step replans cleanly after the caller's demotion event.
+            peek, _ = self._plan_for(self._membership)
+            lost = self._resolve_lost(t, peek, dfaults, injected)
         entry, cache_hit, replanned, waste = self._adopt_plan()
+        gray = self._graylist_forced(
+            t, entry, set(injected or ()) | set(lost))
+        if gray:
+            # Probation: a graylisted worker is a forced realized
+            # straggler — excluded from the combine and the EWMA, plan
+            # (and bits) untouched.
+            lost = tuple(sorted(set(lost) | gray))
         if self.cfg.arrival == "first":
             return self._step_first(
-                w, entry, cache_hit, replanned, waste, t0, injected)
-        bad = injected or ()
-        include_d = (
-            None if not bad
-            else torch.as_tensor(
-                refresh_include(entry.block, entry.step_plan.plan, bad),
-                device=self.device)
-        )
+                w, entry, cache_hit, replanned, waste, t0, injected, lost)
+        bad = tuple(sorted(set(injected or ()) | set(lost)))
         replan_s = time.perf_counter() - t0
 
-        w_dev = torch.as_tensor(w)
-        self._sync()
-        t1 = time.perf_counter()
-        y = self._executor(
-            self._staged_dev, entry.dev, w_dev.to(self.device), include_d)
-        self._sync()
-        wall = time.perf_counter() - t1
-        self._drivers_run.add("step")
-        self.device_dispatches += 1
+        y, wall = self._barrier_dispatch(entry, w, bad)
         self._last_step_wall = wall
-        y = y.cpu().numpy()
 
         row_loads = entry.block_loads * self.rows_per_tile
         durations = self.clock.durations(row_loads, self._membership, wall)
+        if lost:
+            # A silent worker's duration is censored — its result never
+            # arrived, so there is no measurement to feed the EWMA.
+            durations = {n: d for n, d in durations.items()
+                         if n not in set(lost)}
+        timed = self._timeout_check(t, entry, durations, set(bad))
+        if timed:
+            # Covered timeout: the barrier master gave up on the late
+            # workers and re-collected from the survivors — one recovery
+            # re-dispatch with the refreshed include weights (same bits:
+            # exactly one surviving copy of every segment delivers).
+            bad = tuple(sorted(set(bad) | set(timed)))
+            y, wall_b = self._barrier_dispatch(entry, w, bad)
+            wall += wall_b
+            durations = {n: d for n, d in durations.items()
+                         if n not in set(timed)}
+        y, durations, bad, wall_b = self._integrity_barrier(
+            t, entry, y, w, bad, durations)
+        wall += wall_b
         # The EWMA is fed tile-unit loads (the LP's unit), so estimated
         # speeds stay consistent with the planner; clocks see row units.
         self._pending_loads = {
             n: float(entry.block_loads[n]) for n in durations
         }
         self._pending_durations = durations
+        if self._take_speed_loss(t):
+            self._pending_loads, self._pending_durations = {}, {}
         modeled = max(durations.values()) if durations else 0.0
 
         if self.cfg.verify:
@@ -1071,6 +1751,30 @@ class ElasticRunner:
             self._precompile_neighbors(self._membership)
             self.precompile_s += time.perf_counter() - t2
         return y, report
+
+    def _barrier_dispatch(self, entry: _CacheEntry, w,
+                          bad: Tuple[int, ...]) -> Tuple[np.ndarray, float]:
+        """One barrier executor call with ``bad``'s copies masked out of
+        the include weights (the plan's own weights when ``bad`` is
+        empty). Returns ``(y, wall)``: the output on the host, and the
+        synchronized wall of the call."""
+        import torch
+
+        from .executor import refresh_include
+
+        include_d = None if not bad else torch.as_tensor(
+            refresh_include(entry.block, entry.step_plan.plan, bad),
+            device=self.device)
+        w_dev = torch.as_tensor(w)
+        self._sync()
+        t1 = time.perf_counter()
+        y = self._executor(
+            self._staged_dev, entry.dev, w_dev.to(self.device), include_d)
+        self._sync()
+        wall = time.perf_counter() - t1
+        self._drivers_run.add("step")
+        self.device_dispatches += 1
+        return y.cpu().numpy(), wall
 
     def ingest_pending(self) -> None:
         """Fold any pending measured durations into the EWMA (Algorithm 1
@@ -1183,12 +1887,39 @@ class ElasticRunner:
         base = self._step
         for k in range(n_active):
             t0 = time.perf_counter()
+            tk = base + k
             if events[k] is not None:
                 self.apply_event(events[k])
-            # Fault seams fire at assembly time, per step, before anything
-            # dispatches.
-            self._consult_planning_faults(base + k)
+            # Fault seams fire at assembly time, per step: nothing has
+            # dispatched yet, so an uncovered loss aborts the WHOLE window
+            # cleanly (FaultAbort) with the carry untouched — the engine
+            # demotes, replans, and re-assembles from this window's head.
+            self._consult_planning_faults(tk)
+            # Tile corruption fires (and is audited + re-staged in place)
+            # at assembly, BEFORE the window replays: the engine breaks
+            # windows at fault steps, so a corrupt tile always lands at a
+            # window head.
+            self._consume_tile_corruption(tk)
+            if self._verifying(tk):
+                self._audit_and_restage(tk)
+            dfaults = self._take_dispatch_faults(tk)
+            # Result corruption is consumed at assembly but applied (and
+            # detected) post-fetch — the injection perturbs the fetched
+            # host copy, as a corrupt wire transfer would.
+            rspecs = (
+                () if self.fault_injector is None
+                else tuple(self.fault_injector.take(
+                    tk, kinds=("result_corruption",)))
+            )
+            forced: Tuple[int, ...] = ()
+            if dfaults:
+                peek, _ = self._plan_for(self._membership)
+                forced = self._resolve_lost(tk, peek, dfaults, sets[k])
             entry, cache_hit, replanned, waste = self._adopt_plan()
+            gray = self._graylist_forced(
+                tk, entry, set(forced) | set(sets[k] or ()))
+            if gray:
+                forced = tuple(sorted(set(forced) | gray))
             had_miss = had_miss or not cache_hit
             durs_k = None
             if sets[k] is None:
@@ -1198,14 +1929,25 @@ class ElasticRunner:
                     # before dispatch, so the clock is sampled here (once
                     # per step, in step order, the stepwise cadence)
                     # against the previous dispatch's per-step wall.
+                    # Silent workers are drawn (cadence), then censored.
                     row_loads = entry.block_loads * self.rows_per_tile
                     durs_k = self.clock.durations(
                         row_loads, self._membership, self._last_step_wall)
-                    sets[k] = self._derive_realized(durs_k)
+                    for n in forced:
+                        durs_k.pop(n, None)
+                    timed = self._timeout_check(
+                        tk, entry, durs_k, set(forced))
+                    if timed:
+                        forced = tuple(sorted(set(forced) | set(timed)))
+                        for n in timed:
+                            durs_k.pop(n, None)
+                    sets[k] = self._derive_realized(durs_k, forced=forced)
                 else:
-                    sets[k] = ()
+                    sets[k] = tuple(forced)
             else:
                 self._check_straggler_ids(sets[k])
+                if forced:
+                    sets[k] = tuple(sorted(set(sets[k]) | set(forced)))
             if sets[k]:
                 # Host-side feasibility check (the device gather cannot
                 # raise): include_mask errors out when a segment lost every
@@ -1213,7 +1955,8 @@ class ElasticRunner:
                 entry.step_plan.plan.include_mask(sets[k])
                 bad[k, list(sets[k])] = True
             metas.append((self._membership, entry, replanned, cache_hit,
-                          time.perf_counter() - t0, waste, durs_k))
+                          time.perf_counter() - t0, waste, durs_k, forced,
+                          rspecs))
         # Pad inactive tail slots with the last entry's plan (masked out on
         # the card) so the window's shapes never change.
         plans = [m[1].dev for m in metas]
@@ -1243,6 +1986,13 @@ class ElasticRunner:
         wall = max(time.perf_counter() - t1 - pre_s, 1e-9)
         ys = ys_d.cpu().numpy()[:n_active]
         ws = ws_d.cpu().numpy()[:n_active]
+        if self._integrity is not None or self.fault_injector is not None:
+            # The integrity seam injects / repairs rows in place; on the
+            # host the fetched array is a view of the window's output, so
+            # give it a copy of its own.
+            ys = np.array(ys)
+        quarantined = self._integrity_window(
+            base, n_active, metas, sets, ys, ws, ws_d)
 
         # Per-window per-worker times: the window wall divided over its
         # active steps is the per-step equivalent the EWMA expects. Loads and
@@ -1260,7 +2010,19 @@ class ElasticRunner:
                 row_loads = entry.block_loads * self.rows_per_tile
                 durs = self.clock.durations(
                     row_loads, metas[k][0], per_step_wall)
+                for n in metas[k][7]:
+                    # Censor silent workers (covered faults): their result
+                    # — and therefore their measurement — never arrived.
+                    durs.pop(n, None)
+            for n in quarantined[k]:
+                # Censor quarantined workers: a corrupt result's timing
+                # is as untrustworthy as its payload.
+                durs.pop(n, None)
             per_step_durs.append(durs)
+            if self._take_speed_loss(base + k):
+                # This step's report was lost in transit: its durations
+                # stay out of the window's accumulated EWMA feed.
+                continue
             for n, d in durs.items():
                 loads_sum[n] = loads_sum.get(n, 0.0) \
                     + float(entry.block_loads[n])
@@ -1273,8 +2035,8 @@ class ElasticRunner:
                 self._verify(ys[k], ws[k])
 
         reports = []
-        for k, (avail, entry, replanned, cache_hit, replan_s, waste,
-                _d) in enumerate(metas):
+        for k, (avail, entry, replanned, cache_hit, replan_s, waste, _d,
+                _f, _r) in enumerate(metas):
             self._step += 1
             durs = per_step_durs[k]
             if self.cfg.arrival == "first":

@@ -33,7 +33,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "repro_torch.models.transformer",
             "repro_torch.launch.serve",
             "repro_torch.faults",
-            "repro_torch.faults.chaos"} <= set(mods)
+            "repro_torch.faults.chaos",
+            "repro_torch.faults.integrity"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -86,8 +87,8 @@ def test_device_engine_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(dispatch_timeout=1.0), "item 8"),
-    (dict(verify_results="always"), "item 8"),
+    (dict(checkpoint_dir="ckpt", checkpoint_every=2), "item 9"),
+    (dict(checkpoint_dir="ckpt", checkpoint_on_fault=True), "item 9"),
     (dict(checkpoint_dir="ckpt"), "item 9"),
 ])
 def test_unported_knobs_raise_at_construction(kwargs, item):
@@ -105,9 +106,42 @@ def test_unported_entry_points_raise():
                         n_machines=4, device="cpu")
     for call, item in ((lambda: eng.prepare(), "item 10"),
                        (lambda: eng.save_state("d"), "item 9"),
-                       (lambda: eng.run(None, 1, faults=[]), "item 8")):
+                       (lambda: eng.resume("d"), "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+
+
+def test_fault_abort_past_max_fault_retries_reraises():
+    """The recovery loop re-executes a step at most ``max_fault_retries``
+    times: a fault that keeps firing at the same step re-raises."""
+    from repro_torch.api import ElasticEngine, EngineConfig
+    from repro_torch.api import MatVecPowerIteration, Policy
+    from repro_torch.faults import ChaosPlan, FaultAbort, FaultInjector
+    from repro_torch.faults import FaultSpec
+    from repro_torch.runtime import make_exact_matrix
+
+    class Relentless(FaultInjector):
+        """Each crash taken schedules the next worker's at the same step."""
+
+        def take(self, step, kinds=None):
+            out = super().take(step, kinds)
+            for spec in out:
+                if spec.kind == "worker_crash":
+                    self.add(FaultSpec("worker_crash", step,
+                                       worker=spec.worker + 1),
+                             absolute=True)
+            return out
+
+    eng = ElasticEngine(
+        MatVecPowerIteration(seed=0),
+        Policy(placement="cyclic", replication=3, stragglers=0),
+        EngineConfig(block_rows=16, max_fault_retries=1),
+        backend="device", n_machines=4, device="cpu")
+    inj = Relentless(ChaosPlan([FaultSpec("worker_crash", 1, worker=0)]))
+    with pytest.raises(FaultAbort, match="worker_crash"):
+        eng.run(make_exact_matrix(64), n_steps=3, faults=inj)
+    assert [r.action for r in inj.log] == ["demoted", "demoted"]
+    assert eng.runner.membership == (1, 2, 3)
 
 
 @pytest.mark.parametrize("mode", ["pallas", "interpret"])
