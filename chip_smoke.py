@@ -5,7 +5,9 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds the hand-written kernels from src/repro_torch/csrc with nvcc (into
 build/kernels/), holds each kernel against its plain PyTorch version on the
-card and times it (the flash-attention kernels at the JAX tests' cases,
+card and times it (usec_matvec also at the served widths C = 8, 32, 128
+beside torch.matmul; tile_checksum against zlib.crc32 of every tile of the
+Sec. V staged buffer; the flash-attention kernels at the JAX tests' cases,
 every head_dim in both dtypes: bf16 on the tensor-core kernel, fp32 on the
 FFMA kernel; one full-width glm4-9b layer), then drives the paper's Sec. V
 experiment through the normal front door, ``ElasticEngine(
@@ -17,12 +19,18 @@ a step). Then the model stack's serving path: glm4-9b at full width with
 random weights through ``repro_torch.launch.serve.generate`` (an 8192-token
 prompt, 32 greedy decode steps; one kernel launch per prefill layer, none
 in decode), a profiled prefill + decode, and card-vs-host parity at reduced
-size. Last, ``elastic_faults`` injects every fault kind into the Sec. V
-runs (covered at S = 1, uncovered at S = 0, silent corruption with the
-integrity checker on) and holds each to the clean run bitwise, with the
-staged buffer repaired in place on the card and exact launch counts; it
-runs after every profiled phase, since the profiler's trace loses kernel
-records after it. Every phase prints one JSON line; the
+size. Then ``checkpoint`` cuts Sec. V runs after step 5 and resumes them
+bitwise in fresh engines (and a card checkpoint on the host), and
+``serve_path`` drives serve_cli's seeded request trace through both serving
+lanes at Sec. V width (every response exact, launches per window exact,
+snapshots equal to the host's at 768^2). Last, ``elastic_faults`` injects
+every fault kind into the Sec. V runs (covered at S = 1, uncovered at
+S = 0, silent corruption with the integrity checker on, a corruption of the
+card's copy alone found by the tile_checksum audit) and holds each to the
+clean run bitwise, with the staged buffer repaired in place on the card and
+exact launch counts; it runs after every profiled phase, since the
+profiler's trace loses kernel records after it. Every phase prints one
+JSON line; the
 line before the last lists every kernel with its launches on the main path,
 its time, its bound and its plain version's time; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero,
@@ -49,8 +57,16 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 
-N_WORKERS, REPLICATION, DIM, BLOCK_ROWS, STEPS = 6, 3, 6000, 20, 8
-BASE_SPEEDS = [1000.0, 2000.0, 4000.0, 8000.0, 16000.0, 32000.0]
+# The paper's Sec. V setup (src/repro_torch/configs/usec_paper.py).
+from repro_torch.configs import usec_paper as PAPER  # noqa: E402
+
+N_WORKERS, REPLICATION, DIM = (PAPER.N_MACHINES, PAPER.REPLICATION,
+                               PAPER.MATRIX_DIM)
+BLOCK_ROWS, STEPS = PAPER.BLOCK_ROWS, 8
+BASE_SPEEDS = list(PAPER.BASE_SPEEDS)
+# Served windows' widths (ServeConfig.batch_cols) the block kernel is
+# timed at, beside the main path's C = 1.
+WIDE_COLS = (8, 32, 128)
 # Single-machine-down states only (every placement keeps all tiles and
 # S = 1 stays feasible); preemption and arrival both land early.
 SCRIPT = {0: ((5,), ()), 1: ((1,), (5,)), 2: ((), (1,)), 4: ((3,), ()),
@@ -249,8 +265,30 @@ def phase_kernels(dev):
         blocks[next(it) % len(blocks)], w1), 900, bound=mv_bound)
     mv_lib = timed(lambda: torch.matmul(
         blocks[next(it) % len(blocks)], w1), 900, bound=mv_bound)
+    # Served windows run the block kernel at C = batch_cols columns: the
+    # same blocks at C in {8, 32, 128}, bitwise on the integer grid, timed
+    # beside torch.matmul (TF32 off).
+    wide = []
+    for c in WIDE_COLS:
+        xg, wg = grid_operands(rng, (BLOCK_ROWS, DIM), DIM, c, dev)
+        if not torch.equal(usec_matvec_cuda(xg, wg), torch.matmul(xg, wg)):
+            raise AssertionError(f"usec_matvec != torch.matmul at C={c}")
+        wc = torch.randn((DIM, c), device=dev)
+        oc = torch.empty((BLOCK_ROWS, c), device=dev)
+        b_c, by_c = bound_ms(
+            BLOCK_ROWS * DIM * 4 + DIM * c * 4 + BLOCK_ROWS * c * 4,
+            2 * BLOCK_ROWS * DIM * c)
+        wide.append({
+            "C": c, "bound_us": 1e3 * b_c, "bound_by": by_c,
+            "kernel": timed(lambda: usec_matvec_cuda(
+                blocks[next(it) % len(blocks)], wc, out=oc), 600,
+                "matvec_kernel", b_c),
+            "plain": timed(lambda: matvec_ref(
+                blocks[next(it) % len(blocks)], wc), 600, bound=b_c),
+            "library": timed(lambda: torch.matmul(
+                blocks[next(it) % len(blocks)], wc), 600, bound=b_c)})
     del big, blocks
-    emit({"phase": "kernel", "name": "usec_matvec",
+    emit({"phase": "kernel", "name": "usec_matvec", "wide": wide,
           "cases": len(rows), "bitwise_integer_grid": True,
           "max_rel_err_fp32": max(r[3] for r in rows),
           "max_rel_err_bf16": max(r[4] for r in rows),
@@ -324,6 +362,9 @@ def phase_kernels(dev):
           "kernel": sg, "plain": sg_plain, "library": None,
           "bound_us": 1e3 * sg_bound,
           "launches": usec_segmented_cuda.launches})
+    del seg_cases, args, out4
+    tc = tile_checksum_phase(dev, staged, sm)
+    del staged
     return {
         "usec_matvec": {
             "route": "cuda", "source": "src/repro_torch/csrc/usec_matvec.cu",
@@ -337,7 +378,66 @@ def phase_kernels(dev):
             "replaces": "src/repro/kernels/usec_segmented.py:63",
             "max_abs_err": sg_err, **sg, "plain_ms": sg_plain["ms"],
             "bound_ms": sg_bound, "bound_by": sg_by, "library_ms": None},
+        "tile_checksum": tc,
     }
+
+
+def tile_checksum_phase(dev, staged, sm):
+    """The tile audit's kernel: against its plain version on small buffers
+    (random, all-zero and all-ones bytes; 16-byte and odd tile byte counts,
+    the head chunk partial or whole), then against zlib.crc32 of every tile
+    of the Sec. V staged buffer (432 MB, one launch), timed against its
+    bytes bound. The kernel is an integer checksum: equality is the limit.
+    No PyTorch call computes a CRC32, so it has no library time."""
+    import zlib
+
+    from repro_torch.kernels.tile_checksum import (
+        tile_checksum_cuda,
+        tile_checksum_plain,
+    )
+
+    rng = np.random.default_rng(5)
+    small = 0
+    for n_bytes in (1, 3, 511, 512, 513, 4096, 131_088, 393_217):
+        for fill in ("random", "zeros", "ones"):
+            x = (rng.integers(0, 256, size=(3, n_bytes), dtype=np.uint8)
+                 if fill == "random" else
+                 np.full((3, n_bytes), 0 if fill == "zeros" else 255,
+                         np.uint8))
+            xd = torch.from_numpy(x).to(dev)
+            got = tile_checksum_cuda(xd, 1)
+            if not torch.equal(got, tile_checksum_plain(xd, 1)) or \
+                    got.cpu().tolist() != [zlib.crc32(r.tobytes())
+                                           for r in x]:
+                raise AssertionError(
+                    f"tile_checksum disagrees at {n_bytes} bytes ({fill})")
+            small += 1
+    t0 = time.perf_counter()
+    want = np.array([[zlib.crc32(sm.staged[n, t].tobytes())
+                      for t in range(sm.staged.shape[1])]
+                     for n in range(sm.staged.shape[0])], dtype=np.int64)
+    zlib_s = time.perf_counter() - t0
+    got = tile_checksum_cuda(staged, 2).cpu().numpy()
+    plain = tile_checksum_plain(staged, 2).cpu().numpy()
+    if not (np.array_equal(got, want) and np.array_equal(plain, want)):
+        raise AssertionError("tile_checksum != zlib.crc32 on the Sec. V "
+                             "staged buffer")
+    n_bytes = staged.numel() * staged.element_size()
+    tc_bound, tc_by = bound_ms(n_bytes + got.size * 8, 0.0)
+    tc = timed(lambda: tile_checksum_cuda(staged, 2), 30, "tile_crc",
+               tc_bound)
+    tc_plain = timed(lambda: tile_checksum_plain(staged, 2), 2,
+                     bound=tc_bound)
+    emit({"phase": "kernel", "name": "tile_checksum", "small_cases": small,
+          "equals_zlib": True, "tiles": int(got.size),
+          "staged_mb": n_bytes / 1e6, "kernel": tc, "plain": tc_plain,
+          "library": None, "bound_us": 1e3 * tc_bound,
+          "host_zlib_s": zlib_s, "launches": tile_checksum_cuda.launches})
+    return {"route": "cuda", "source": "src/repro_torch/csrc/tile_checksum.cu",
+            "replaces": "src/repro/faults/integrity.py:71 (host zlib; no "
+                        "TPU kernel)",
+            "max_abs_err": 0.0, **tc, "plain_ms": tc_plain["ms"],
+            "bound_ms": tc_bound, "bound_by": tc_by, "library_ms": None}
 
 
 def power_iteration(dev, x, kind, replication, s_tol, segmented, n_workers,
@@ -741,6 +841,328 @@ def phase_elastic_modes(counters, mains, smi):
 
 
 # ---------------------------------------------------------------------- #
+# The serving path at Sec. V
+# ---------------------------------------------------------------------- #
+SERVE_REQUESTS = 48
+# (segmented, batch_cols, corruption_rate, seed). The corrupted cell's
+# seed gives a fault schedule whose corruptions land on rows their steps
+# deliver (seed 0's fall on a worker that delivers none, or past the trace).
+SERVE_CELLS = ((None, 8, 0.0, 0), ("auto", 8, 0.0, 0), (None, 32, 0.0, 0),
+               ("auto", 32, 0.0, 0), ("auto", 8, 0.1, 3))
+
+
+def _serve_args(seg, batch_cols, corruption, seed, dim=None, device=None):
+    """serve_cli's arguments for one cell: the paper's fleet
+    (configs/usec_paper.py), 48 requests, every 3rd a mapreduce query,
+    worker 1 preempted before request 8 and back 4 requests later."""
+    from repro_torch.launch import serve_cli
+
+    argv = ["--paper", "--requests", str(SERVE_REQUESTS),
+            "--mapreduce-every", "3", "--churn-at", "8",
+            "--batch-cols", str(batch_cols),
+            "--corruption-rate", str(corruption), "--seed", str(seed)]
+    if seg is not None:
+        argv += ["--segmented", seg]
+    if dim is not None:
+        argv += ["--dim", str(dim), "--block-rows", "16"]
+    if device is not None:
+        argv += ["--device", device]
+    return serve_cli.parse_args(argv)
+
+
+def _watch_lanes(server, tally):
+    """Per linear window: the block kernels' launches and the plan's real
+    blocks; per lane: the host wall of every submit (it ends in the
+    result's copy to the host, so it is synchronized)."""
+    from repro_torch.kernels.usec_matvec import usec_matvec_cuda
+    from repro_torch.kernels.usec_segmented import usec_segmented_cuda
+
+    runner = server._lanes["linear"].runner
+    dispatch = runner._barrier_dispatch
+
+    def counted(entry, w, bad):
+        before = (usec_matvec_cuda.launches, usec_segmented_cuda.launches)
+        out = dispatch(entry, w, bad)
+        tally["linear"].append((
+            usec_matvec_cuda.launches - before[0],
+            usec_segmented_cuda.launches - before[1],
+            sum(len(b) for b in entry.dev.blocks)))
+        return out
+
+    runner._barrier_dispatch = counted
+    for name, eng in server._lanes.items():
+        def timed(operand, event=None, stragglers=None, _sub=eng.submit,
+                  _name=name):
+            t0 = time.perf_counter()
+            out = _sub(operand, event=event, stragglers=stragglers)
+            tally["walls"].setdefault(_name, []).append(
+                time.perf_counter() - t0)
+            return out
+
+        eng.submit = timed
+
+
+def _device_busy_ms(prof) -> float:
+    """Device time in a CUDA-only profile (kernels and copies), ms."""
+    return 1e-3 * sum(
+        getattr(ev, "self_device_time_total", 0) or 0
+        for ev in prof.key_averages()
+        if str(ev.device_type).endswith("CUDA"))
+
+
+def phase_serve_path(counters, smi):
+    """The serving path at full Sec. V width, through serve_cli's server
+    and seeded trace: make_exact_matrix(6000), cyclic, N = 6, J = 3,
+    S = 1, block_rows 20, the paper's speeds, both lanes (the MatMat lane
+    and the mapreduce lane) staged on the card. 48 requests (every 3rd a
+    mapreduce query, worker 1 preempted before request 8 and back 4
+    later) at batch_cols 8 and 32 in the per-block and segmented modes,
+    and one run with --corruption-rate 0.1 (the server's Freivalds window
+    audit requeues the corrupted windows). Checks: every ok linear
+    response is bitwise X(float64) @ operand (every partial sum is an
+    integer below 2^24), every mapreduce response the exact float64 sum
+    of squares; the linear lane launches the plan's real blocks a window
+    (per-block) or one usec_segmented (segmented), the mapreduce lane no
+    kernel of the port; each cell's snapshot (counters and synthetic
+    latencies) equals the port's device="cpu" run of the same trace at
+    768^2. Prints the host wall per window and, for the batch_cols 8
+    runs, the device's busy share (device time in a CUDA-only profile of
+    the whole trace over its wall). Returns the launches of these
+    runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve_cli
+
+    t_phase = time.perf_counter()
+    totals = {name: 0 for name in counters}
+    for seg, cols, corruption, seed in SERVE_CELLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = _serve_args(seg, cols, corruption, seed)
+        t0 = time.perf_counter()
+        server, x = serve_cli.build_server(args)
+        build_s = time.perf_counter() - t0
+        x64 = x.astype(np.float64)
+        sumsq = float(np.sum(x64 ** 2))
+        tally = {"linear": [], "walls": {}}
+        _watch_lanes(server, tally)
+        record = {}
+        reset_launches(counters)
+        prof = None
+        if cols == 8 and corruption == 0.0:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+        t0 = time.perf_counter()
+        try:
+            resps = serve_cli.run_trace(server, args, record)
+            torch.cuda.synchronize()
+            trace_s = time.perf_counter() - t0
+        finally:
+            t1 = time.perf_counter()
+            if prof is not None:
+                prof.stop()
+            stop_s = time.perf_counter() - t1
+        launches = {n: fn.launches for n, fn in counters.items()}
+        for n, v in launches.items():
+            totals[n] += v
+        snap = serve_cli.snapshot(server, resps)
+        cell = f"serve_path segmented={seg} batch_cols={cols} " \
+               f"corruption={corruption} seed={seed}"
+        # Exactness: the linear answers in one float64 product.
+        ok = [r for r in resps if r.status == "ok"]
+        lin = [r for r in ok if r.kind != "mapreduce"]
+        ops_ = [np.asarray(record[r.rid][1], np.float64).reshape(
+            x.shape[1], -1) for r in lin]
+        want = x64 @ np.concatenate(ops_, axis=1)
+        got = np.concatenate([np.asarray(r.result, np.float64).reshape(
+            x.shape[0], -1) for r in lin], axis=1)
+        mr = [r.result for r in ok if r.kind == "mapreduce"]
+        if len(ok) != SERVE_REQUESTS or not np.array_equal(got, want) \
+                or any(v != sumsq for v in mr) or not mr:
+            raise AssertionError(
+                f"{cell}: {len(ok)} ok of {SERVE_REQUESTS}, linear exact "
+                f"{np.array_equal(got, want)}, mapreduce {mr[:3]}")
+        per = [(m, g) for m, g, _ in tally["linear"]]
+        want_per = [(b, 0) if seg is None else (0, 1)
+                    for _, _, b in tally["linear"]]
+        if per != want_per or launches["usec_matvec"] != sum(
+                p[0] for p in per) or launches["usec_segmented"] != sum(
+                p[1] for p in per) or launches["flash_attention"] \
+                or launches["tile_checksum"]:
+            raise AssertionError(f"{cell}: launches {launches}, per window "
+                                 f"{per[:4]} want {want_per[:4]}")
+        if corruption and not (snap["integrity"]["failures"]
+                               and snap["integrity"]["requeued"]):
+            raise AssertionError(f"{cell}: no corrupted window was "
+                                 f"requeued: {snap['integrity']}")
+        for lane in snap["lanes"].values():
+            if lane["jit_cache_size"] != 1:
+                raise AssertionError(f"{cell}: {snap['lanes']}")
+        walls = tally["walls"]
+        busy = None
+        t0 = time.perf_counter()
+        if prof is not None:
+            busy = _device_busy_ms(prof) / (1e3 * trace_s)
+        check_s = time.perf_counter() - t0 + stop_s
+        emit({"phase": "serve_path", "segmented": seg, "batch_cols": cols,
+              "corruption_rate": corruption, "requests": SERVE_REQUESTS,
+              "responses_ok": len(ok), "mapreduce_responses": len(mr),
+              "linear_windows": len(tally["linear"]),
+              "mapreduce_windows": len(walls.get("mapreduce", [])),
+              "blocks_per_linear_window": float(np.mean(
+                  [b for _, _, b in tally["linear"]])),
+              "host_wall_ms_per_window": {
+                  k: 1e3 * float(np.mean(v)) for k, v in walls.items()},
+              "host_wall_ms_median": {
+                  k: 1e3 * float(np.median(v)) for k, v in walls.items()},
+              "device_busy_share_profiled": busy,
+              "trace_s": trace_s, "server_build_s": build_s,
+              "profile_read_s": check_s,
+              "latency": snap["latency"], "integrity": snap["integrity"],
+              "windows": snap["windows"], "launches": launches,
+              "nvidia_smi": smi})
+        del server, resps, ok, lin, got, want, tally, prof, x64
+    # Card against host: the same traces at 768^2 (block_rows 16).
+    t_host = time.perf_counter()
+    for seg, cols, corruption, seed in SERVE_CELLS:
+        snaps = {}
+        for dev in ("cuda", "cpu"):
+            args = _serve_args(seg, cols, corruption, seed, dim=768,
+                               device=dev)
+            server, _ = serve_cli.build_server(args)
+            snaps[dev] = json.loads(json.dumps(serve_cli.snapshot(
+                server, serve_cli.run_trace(server, args))))
+            del server
+        if snaps["cuda"] != snaps["cpu"]:
+            raise AssertionError(
+                f"serve_path 768^2 segmented={seg} batch_cols={cols} "
+                f"corruption={corruption}: card snapshot != host snapshot")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_path_checks", "cells": len(SERVE_CELLS),
+          "responses_exact": True, "launches_per_window_exact": True,
+          "snapshot_card_equals_host_768": True,
+          "host_parity_s": time.perf_counter() - t_host,
+          "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    return totals
+
+
+# ---------------------------------------------------------------------- #
+# Checkpoint / resume at Sec. V
+# ---------------------------------------------------------------------- #
+CKPT_CUT = 5   # the interrupted run stops after this many steps
+
+
+def _ckpt_engine(dev, kind, n_workers, speeds, block_rows, seg, fuse,
+                 ckpt_dir=None):
+    """A power-iteration engine for the checkpoint drills (S = 1, exact
+    verify, a jittered synthetic clock, so the EWMA, the plan cache and
+    the clock's RNG all carry state across the cut); with ``ckpt_dir`` it
+    snapshots every 2 steps."""
+    from repro_torch.api import (
+        ElasticEngine,
+        EngineConfig,
+        MatVecPowerIteration,
+        Policy,
+    )
+    from repro_torch.runtime import SyntheticSpeedClock
+
+    return ElasticEngine(
+        MatVecPowerIteration(seed=0),
+        Policy(placement=kind, replication=REPLICATION, stragglers=1),
+        EngineConfig(block_rows=block_rows, verify="exact", segmented=seg,
+                     fuse_steps=fuse, checkpoint_dir=ckpt_dir,
+                     checkpoint_every=2 if ckpt_dir else None),
+        backend="device", n_machines=n_workers,
+        clock=SyntheticSpeedClock(speeds, jitter_sigma=0.03, seed=0),
+        device=dev)
+
+
+def _ckpt_drill(x, kind, n_workers, speeds, block_rows, script, seg, fuse,
+                root, cut_dev, tail_dev):
+    """The restart drill: run CKPT_CUT steps on ``cut_dev`` with a snapshot
+    every 2 steps, resume the LATEST one in a fresh engine on
+    ``tail_dev``, run to STEPS. Returns (uninterrupted run on
+    ``tail_dev``, resumed tail, resumed step, seconds of resume)."""
+    import itertools
+
+    from repro_torch.core.elastic import scripted_trace
+
+    evs = list(itertools.islice(scripted_trace(n_workers, script), STEPS))
+    args = (kind, n_workers, speeds, block_rows, seg, fuse)
+    full = _ckpt_engine(tail_dev, *args).run(x, n_steps=STEPS, events=evs)
+    cut = _ckpt_engine(cut_dev, *args, ckpt_dir=root).run(
+        x, n_steps=CKPT_CUT, events=evs[:CKPT_CUT])
+    if len(cut.checkpoints) != CKPT_CUT // 2:
+        raise AssertionError(f"checkpoints {cut.checkpoints}")
+    del cut
+    gc.collect()
+    eng = _ckpt_engine(tail_dev, *args)
+    t0 = time.perf_counter()
+    step, w = eng.resume(root, data=x)
+    resume_s = time.perf_counter() - t0
+    tail = eng.run(n_steps=STEPS - step, events=evs[step:], operand=w)
+    return full, tail, step, resume_s
+
+
+def phase_checkpoint(smi):
+    """Checkpoint/resume at the Sec. V configuration (cyclic, N = 6,
+    J = 3, 6000^2, S = 1, the churn script, verify="exact"), both executor
+    modes, fuse_steps in {1, 4}: an 8-step run is cut after step 5 (the
+    snapshot every 2 steps leaves step 4 as LATEST), resumed in a fresh
+    engine, and its tail must be bitwise the uninterrupted run (fused
+    windows recompile from the restored state). Then a checkpoint written
+    on the card at 768^2 (MAN, N = 4) restores into a device="cpu" engine
+    and continues bitwise the host's uninterrupted run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.runtime import make_exact_matrix
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(ROOT, "build"))
+    try:
+        x = make_exact_matrix(DIM, 0)
+        for seg in (None, "auto"):
+            for fuse in (1, 4):
+                gc.collect()
+                full, tail, step, resume_s = _ckpt_drill(
+                    x, "cyclic", N_WORKERS, BASE_SPEEDS, BLOCK_ROWS, SCRIPT,
+                    seg, fuse, os.path.join(root, f"{seg}_{fuse}"), None,
+                    None)
+                a, b = full.result, tail.result
+                if not (step == 4 and np.array_equal(a.eigvec, b.eigvec)
+                        and a.residuals[step:] == b.residuals):
+                    raise AssertionError(
+                        f"checkpoint segmented={seg} fuse={fuse}: resumed "
+                        f"tail from step {step} != the uninterrupted run")
+                emit({"phase": "checkpoint", "placement": "cyclic", "S": 1,
+                      "segmented": seg, "fuse_steps": fuse, "cut": CKPT_CUT,
+                      "resumed_from": step, "tail_steps": len(b.reports),
+                      "bitwise_uninterrupted": True, "resume_s": resume_s,
+                      "nvidia_smi": smi})
+                del full, tail
+        x = make_exact_matrix(768, 0)
+        script4 = {0: ((3,), ()), 1: ((1,), (3,)), 2: ((), (1,)),
+                   4: ((2,), ()), 5: ((), (2,))}
+        for seg in (None, "auto"):
+            full, tail, step, _ = _ckpt_drill(
+                x, "man", 4, [1000.0, 1300.0, 1700.0, 2200.0], 16, script4,
+                seg, 1, os.path.join(root, f"host_{seg}"), "cuda", "cpu")
+            if not (np.array_equal(full.result.eigvec, tail.result.eigvec)
+                    and full.result.residuals[step:]
+                    == tail.result.residuals):
+                raise AssertionError(
+                    f"card checkpoint resumed on the host, segmented={seg}: "
+                    f"tail != the host's uninterrupted run")
+        emit({"phase": "checkpoint_checks", "resume_bitwise": True,
+              "card_to_host_bitwise": True,
+              "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------- #
 # Faults + integrity at Sec. V
 # ---------------------------------------------------------------------- #
 FAULT_STEP, CRASH_STEP, UNVERIFIED_STEP = 4, 6, 5
@@ -771,7 +1193,11 @@ def _record_plans(runner, plans):
 
 def _time_integrity(runner, times):
     """Host seconds of every call of the runner's integrity checker's
-    audit and Freivalds checks, by method name."""
+    audit and Freivalds checks, by method name; the runner's whole tile
+    audit per verified step in ms by CUDA events (``card_audit``: one
+    tile_checksum launch, the device-to-host copy of the checksums, the
+    comparison and any repair); and each checksum of the card's buffer
+    the runner asks for (``card_sums``, one kernel launch each)."""
     chk = runner._integrity
     if chk is None:
         return
@@ -782,6 +1208,40 @@ def _time_integrity(runner, times):
             times.setdefault(_name, []).append(time.perf_counter() - t0)
             return got
         setattr(chk, name, timed)
+    audit, sums = runner._audit_and_restage, runner._card_sums
+
+    def card_audit(t):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        audit(t)
+        end.record()
+        end.synchronize()
+        times.setdefault("card_audit", []).append(start.elapsed_time(end))
+
+    def card_sums():
+        times.setdefault("card_sums", []).append(1)
+        return sums()
+
+    runner._audit_and_restage, runner._card_sums = card_audit, card_sums
+
+
+def _corrupt_card_tile(runner, step, n, keep):
+    """Before the audit of ``step``, flip bits in the first elements of
+    worker ``n``'s first stored tile on the card only (the host copy is
+    untouched): the same flip as the ``tile_corruption`` fault."""
+    audit = runner._audit_and_restage
+
+    def corrupt_then_audit(t):
+        if t == step:
+            slot_of = runner._staged.slot_of[n]
+            slot = int(slot_of[int(np.flatnonzero(slot_of >= 0)[0])])
+            bits = runner._staged_dev[n, slot].view(torch.int32).view(-1)[:3]
+            bits ^= 1 << 22
+            keep["card_corrupted"] = (n, slot)
+        return audit(t)
+
+    runner._audit_and_restage = corrupt_then_audit
 
 
 def _tile_fault_moves_output(runner, entry, bad, n, w) -> bool:
@@ -834,7 +1294,8 @@ def phase_elastic_faults(counters, smi):
     x = make_exact_matrix(DIM, 0)
     totals = {name: 0 for name in counters}
 
-    def go(seg, arrival, fuse, s_tol=1, faults=(), cfg=None):
+    def go(seg, arrival, fuse, s_tol=1, faults=(), cfg=None,
+           card_corrupt=None):
         # Earlier runs' runners hold 432 MB on the card each and sit in
         # reference cycles (their wrapped methods): free them first.
         gc.collect()
@@ -847,6 +1308,8 @@ def phase_elastic_faults(counters, smi):
             _expectations(r, tally)
             _record_plans(r, plans)
             _time_integrity(r, times)
+            if card_corrupt is not None:
+                _corrupt_card_tile(r, *card_corrupt, keep)
             consume = r.workload.consume
 
             def recorded(y, w):
@@ -873,6 +1336,18 @@ def phase_elastic_faults(counters, smi):
         win = tally.get("window")
         repaired = keep["runner"].integrity["repaired_rows"] // BLOCK_ROWS
         check_launches(cell, seg, arrival, fuse, tally, launches, repaired)
+        # tile_checksum: one launch at staging when the checker is on, then
+        # one per checksum of the card's buffer (each audit, and a fused
+        # window's donor search).
+        checked = keep["runner"]._integrity is not None
+        if launches["tile_checksum"] != checked + len(
+                times.get("card_sums", [])) or (
+                checked and len(times.get("card_audit", []))
+                != run.integrity["tile_audits"]):
+            raise AssertionError(
+                f"{cell}: {launches['tile_checksum']} tile_checksum "
+                f"launches, {len(times.get('card_sums', []))} checksum "
+                f"calls, {run.integrity['tile_audits']} audits")
         if fuse > 1 and run.integrity.get("quarantined") and not repaired:
             raise AssertionError(f"{cell}: a window quarantine recomputed "
                                  f"no row chunk")
@@ -883,6 +1358,7 @@ def phase_elastic_faults(counters, smi):
                 f"{len(run.reports)} steps")
         return {"res": res, "run": run, "runner": keep["runner"],
                 "ptr": keep["ptr"], "plans": plans, "times": times,
+                "card_corrupted": keep.get("card_corrupted"),
                 "operands": operands,
                 "tally": tally, "launches": launches, "run_s": run_s,
                 "cell": cell, "windows": win.calls if win else None}
@@ -920,6 +1396,9 @@ def phase_elastic_faults(counters, smi):
                             if rec.action == "demoted"],
               "audit_ms_per_call": (1e3 * float(np.mean(
                   times["audit_tiles"])) if "audit_tiles" in times else None),
+              "card_audit_ms_per_verified_step": (
+                  float(np.mean(times["card_audit"]))
+                  if "card_audit" in times else None),
               "freivalds_ms_per_check": (1e3 * float(np.mean(checks))
                                          if checks else None),
               "launches": r["launches"], "run_s": r["run_s"],
@@ -933,6 +1412,37 @@ def phase_elastic_faults(counters, smi):
         ws = [n for n in runner.membership if n not in bad
               and runner._first_winner_row(e, bad, n) is not None]
         return sorted(ws, key=lambda n: -int(e.block.n_blocks[n]))
+
+    audit_ms = {"card": [], "host": []}
+
+    def card_only(seg, arrival, fuse, clean, cfg, audits):
+        """Corrupt one tile of the card's copy alone at FAULT_STEP (a tile
+        that step reads, so an unrepaired flip would move the output): the
+        card audit finds it and re-stages it in place from a clean card
+        donor, the host copy is untouched, and the run is bitwise the
+        clean run."""
+        runner = clean["runner"]
+        rep = clean["run"].reports[FAULT_STEP]
+        target = next(n for n in rep.available if _tile_fault_moves_output(
+            runner, clean["plans"][FAULT_STEP], set(rep.straggled), n,
+            clean["operands"][FAULT_STEP]))
+        r = go(seg, arrival, fuse, cfg=cfg,
+               card_corrupt=(FAULT_STEP, target))
+        rn, integ = r["runner"], r["run"].integrity
+        chk = rn._integrity
+        t0 = time.perf_counter()
+        host_clean = chk.tile_mismatches(rn._staged.staged) == []
+        audit_ms["host"].append(1e3 * (time.perf_counter() - t0))
+        audit_ms["card"] += r["times"]["card_audit"]
+        if not (r["card_corrupted"] and host_clean
+                and (integ["restaged"], integ["tile_audits"]) == (1, audits)
+                and _same(r["res"], clean["res"], sets=False)):
+            raise AssertionError(
+                f"{r['cell']}: card-only corruption of worker {target}: "
+                f"{integ}, host copy clean {host_clean}, bitwise "
+                f"{_same(r['res'], clean['res'], sets=False)}")
+        staged_intact(r, r["cell"])
+        emit_run("card_only_tile_corruption", r, clean, FAULT_STEP)
 
     checker_s = None
     n_runs = 0
@@ -1007,6 +1517,10 @@ def phase_elastic_faults(counters, smi):
                             STEPS + 1):
                         raise AssertionError(f"{r['cell']}: re-dispatch {tl}")
                 emit_run(kind, r, clean, step)
+            if (arrival, fuse) == ("barrier", 1):
+                card_only(seg, arrival, fuse, clean,
+                          {"verify_results": "always"}, STEPS)
+                n_runs += 1
 
             # Uncovered at S = 0: demote, replan, re-execute.
             clean0 = go(seg, arrival, fuse, s_tol=0)
@@ -1072,6 +1586,10 @@ def phase_elastic_faults(counters, smi):
                 if kind == "tile_corruption":
                     staged_intact(r, r["cell"])
                 emit_run(kind, r, base, FAULT_STEP)
+            # verify_results="sample" audits steps 0 and 4 of the 8.
+            card_only(seg, "barrier", 4, base, {"verify_results": "sample"},
+                      2)
+            n_runs += 1
         runner = base["runner"]
         tu = next(n for n in runner.membership if _tile_fault_moves_output(
             runner, base["plans"][UNVERIFIED_STEP],
@@ -1098,6 +1616,9 @@ def phase_elastic_faults(counters, smi):
           "executor_cache_size_1": True, "staged_buffer_in_place": True,
           "unverified_corruption_reaches_kernel": True,
           "launch_counts_exact": True, "card_vs_host_seeded": parity,
+          "card_only_corruption_restaged_in_place": True,
+          "card_audit_ms_per_verified_step": audit_ms["card"],
+          "host_zlib_audit_ms": audit_ms["host"],
           "checker_build_s": checker_s,
           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
     return totals
@@ -1600,6 +2121,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.tile_checksum import tile_checksum_cuda
     from repro_torch.kernels.usec_matvec import usec_matvec_cuda
     from repro_torch.kernels.usec_segmented import usec_segmented_cuda
 
@@ -1644,7 +2166,8 @@ def main() -> int:
     phase_parity()
     counters = {"usec_matvec": usec_matvec_cuda,
                 "usec_segmented": usec_segmented_cuda,
-                "flash_attention": flash_attention_cuda}
+                "flash_attention": flash_attention_cuda,
+                "tile_checksum": tile_checksum_cuda}
     totals, mains = phase_main_path(counters)
     for n in ("usec_matvec", "usec_segmented"):
         if totals[n] <= 0:
@@ -1670,16 +2193,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_model_parity(dev)
 
-    # ---- 6. faults + integrity at Sec. V ----
+    # ---- 6. checkpoint / resume and the serving path at Sec. V ----
+    phase_checkpoint(smi)
+    served = phase_serve_path(counters, smi)
+    for n in ("usec_matvec", "usec_segmented"):
+        if served[n] <= 0:
+            raise AssertionError(f"{n} never launched by serve_path")
+        totals[n] += served[n]
+
+    # ---- 7. faults + integrity at Sec. V ----
     # Last: the runs with the integrity checker on make the profiler's
     # trace lose kernel records for the rest of the process (gc and
     # empty_cache do not bring them back), so every profiled phase runs
     # before it.
     faulted = phase_elastic_faults(counters, smi)
-    for n in ("usec_matvec", "usec_segmented"):
+    for n in ("usec_matvec", "usec_segmented", "tile_checksum"):
         if faulted[n] <= 0:
             raise AssertionError(f"{n} never launched by elastic_faults")
-        totals[n] += faulted[n]
+        totals[n] = totals.get(n, 0) + faulted[n]
 
     print(json.dumps({"kernels": [
         {"name": n, **{k: kernels[n][k] for k in ("route", "source",

@@ -21,6 +21,7 @@ policy object.
 from .engine import ElasticEngine, EngineConfig, EngineResult
 from .policy import Policy
 from .workload import (
+    MapReduceRows,
     MatMat,
     MatVec,
     MatVecPowerIteration,
@@ -31,6 +32,7 @@ __all__ = [
     "ElasticEngine",
     "EngineConfig",
     "EngineResult",
+    "MapReduceRows",
     "MatMat",
     "MatVec",
     "MatVecPowerIteration",

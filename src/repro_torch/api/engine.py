@@ -23,9 +23,13 @@ argument:
   the step (``kill_scheduler_at=i`` is one such fault). ``dispatch_timeout``
   and ``verify_results`` arm the runner's timeout and corruption defenses.
 
-Not ported yet: checkpointing (``save_state``/``resume`` and the checkpoint
-knobs) and the reentrant serving entry points (``prepare``/``submit``).
-Each raises ``NotImplementedError`` naming its ROADMAP.md item.
+The device backend is also reentrant: :meth:`ElasticEngine.prepare` stages
+the data once and :meth:`ElasticEngine.submit` runs one step on a
+caller-provided operand (the serving layer's lanes,
+:mod:`repro_torch.serve`). :meth:`ElasticEngine.save_state` /
+:meth:`ElasticEngine.resume` checkpoint and restore the full resumable state
+in the JAX package's checkpoint format, and the ``checkpoint_*`` knobs write
+checkpoints during a run.
 """
 
 from __future__ import annotations
@@ -43,7 +47,6 @@ from repro_torch.runtime.elastic_runner import (
     KERNEL_MODES,
     RunnerConfig,
     _validate_choice,
-    not_ported,
 )
 
 from .policy import Policy
@@ -52,6 +55,15 @@ from .workload import Workload
 __all__ = ["ElasticEngine", "EngineConfig", "EngineResult"]
 
 _BACKENDS = ("simulate", "device")
+
+
+def _host(w):
+    """An iterate carry as a host array (a device tensor is fetched)."""
+    if w is None or isinstance(w, np.ndarray):
+        return w
+    if hasattr(w, "detach"):
+        return w.detach().cpu().numpy()
+    return np.asarray(w)
 
 
 @dataclass(frozen=True)
@@ -90,9 +102,11 @@ class EngineConfig:
         force the runner's tile-audit + Freivalds cadence (see
         :class:`~repro_torch.faults.integrity.IntegrityChecker`). The
         simulate backend ignores it.
-      checkpoint_dir, checkpoint_every, checkpoint_on_fault: not ported; a
-        device engine raises ``NotImplementedError`` unless they keep their
-        defaults.
+      checkpoint_dir: where a device run writes checkpoints (None = none).
+      checkpoint_every: periodic snapshot every N engine steps (fused runs
+        snapshot at the first window boundary past each multiple).
+      checkpoint_on_fault: also snapshot when a fault aborts a dispatch,
+        before the step re-executes.
 
     Both backends:
       arrival: ``"barrier"`` or ``"first"``. The simulate backend prices
@@ -123,7 +137,7 @@ class EngineConfig:
     plan_cache_size: Optional[int] = None
     fuse_steps: int = 1
     segmented: Optional[str] = None
-    # device: unannounced-failure tolerance (+ checkpointing, not ported)
+    # device: unannounced-failure tolerance + checkpointing
     dispatch_timeout: Optional[float] = None
     max_fault_retries: int = 3
     checkpoint_dir: Optional[str] = None
@@ -208,6 +222,9 @@ class EngineResult:
     # replan→re-execute cycles.
     fault_records: List = field(default_factory=list)
     recoveries: int = 0
+    # Paths of the checkpoints this run wrote (checkpoint_every /
+    # checkpoint_on_fault).
+    checkpoints: List = field(default_factory=list)
     # Silent-corruption telemetry (device runs with verify_results on):
     # this run's Freivalds checks / sketch failures / tile audits and the
     # recovery actions they triggered (restaged tiles, quarantined
@@ -261,13 +278,10 @@ class ElasticEngine:
         self.clock = clock
         self.device = None
         self._runner = None  # built lazily on the first device run
+        self._last_operand = None  # last run's final carry (checkpointing)
         if backend == "device":
             from repro_torch.device import resolve_device
 
-            if cfg.checkpoint_dir is not None or \
-                    cfg.checkpoint_every is not None or \
-                    cfg.checkpoint_on_fault:
-                raise not_ported("checkpointing")
             self._rcfg = self._runner_config()
             self.device = resolve_device(device)
 
@@ -277,17 +291,219 @@ class ElasticEngine:
         """The device backend's live runner (None before the first run)."""
         return self._runner
 
+    # ------------------------------------------------------------------ #
+    # Reentrant stepping: the serving layer's entry points. prepare()
+    # stages the data once; each submit() then drives exactly one device
+    # dispatch with a caller-provided operand — the caller (a server loop)
+    # owns the trace.
+    # ------------------------------------------------------------------ #
     def prepare(self, data: Any = None):
-        raise not_ported("prepare/submit")
+        """Stage ``data`` on the device and build the live runner without
+        running a step.
 
-    def submit(self, operand: Any, event=None, stragglers=None):
-        raise not_ported("prepare/submit")
+        Device backend only. Idempotent: a second call with ``data=None``
+        is a no-op; a second call with data raises (one engine, one
+        dataset — same rule as :meth:`run`). Returns the runner.
+        """
+        if self.backend != "device":
+            raise ValueError(
+                "prepare()/submit() drive live device dispatches; build the "
+                "engine with backend='device'")
+        if self._runner is None:
+            self._runner = self._build_runner(data)
+        elif data is not None:
+            # The runner staged its matrix once; silently computing on the
+            # old data while accepting new data would bit-verify the wrong
+            # answer. One engine, one dataset.
+            raise ValueError(
+                "this engine already staged data; pass data=None to keep "
+                "stepping on it, or build a new ElasticEngine for a "
+                "different matrix")
+        return self._runner
 
-    def save_state(self, directory: str, operand=None, note: str = ""):
-        raise not_ported("checkpointing")
+    def submit(
+        self,
+        operand: Any,
+        event: Optional[ElasticEvent] = None,
+        stragglers: Optional[Tuple[int, ...]] = None,
+    ):
+        """Execute ONE elastic step on ``operand``; returns
+        ``(result, reports)``.
 
-    def resume(self, directory: str, data: Any = None, path=None):
-        raise not_ported("checkpointing")
+        ``event`` (if any) applies before planning; ``stragglers`` injects
+        a realized set exactly like :meth:`run`'s per-step hook (None =
+        derive under ``arrival="first"``, mask nothing under
+        ``"barrier"``). ``result`` is the workload's combined step output
+        (e.g. the full ``X @ W`` for :class:`~repro_torch.api.workload.
+        MatMat`; the serving layer slices request columns out of it). When
+        the engine was built with ``fuse_steps > 1`` and the workload fuses,
+        the dispatch rides the fused window driver as a one-active-step
+        window, the same captured program as a window of any other size.
+        State (EWMA, plan cache, membership) carries across submits exactly
+        as across :meth:`run` steps.
+        """
+        if self._runner is None:
+            raise RuntimeError(
+                "submit() needs a staged runner: call prepare(data) first")
+        runner = self._runner
+        wl = self.workload
+        w = wl.init_operand(runner.rows_total, operand)
+        bad = None if stragglers is None else tuple(stragglers)
+        if runner.cfg.fuse_steps > 1 and runner.fuse_supported:
+            runner.ingest_pending()
+            _, ys, _, reports = runner.step_window(
+                w, [bad], events=[event])
+            y = ys[0]
+        else:
+            y, rep = runner.step(w, event=event, stragglers=bad)
+            reports = [rep]
+        return wl.combine(y), reports
+
+    # ------------------------------------------------------------------ #
+    # Checkpoint / resume: the FULL resumable device-backend state — the
+    # iterate carry, the EWMA speed estimates, membership, the pending
+    # measurement feed, the plan-cache keys (plans are a pure function of
+    # state and recompile bitwise on warm start), and the synthetic clock's
+    # RNG — so a killed run continues bit for bit.
+    # ------------------------------------------------------------------ #
+    def save_state(self, directory: str, operand=None,
+                   note: str = "") -> str:
+        """Snapshot the live runner into ``directory`` (atomic; see
+        :mod:`repro_torch.runtime.checkpoint`). ``operand`` is the iterate
+        carry to store (a host array or a device tensor, fetched to the
+        host; defaults to the last completed run's final carry). Returns
+        the checkpoint path."""
+        from repro_torch.runtime.checkpoint import save_checkpoint
+
+        runner = self._runner
+        if runner is None:
+            raise RuntimeError(
+                "no live runner to checkpoint: run() or prepare() first")
+        master = runner.planning_master
+        if operand is None:
+            operand = self._last_operand
+        has_operand = operand is not None
+        tree = {
+            "operand": (_host(operand) if has_operand
+                        else np.zeros(0, dtype=np.float64)),
+            "speeds": master.estimator.speeds,
+        }
+        clock_state = None
+        if hasattr(runner.clock, "state_dict"):
+            clock_state = runner.clock.state_dict()
+        extra = {"engine": {
+            "runner_step": int(runner._step),
+            "membership": [int(n) for n in runner.membership],
+            "measured_ever": sorted(
+                int(n) for n in runner._measured_ever),
+            "speed_seeded": bool(runner._speed_seeded),
+            "stragglers": int(master.stragglers),
+            "pending_loads": {
+                str(k): float(v)
+                for k, v in runner._pending_loads.items()},
+            "pending_durations": {
+                str(k): float(v)
+                for k, v in runner._pending_durations.items()},
+            "plan_cache_keys": [
+                list(map(int, k)) for k in runner._plan_cache],
+            "clock": clock_state,
+            "last_step_wall": float(runner._last_step_wall),
+            "has_operand": has_operand,
+            "workload": self.workload.name,
+            "note": note,
+        }}
+        return save_checkpoint(directory, int(runner._step), tree, extra)
+
+    def resume(self, directory: str, data: Any = None,
+               path: Optional[str] = None) -> Tuple[int, Any]:
+        """Restore a :meth:`save_state` snapshot into this engine's runner
+        and return ``(step, operand)``: feed ``operand`` (a host array; the
+        run moves it to the device) and the remaining trace back into
+        :meth:`run` to continue **bitwise-equal** to the uninterrupted run.
+        The carry, the EWMA estimates, the membership, the pending
+        measurement feed and the synthetic clock's RNG continue from the
+        saved bits, and the plan cache warm-starts from its saved keys.
+        ``path`` pins a checkpoint; the default is the directory's LATEST
+        pointer. ``data`` stages the matrix when the engine has not run yet
+        (same rule as :meth:`prepare`). Checkpoints written by the JAX
+        package restore here too."""
+        from repro_torch.runtime.checkpoint import (
+            latest_checkpoint,
+            restore_checkpoint,
+        )
+
+        if self.backend != "device":
+            raise ValueError(
+                "resume() restores the live runner; build the engine with "
+                "backend='device'")
+        ckpt = path if path is not None else latest_checkpoint(directory)
+        if ckpt is None:
+            raise FileNotFoundError(
+                f"no checkpoint found under {directory!r}")
+        runner = self.prepare(data)
+        like = self._like_from_manifest(ckpt)
+        step, tree, extra = restore_checkpoint(ckpt, like)
+        eng = extra.get("engine", {})
+        master = runner.planning_master
+        master.estimator.load_speeds(np.asarray(tree["speeds"]))
+        avail = tuple(
+            int(n) for n in eng.get("membership", runner.membership))
+        runner.placement.restrict(avail)  # raises if the data is gone
+        runner._membership = avail
+        runner._measured_ever = {
+            int(n) for n in eng.get("measured_ever", ())}
+        runner._speed_seeded = bool(eng.get("speed_seeded", True))
+        runner._pending_loads = {
+            int(k): float(v)
+            for k, v in eng.get("pending_loads", {}).items()}
+        runner._pending_durations = {
+            int(k): float(v)
+            for k, v in eng.get("pending_durations", {}).items()}
+        runner._step = int(eng.get("runner_step", step))
+        runner._last_step_wall = float(eng.get("last_step_wall", 1.0))
+        if eng.get("stragglers") is not None:
+            runner.set_stragglers(int(eng["stragglers"]))
+        clock_state = eng.get("clock")
+        if clock_state is not None and hasattr(runner.clock, "load_state"):
+            runner.clock.load_state(clock_state)
+        # Warm-start the plan cache from its saved keys: entries rebuild
+        # under the restored estimator state (the LP is pure, the arrays
+        # come back identical). Memberships that became infeasible since
+        # the snapshot are skipped.
+        runner._current = None
+        for key in eng.get("plan_cache_keys", ()):
+            k = tuple(int(n) for n in key)
+            try:
+                runner._plan_for(k)
+            except Exception:
+                continue
+        operand = (
+            np.asarray(tree["operand"])
+            if eng.get("has_operand", True) else None)
+        self._last_operand = operand
+        return int(eng.get("runner_step", step)), operand
+
+    @staticmethod
+    def _like_from_manifest(path: str) -> Dict[str, np.ndarray]:
+        """Zero prototypes matching a :meth:`save_state` checkpoint's
+        leaves: the manifest records every leaf's shape and dtype, so
+        restore rebuilds the tree without the caller knowing the saved
+        shapes. (Engine checkpoints hold float arrays only; a widened
+        bf16/fp8 leaf comes back as float32.)"""
+        import json
+        import os
+
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        like: Dict[str, np.ndarray] = {}
+        for entry in manifest["leaves"]:
+            name = entry["key"].strip("[]'\"")  # keystr: "['operand']"
+            try:
+                dtype = np.dtype(entry["dtype"])
+            except TypeError:
+                dtype = np.dtype(np.float32)
+            like[name] = np.zeros(tuple(entry["shape"]), dtype=dtype)
+        return like
 
     # ------------------------------------------------------------------ #
     def run(
@@ -409,17 +625,7 @@ class ElasticEngine:
             FaultSpec,
         )
 
-        if self._runner is None:
-            self._runner = self._build_runner(data)
-        elif data is not None:
-            # The runner staged its matrix once; silently computing on the
-            # old data while accepting new data would bit-verify the wrong
-            # answer. One engine, one dataset.
-            raise ValueError(
-                "this engine already staged data on its first run; pass "
-                "data=None to continue on it, or build a new ElasticEngine "
-                "for a different matrix")
-        runner = self._runner
+        runner = self.prepare(data)
         wl = self.workload
         wl.reset()
         ev_iter = iter(events) if events is not None else None
@@ -517,15 +723,23 @@ class ElasticEngine:
             return None if got is None else tuple(got)
 
         recoveries = 0
+        checkpoints: List[str] = []
+        ckpt_every = self.cfg.checkpoint_every
         retries: Dict[int, int] = {}
         recover_t0: Dict[int, float] = {}
 
-        def recover(fa: FaultAbort, i: int) -> None:
+        def checkpoint(w_carry, tag: str) -> None:
+            if self.cfg.checkpoint_dir is None:
+                return
+            checkpoints.append(self.save_state(
+                self.cfg.checkpoint_dir, operand=w_carry, note=tag))
+
+        def recover(fa: FaultAbort, i: int, w_carry) -> None:
             # The abort fired BEFORE anything dispatched: the carry is
             # valid, nothing partial was consumed. Demote the dead workers
-            # as if a preemption event had arrived, and let the loop
-            # re-plan + re-execute the same step index. Only FaultAbort
-            # gets here: a kernel or CUDA error propagates.
+            # as if a preemption event had arrived, optionally snapshot,
+            # and let the loop re-plan + re-execute the same step index.
+            # Only FaultAbort gets here: a kernel or CUDA error propagates.
             nonlocal recoveries
             n = retries.get(i, 0) + 1
             retries[i] = n
@@ -535,6 +749,8 @@ class ElasticEngine:
             recover_t0.setdefault(i, time.perf_counter())
             if fa.demote:
                 demote(fa.step, fa.demote)
+            if self.cfg.checkpoint_on_fault:
+                checkpoint(w_carry, f"on-fault: {fa.kind} @ step {fa.step}")
 
         def settle_recovery(i: int) -> None:
             # The re-executed step completed: stamp the measured host-side
@@ -592,7 +808,7 @@ class ElasticEngine:
                     w_carry, ys, ws, reps = runner.step_window(
                         w_carry, sets, events=evs)
                 except FaultAbort as fa:
-                    recover(fa, i)
+                    recover(fa, i, w_carry)
                     continue
                 settle_recovery(i)
                 reports.extend(reps)
@@ -603,9 +819,13 @@ class ElasticEngine:
                 for k in range(len(sets)):
                     last = wl.combine(ys[k])
                     wl.consume(last, ws[k])
-                i += len(sets)
-            w = w_carry.cpu().numpy() if not isinstance(w_carry, np.ndarray) \
-                else w_carry
+                i_prev, i = i, i + len(sets)
+                # Window-boundary-aligned periodic snapshot: fire when the
+                # window crossed a checkpoint_every boundary.
+                if ckpt_every is not None and (
+                        i // ckpt_every > i_prev // ckpt_every):
+                    checkpoint(w_carry, f"periodic @ engine step {i}")
+            w = _host(w_carry)
         else:
             i = 0
             while i < n_steps:
@@ -617,14 +837,17 @@ class ElasticEngine:
                     y, rep = runner.step(
                         w, stragglers=step_bad_of(i, runner.membership))
                 except FaultAbort as fa:
-                    recover(fa, i)
+                    recover(fa, i, w)
                     continue
                 settle_recovery(i)
                 reports.append(rep)
                 last = wl.combine(y)
                 w = wl.consume(last, w)
                 i += 1
+                if ckpt_every is not None and i % ckpt_every == 0:
+                    checkpoint(w, f"periodic @ engine step {i}")
 
+        self._last_operand = w
         return EngineResult(
             backend="device",
             workload=wl.name,
@@ -639,6 +862,7 @@ class ElasticEngine:
             stragglers=runner.planning_master.stragglers,
             fault_records=[] if inj is None else list(inj.log[log_base:]),
             recoveries=recoveries,
+            checkpoints=checkpoints,
             integrity={
                 k: v - integrity_base.get(k, 0)
                 for k, v in runner.integrity_snapshot().items()},

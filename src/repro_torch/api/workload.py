@@ -13,10 +13,12 @@ computable by any holder:
 - :meth:`Workload.verify`      — step result vs a float64 host reference.
 
 Shipped here: :class:`MatVec` / :class:`MatVecPowerIteration` (the paper's
-§V application) and :class:`MatMat` (multi-column ``Y = X @ W``, through the
-blocked :func:`repro_torch.kernels.ops.usec_matmat` path). Host-side methods
-are pure NumPy; torch is only touched by ``tile_compute`` / ``executor_fn``
-/ ``segmented_fn`` (so the simulate backend never imports it).
+§V application), :class:`MatMat` (multi-column ``Y = X @ W``, through the
+blocked :func:`repro_torch.kernels.ops.usec_matmat` path) and
+:class:`MapReduceRows` (any pure per-row torch function plus a host-side
+fold). Host-side methods are pure NumPy; torch is only touched by
+``tile_compute`` / ``executor_fn`` / ``segmented_fn`` (so the simulate
+backend never imports it).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 
 __all__ = [
+    "MapReduceRows",
     "MatMat",
     "MatVec",
     "MatVecPowerIteration",
@@ -109,12 +112,40 @@ class Workload:
     ) -> Optional[Callable]:
         """The whole-block-list compute of the segmented executor path:
         ``f(staged, slot, off, include, w2, n_blocks=...) -> (N, B,
-        block_rows, cols)`` partials with the include weights applied. None
-        (the default) keeps such a workload on the per-block path; the
-        linear workloads override this with the ``usec_segmented`` kernel
+        block_rows, cols)`` partials with the include weights applied and
+        zeros past each worker's trip count. None disables the path for a
+        workload.
+
+        The default gathers every block's rows once and maps
+        :meth:`executor_fn` over the block axis with ``torch.vmap`` (one
+        batched call), correct for any pure ``tile_compute``. The linear
+        workloads override this with the ``usec_segmented`` kernel
         (:func:`repro_torch.kernels.ops.usec_segmented`)."""
-        del mode, block_rows
-        return None
+        fn = self.executor_fn(mode)
+
+        def seg(staged, slot, off, include, w2, n_blocks=None):
+            import torch
+
+            from repro_torch.kernels.ref import gather_block_rows
+
+            n, t, rpt, k = staged.shape
+            b = slot.shape[1]
+            base = torch.arange(n, device=staged.device)[:, None] * t
+            xg = gather_block_rows(
+                staged.reshape(n * t, rpt, k),
+                (slot.to(torch.int64) + base).reshape(-1),
+                off.reshape(-1), block_rows)
+            part = torch.vmap(lambda xb: fn(xb, w2))(xg)
+            part = part.reshape(n, b, block_rows, -1).to(torch.float32) \
+                * include[:, :, None, None]
+            if n_blocks is None:
+                return part
+            valid = (torch.arange(b, device=staged.device)[None, :]
+                     < n_blocks.to(staged.device)[:, None])
+            return torch.where(valid[:, :, None, None], part,
+                               torch.zeros_like(part))
+
+        return seg
 
     def combine(self, partials: np.ndarray):
         """Host-side combine of the fully-reduced per-row partials into the
@@ -389,3 +420,82 @@ class MatMat(Workload):
                 "MatMat cost_scale needs the column count: construct "
                 "MatMat(w) (the device backend sets it from the operand)")
         return float(self._cols)
+
+
+class MapReduceRows(Workload):
+    """Arbitrary per-row pure function + monoid combine over all rows.
+
+    The "beyond linear computations" workload: ``row_fn(xb, w2)`` maps each
+    staged row block (a (block_rows, r) torch tensor; the operand as a 2-d
+    tensor) to a (block_rows, out_cols) value in torch (it must be pure —
+    the elastic machinery may recompute rows on any holder), the executor
+    assembles the per-row map output with exactly-once semantics across
+    churn and stragglers, and ``reduce_fn`` folds the assembled (q,
+    out_cols) NumPy array into the step result on the host (any monoid:
+    sum, max, logsumexp, histogram merge, ...).
+
+    ``ref_row_fn(x64, operand) -> (q, out_cols) float64`` is the NumPy
+    reference for ``verify`` (it checks the *map* output — the part the
+    distributed machinery is responsible for); like ``row_fn``, it receives
+    the operand in its executor form (a 1-d operand arrives as an (r, 1)
+    column). ``cost`` is the per-row work relative to a matvec row (the
+    simulate backend's scaling). The segmented mode runs ``row_fn`` over
+    every block at once through the base :meth:`Workload.segmented_fn`.
+    """
+
+    name = "map_reduce_rows"
+
+    def __init__(
+        self,
+        row_fn: Callable,
+        reduce_fn: Callable[[np.ndarray], Any],
+        out_cols: int = 1,
+        ref_row_fn: Optional[Callable] = None,
+        operand: Optional[np.ndarray] = None,
+        cost: float = 1.0,
+        name: Optional[str] = None,
+    ):
+        self.row_fn = row_fn
+        self.reduce_fn = reduce_fn
+        self.out_cols = int(out_cols)
+        self.ref_row_fn = ref_row_fn
+        self.operand = (
+            None if operand is None else np.asarray(operand, dtype=np.float32)
+        )
+        self.cost = float(cost)
+        if name:
+            self.name = name
+
+    def tile_compute(self, staged_block, operand):
+        return self.row_fn(staged_block, operand)
+
+    def init_operand(self, rows_total, operand=None):
+        if operand is not None:
+            return np.asarray(operand, dtype=np.float32)
+        if self.operand is not None:
+            return self.operand
+        # row_fn may not use the operand at all; feed a fixed placeholder so
+        # the executor signature stays uniform.
+        return np.zeros((1,), dtype=np.float32)
+
+    def combine(self, partials):
+        return self.reduce_fn(np.asarray(partials))
+
+    def verify(self, result, operand, x64, mode, atol) -> None:
+        # ``result`` here is the raw assembled map output (the runner
+        # verifies before the host-side reduce): that is the quantity the
+        # distributed machinery must deliver exactly once per row.
+        if self.ref_row_fn is None:
+            raise ValueError(
+                f"{self.name}: verify requires ref_row_fn (a NumPy reference "
+                "of row_fn)")
+        if x64 is None:
+            raise ValueError("verify requires the staged matrix (x64)")
+        op = np.asarray(operand)
+        op2 = op if op.ndim == 2 else op[:, None]
+        ref = np.asarray(self.ref_row_fn(x64, op2), dtype=np.float64)
+        ref = ref.reshape(x64.shape[0], self.out_cols)
+        _verify_linear(result, ref, f"{self.name} map", mode, atol)
+
+    def cost_scale(self) -> float:
+        return self.cost

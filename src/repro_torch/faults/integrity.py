@@ -1,8 +1,10 @@
 """End-to-end result integrity for uncoded elastic computing.
 
 A NumPy copy of :mod:`repro.faults.integrity` (no torch, no JAX): the
-checker runs on the host, over the host copy of the staged replicas that
-the runner mirrors onto the card.
+checker runs on the host. Its tile audit reads whichever checksums it is
+handed: zlib over the host copy of the staged replicas, or, on the card,
+the ``tile_checksum`` kernel's CRC32s of the card's copy, which equal zlib's
+bit for bit.
 
 USEC storage is uncoded: unlike coded elastic computing there is no
 parity to catch a worker that returns a *wrong* answer on time, and
@@ -330,34 +332,53 @@ class IntegrityChecker:
     # ------------------------------------------------------------------ #
     # Tile fingerprints
     # ------------------------------------------------------------------ #
+    @staticmethod
+    def _checksum(staged, sums, n: int, s: int) -> int:
+        return (tile_checksum(staged[n, s]) if sums is None
+                else int(sums[n, s]))
+
     def audit_tiles(
         self, staged: np.ndarray,
         workers: Optional[Iterable[int]] = None,
+        sums=None,
     ) -> List[Tuple[int, int, int]]:
         """Re-checksum every fingerprinted tile (optionally one
-        worker subset); returns ``(worker, slot, tile)`` mismatches."""
-        allow = None if workers is None else {int(n) for n in workers}
+        worker subset); returns ``(worker, slot, tile)`` mismatches.
+        ``sums[n, s]`` are precomputed checksums of the copy to audit
+        (the card's, from the ``tile_checksum`` kernel); None computes
+        them from ``staged``."""
         self.tile_audits += 1
+        return self.tile_mismatches(staged, workers, sums)
+
+    def tile_mismatches(
+        self, staged: Optional[np.ndarray],
+        workers: Optional[Iterable[int]] = None,
+        sums=None,
+    ) -> List[Tuple[int, int, int]]:
+        """:meth:`audit_tiles` without counting an audit (the staging-time
+        check that the card's copy starts out clean)."""
+        allow = None if workers is None else {int(n) for n in workers}
         out: List[Tuple[int, int, int]] = []
         for (n, s), crc in self.fingerprints.items():
             if allow is not None and n not in allow:
                 continue
-            if tile_checksum(staged[n, s]) != crc:
+            if self._checksum(staged, sums, n, s) != crc:
                 out.append((n, s, self.tile_of[(n, s)]))
         return out
 
     def find_donor(
         self, staged: np.ndarray, tile: int, exclude: int,
-        alive: Iterable[int],
+        alive: Iterable[int], sums=None,
     ) -> Optional[int]:
         """A surviving replica holder of ``tile`` whose own copy still
-        matches its staging-time fingerprint — the re-staging source."""
+        matches its staging-time fingerprint — the re-staging source.
+        ``sums`` as in :meth:`audit_tiles`."""
         alive_set = {int(n) for n in alive}
         for m in self.holders[tile]:
             if m == int(exclude) or m not in alive_set:
                 continue
             s = int(self.slot_of[m, tile])
-            if tile_checksum(staged[m, s]) == self.fingerprints[(m, s)]:
+            if self._checksum(staged, sums, m, s) == self.fingerprints[(m, s)]:
                 return m
         return None
 

@@ -21,6 +21,7 @@ import torch
 
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .ref import matvec_ref, segmented_gather_ref
+from .tile_checksum import tile_checksum_cuda, tile_checksum_plain
 from .usec_matvec import usec_matvec_cuda
 from .usec_segmented import segmented_plain, usec_segmented_cuda
 
@@ -180,12 +181,24 @@ def flash_attention(
                                  scale=scale)
 
 
+def tile_checksum(x: torch.Tensor, tile_dims: int = 2,
+                  mode: Optional[str] = None) -> torch.Tensor:
+    """zlib's CRC32 of every tile of ``x``: the last ``tile_dims`` dims form
+    a tile, the leading dims index the tiles. Returns int64 values in
+    [0, 2^32) shaped like the leading dims, on ``x``'s device. The kernel
+    checksums every tile in one launch; both routes equal ``zlib.crc32``."""
+    if use_kernel(mode, x):
+        return tile_checksum_cuda(x, tile_dims)
+    return tile_checksum_plain(x, tile_dims)
+
+
 __all__ = [
     "MODES",
     "check_mode",
     "executor_matmul",
     "flash_attention",
     "segmented_gather_ref",
+    "tile_checksum",
     "usec_matmat",
     "usec_matvec",
     "usec_segmented",

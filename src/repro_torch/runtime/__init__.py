@@ -5,13 +5,21 @@ runner, wall-clock simulation and the batched scenario engine.
   analytical completion times, batched over thousands of scenario draws;
 - **real execution** (:mod:`.elastic_runner`, :mod:`.executor`) — churn-driven
   steps run on the card through the hand-written kernels, with EWMA speed
-  re-estimation from measured step times.
+  re-estimation from measured step times;
+- **checkpointing** (:mod:`.checkpoint`) — atomic ``.npz`` + manifest
+  checkpoints in the JAX package's format.
 
 The simulation layer and the runner's host-side classes are pure NumPy and
 import eagerly; the executor needs torch and resolves lazily (PEP 562), so
 the planners and the simulator run without torch installed.
 """
 
+from .checkpoint import (
+    CheckpointCorruptError,
+    latest_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from .elastic_runner import (
     ElasticRunner,
     HostSharedClock,
@@ -73,6 +81,7 @@ def __getattr__(name):
 __all__ = [
     "BatchTiming",
     "BlockPlan",
+    "CheckpointCorruptError",
     "ChurnStep",
     "ChurnSweepResult",
     "DevicePlan",
@@ -95,10 +104,13 @@ __all__ = [
     "draw_scenarios",
     "exponential_speeds",
     "from_reference",
+    "latest_checkpoint",
     "make_exact_matrix",
     "make_matvec_executor",
     "quantize_unit",
     "refresh_include",
+    "restore_checkpoint",
+    "save_checkpoint",
     "simulate_batch",
     "simulate_step",
     "stage_matrix",

@@ -48,13 +48,17 @@ step's head, dispatch faults (crash, result drop) classified against the S
 budget before anything dispatches (covered: masked as realized stragglers;
 not covered: :class:`~repro_torch.faults.chaos.FaultAbort` for the engine's
 demote → replan → re-execute loop), ``dispatch_timeout`` on the modeled
-durations, and the silent-corruption defense of ``verify_results``: a host
-tile audit with in-place re-staging on the card, and Freivalds checks of
-the fetched results with a masked re-dispatch through the same executor
+durations, and the silent-corruption defense of ``verify_results``: a tile
+audit of the copy the kernels read (on the card one ``tile_checksum`` launch
+over the card's staged buffer, on the host zlib over the host copy) with
+in-place re-staging from a clean replica, and Freivalds checks of the
+fetched results with a masked re-dispatch through the same executor
 (barrier), a realized straggler (first-arrival) or a recompute of the
 corrupt rows from a replica tile (fused windows; on the card one
-``usec_matvec`` launch a row chunk). This module imports torch only when a runner
-is built, so the host-side classes work without it.
+``usec_matvec`` launch a row chunk). Observers registered with
+:meth:`ElasticRunner.add_completion_callback` see every executed step's
+report once, in order (the serving layer's metrics feed). This module imports
+torch only when a runner is built, so the host-side classes work without it.
 """
 
 from __future__ import annotations
@@ -84,19 +88,6 @@ __all__ = [
 
 # The kernel routes of repro_torch.kernels.ops (None/"auto" = by device).
 KERNEL_MODES = (None, "auto", "cuda", "ref")
-
-# Where each unported knob will land (ROADMAP.md, Queue 1).
-ROADMAP_ITEM = {
-    "checkpointing": "item 9 (checkpoint)",
-    "prepare/submit": "item 10 (serving)",
-}
-
-
-def not_ported(knob: str) -> NotImplementedError:
-    """The error for a reference feature this package does not have yet."""
-    return NotImplementedError(
-        f"{knob} is not ported to repro_torch yet: ROADMAP.md Queue 1 "
-        f"{ROADMAP_ITEM[knob]}")
 
 
 # ---------------------------------------------------------------------- #
@@ -165,9 +156,11 @@ class RunnerConfig:
       FaultAbort` otherwise. None disables the detector.
     verify_results: silent-corruption defense (``"off"`` | ``"sample"``
       | ``"always"``). On verified steps the runner (1) audits every
-      staged replica tile (host copy) against its staging-time CRC32 and
-      re-stages a corrupt tile from a surviving replica holder, on the
-      host and in place on the card, and (2) Freivalds-checks the step
+      staged replica tile of the copy the kernels read (the card's, by
+      the ``tile_checksum`` kernel; the host copy on the CPU) against its
+      staging-time CRC32 and re-stages a corrupt tile from a surviving
+      replica holder whose copy still matches, on the host and in place
+      on the card, and (2) Freivalds-checks the step
       output against seeded ±1 sketches of X (linear workloads; see
       :class:`repro_torch.faults.integrity.IntegrityChecker`). A corrupt
       partial is discarded (first-arrival: realized straggler; barrier:
@@ -298,6 +291,23 @@ class SyntheticSpeedClock:
             for n in available
             if row_loads[n] > 0
         }
+
+    def state_dict(self) -> Dict:
+        """JSON-able snapshot of the speed process (PCG64 RNG state, drift
+        vector, draw count). A checkpoint stores it so a resumed run draws
+        the same realized speeds an uninterrupted run would have, and every
+        plan decision continues bit for bit."""
+        return {
+            "rng": self.process._rng.bit_generator.state,
+            "drift": [float(v) for v in self.process._drift],
+            "draws": len(self.history),
+        }
+
+    def load_state(self, state: Dict) -> None:
+        """Restore :meth:`state_dict` output (history restarts empty: the
+        draw count lives in the RNG state)."""
+        self.process._rng.bit_generator.state = state["rng"]
+        self.process._drift = np.asarray(state["drift"], dtype=np.float64)
 
 
 # ---------------------------------------------------------------------- #
@@ -462,6 +472,7 @@ class ElasticRunner:
         # Staged X goes to the device once; plan arrays once per cache entry.
         self._staged_dev = torch.as_tensor(self._staged.staged,
                                            device=self.device)
+        self._completion_callbacks: List = []
 
         # With an explicit prior we trust its ratios; with the all-ones
         # default a never-measured machine carries no information, so it is
@@ -511,6 +522,17 @@ class ElasticRunner:
                 linear=getattr(workload, "linear", False),
                 exact=(cfg.verify == "exact"),
             )
+            if self.device.type == "cuda":
+                # The card's copy is what the kernels read and what the
+                # audit checks: it must start out equal to the host bits
+                # the fingerprints were taken from. A mismatch is a bad
+                # upload or a broken kernel, not a fault to recover from.
+                bad = self._integrity.tile_mismatches(
+                    None, sums=self._card_sums())
+                if bad:
+                    raise RuntimeError(
+                        f"tile_checksum of the card's staged buffer != the "
+                        f"staging fingerprints at (worker, slot, tile) {bad}")
         # Injected-but-undetected corruption specs by worker: consumed at
         # the injection seam, recorded when (if) the defense catches them.
         self._live_tile_specs: Dict[int, object] = {}
@@ -532,6 +554,20 @@ class ElasticRunner:
             out.update({"checks": 0, "sketch_failures": 0,
                         "tile_audits": 0})
         return out
+
+    def add_completion_callback(self, cb) -> None:
+        """Register ``cb(reports: List[StepReport])`` to fire once per
+        dispatch: with ``[report]`` on the stepwise and first-arrival paths,
+        with the window's per-active-step reports on the fused path.
+        Observers see every executed step exactly once, in step order."""
+        self._completion_callbacks.append(cb)
+
+    def remove_completion_callback(self, cb) -> None:
+        self._completion_callbacks.remove(cb)
+
+    def _notify_completion(self, reports) -> None:
+        for cb in self._completion_callbacks:
+            cb(reports)
 
     # ------------------------------------------------------------------ #
     @property
@@ -1087,6 +1123,20 @@ class ElasticRunner:
         else:
             dst.copy_(self._staged_dev[src[0], src[1]])
 
+    def _card_sums(self) -> np.ndarray:
+        """CRC32 of every tile of the card's staged buffer: one
+        ``tile_checksum`` launch and one small device-to-host copy, outside
+        any captured graph. (N, slots) int64."""
+        from repro_torch.kernels.ops import tile_checksum
+
+        return tile_checksum(self._staged_dev, 2).cpu().numpy()
+
+    def _audit_sums(self) -> Optional[np.ndarray]:
+        """The checksums a tile audit compares: the card's copy on the card
+        (None on the host, where the checker runs zlib over the host copy,
+        which is the staged tensor itself)."""
+        return self._card_sums() if self.device.type == "cuda" else None
+
     def _consume_tile_corruption(self, t: int) -> None:
         """Fire scheduled ``tile_corruption`` faults: flip bits in the
         target's first stored replica tile (host copy, mirrored in place on
@@ -1110,18 +1160,20 @@ class ElasticRunner:
             self._live_tile_specs[n] = spec
 
     def _audit_and_restage(self, t: int) -> None:
-        """Pre-dispatch tile audit: re-checksum every staged replica (host
-        copy) against its staging-time fingerprint. A corrupt tile is
-        repaired IN PLACE from a surviving replica holder whose own copy
-        still matches — on the host, and on the card as a device-to-device
-        copy from the donor's slot. The plan (and therefore the output
-        bits) is untouched and nobody is demoted. Only when no clean
-        replica survives does the holder get demoted via
+        """Pre-dispatch tile audit: re-checksum every staged replica of the
+        copy the kernels read (the card's buffer by the ``tile_checksum``
+        kernel; the host copy on the CPU) against its staging-time
+        fingerprint. A corrupt tile is repaired IN PLACE from a surviving
+        replica holder whose own copy still matches — on the host, and on
+        the card as a device-to-device copy from the donor's slot. The plan
+        (and therefore the output bits) is untouched and nobody is demoted.
+        Only when no clean replica survives does the holder get demoted via
         :class:`FaultAbort`."""
         chk = self._integrity
         if chk is None or not chk.fingerprints:
             return
-        mismatches = chk.audit_tiles(self._staged.staged)
+        sums = self._audit_sums()
+        mismatches = chk.audit_tiles(self._staged.staged, sums=sums)
         if not mismatches:
             return
         from repro_torch.faults.chaos import FaultAbort, FaultSpec
@@ -1131,7 +1183,7 @@ class ElasticRunner:
             spec = self._live_tile_specs.pop(n, None) or FaultSpec(
                 "tile_corruption", max(t, 0), worker=n)
             donor = chk.find_donor(
-                self._staged.staged, g, n, self._membership)
+                self._staged.staged, g, n, self._membership, sums=sums)
             if donor is None:
                 if inj is not None:
                     inj.record(
@@ -1300,7 +1352,7 @@ class ElasticRunner:
         w,
         bad: Tuple[int, ...],
         durations: Dict[int, float],
-    ) -> Tuple[np.ndarray, Dict[int, float], Tuple[int, ...], float]:
+    ) -> Tuple[np.ndarray, Dict[int, float], Tuple[int, ...]]:
         """Barrier corruption seam: inject scheduled
         ``result_corruption`` into the fetched output, Freivalds-check
         it, and on failure localize the corrupt row chunks to their
@@ -1308,7 +1360,7 @@ class ElasticRunner:
         the SAME executor re-dispatches with the culprit's copies masked
         out of the include weights (bit-identical output, nothing
         rebuilt); past the S budget the culprit is demoted via
-        FaultAbort. Returns ``(y, durations, bad, re-dispatch wall)``."""
+        FaultAbort. Returns ``(y, durations, bad)``."""
         from repro_torch.faults.chaos import FaultAbort
         from repro_torch.faults.integrity import corrupt_result
 
@@ -1331,7 +1383,7 @@ class ElasticRunner:
         chk = self._integrity
         if chk is None or not chk.linear or not self._verifying(t) \
                 or chk.check_output(t, y, w):
-            return y, durations, tuple(sorted(bad_set)), 0.0
+            return y, durations, tuple(sorted(bad_set))
         bad_chunks = chk.locate(t, y, w)
         culprits = self._chunk_winners(entry, bad_set, bad_chunks)
         culprits -= bad_set
@@ -1357,7 +1409,7 @@ class ElasticRunner:
                 t, "result_corruption", lost=lost, demote=lost,
                 detail=f"S={entry.stragglers} cannot cover corrupt "
                        f"worker(s) {list(lost)}")
-        y, wall = self._barrier_dispatch(entry, w, bad_new)
+        y, _ = self._barrier_dispatch(entry, w, bad_new)
         durations = {n: d for n, d in durations.items()
                      if n not in culprits}
         self.integrity["quarantined"] += len(culprits)
@@ -1372,7 +1424,7 @@ class ElasticRunner:
             raise FaultAbort(
                 t, "result_corruption", lost=lost, demote=lost,
                 detail="re-dispatched output still fails the sketch")
-        return y, durations, bad_new, wall
+        return y, durations, bad_new
 
     def _integrity_window(
         self,
@@ -1436,7 +1488,8 @@ class ElasticRunner:
                 owner = sorted(owners)[0] if owners else -1
                 g = (c * self.cfg.block_rows) // self.rows_per_tile
                 donor = chk.find_donor(
-                    self._staged.staged, g, owner, alive)
+                    self._staged.staged, g, owner, alive,
+                    sums=self._audit_sums())
                 if donor is None:
                     lost = tuple(sorted(culprits))
                     raise FaultAbort(
@@ -1623,6 +1676,7 @@ class ElasticRunner:
             t2 = time.perf_counter()
             self._precompile_neighbors(self._membership)
             self.precompile_s += time.perf_counter() - t2
+        self._notify_completion([report])
         return y, report
 
     def step(
@@ -1712,9 +1766,10 @@ class ElasticRunner:
             wall += wall_b
             durations = {n: d for n, d in durations.items()
                          if n not in set(timed)}
-        y, durations, bad, wall_b = self._integrity_barrier(
+        # The quarantine's masked re-dispatch is recovery, not the step:
+        # it stays out of wall_s, as in the reference.
+        y, durations, bad = self._integrity_barrier(
             t, entry, y, w, bad, durations)
-        wall += wall_b
         # The EWMA is fed tile-unit loads (the LP's unit), so estimated
         # speeds stay consistent with the planner; clocks see row units.
         self._pending_loads = {
@@ -1750,6 +1805,7 @@ class ElasticRunner:
             t2 = time.perf_counter()
             self._precompile_neighbors(self._membership)
             self.precompile_s += time.perf_counter() - t2
+        self._notify_completion([report])
         return y, report
 
     def _barrier_dispatch(self, entry: _CacheEntry, w,
@@ -2060,6 +2116,7 @@ class ElasticRunner:
                 measured=durs,
                 speeds_hat=entry.s_plan,
             ))
+        self._notify_completion(reports)
         return w_carry, ys, ws, reports
 
     def _verify(self, y: np.ndarray, w: np.ndarray) -> None:

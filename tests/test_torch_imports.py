@@ -34,7 +34,13 @@ def test_port_imports_no_jax_and_no_reference_package():
             "repro_torch.launch.serve",
             "repro_torch.faults",
             "repro_torch.faults.chaos",
-            "repro_torch.faults.integrity"} <= set(mods)
+            "repro_torch.faults.integrity",
+            "repro_torch.serve",
+            "repro_torch.serve.server",
+            "repro_torch.launch.serve_cli",
+            "repro_torch.runtime.checkpoint",
+            "repro_torch.kernels.tile_checksum",
+            "repro_torch.configs.usec_paper"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -86,29 +92,33 @@ def test_device_engine_without_cuda_raises(monkeypatch):
     ElasticEngine(MatVecPowerIteration(), backend="simulate", n_machines=4)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(checkpoint_dir="ckpt", checkpoint_every=2), "item 9"),
-    (dict(checkpoint_dir="ckpt", checkpoint_on_fault=True), "item 9"),
-    (dict(checkpoint_dir="ckpt"), "item 9"),
+@pytest.mark.parametrize("kwargs", [
+    dict(checkpoint_dir="ckpt", checkpoint_every=2),
+    dict(checkpoint_dir="ckpt", checkpoint_on_fault=True),
+    dict(checkpoint_dir="ckpt"),
 ])
-def test_unported_knobs_raise_at_construction(kwargs, item):
+def test_checkpoint_knobs_construct(kwargs):
     from repro_torch.api import ElasticEngine, EngineConfig, MatVec
 
-    with pytest.raises(NotImplementedError, match=item):
-        ElasticEngine(MatVec(), cfg=EngineConfig(**kwargs), backend="device",
-                      n_machines=4, device="cpu")
+    cfg = EngineConfig(**kwargs)
+    eng = ElasticEngine(MatVec(), cfg=cfg, backend="device", n_machines=4,
+                        device="cpu")
+    assert eng.cfg.checkpoint_dir == "ckpt"
 
 
-def test_unported_entry_points_raise():
+def test_prepare_and_save_state_entry_points(tmp_path):
+    """``prepare()`` stages the data and returns the runner; ``save_state``
+    writes a checkpoint manifest that ``resume`` reads back."""
     from repro_torch.api import ElasticEngine, MatVecPowerIteration
+    from repro_torch.runtime import make_exact_matrix
 
     eng = ElasticEngine(MatVecPowerIteration(), backend="device",
                         n_machines=4, device="cpu")
-    for call, item in ((lambda: eng.prepare(), "item 10"),
-                       (lambda: eng.save_state("d"), "item 9"),
-                       (lambda: eng.resume("d"), "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    runner = eng.prepare(make_exact_matrix(64))
+    assert runner is eng.runner and runner.device == torch.device("cpu")
+    path = eng.save_state(str(tmp_path))
+    assert os.path.exists(os.path.join(path, "manifest.json"))
+    assert eng.resume(str(tmp_path)) == (0, None)
 
 
 def test_fault_abort_past_max_fault_retries_reraises():

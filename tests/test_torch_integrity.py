@@ -328,3 +328,31 @@ def test_noop_backup_and_silent_without_defense(reference, segmented):
     assert_matches(silent, reference["silent_barrier1"])
     assert silent["eigvec"].tobytes() != \
         reference["clean_barrier1"]["eigvec"].tobytes()
+
+
+@pytest.mark.parametrize("segmented", MODES)
+def test_quarantine_redispatch_stays_out_of_wall_s(segmented):
+    """The barrier's integrity re-dispatch is recovery, not the step: the
+    fault step's ``StepReport.wall_s`` leaves it out, as the reference's
+    does. The re-dispatch is made to sleep 0.2 s; the step's wall stays
+    below that."""
+    import time
+
+    from test_torch_faults import engine, schedule
+    from repro_torch.runtime import make_exact_matrix
+
+    eng = engine("repro_torch", segmented=segmented, device="cpu", **ALWAYS)
+    runner = eng._runner = eng._build_runner(make_exact_matrix(384, 0))
+    executor = runner._executor
+
+    def slow(staged, plan, w, include=None):
+        if include is not None:  # only the quarantine's re-dispatch masks
+            time.sleep(0.2)
+        return executor(staged, plan, w, include)
+
+    runner._executor = slow
+    res = eng.run(n_steps=5, faults=schedule(
+        "repro_torch", [("result_corruption", 3, 3)]))
+    assert [r.action for r in res.fault_records] == ["quarantined"]
+    assert res.reports[3].straggled == (3,)
+    assert res.reports[3].wall_s < 0.2
