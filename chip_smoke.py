@@ -9,18 +9,21 @@ card and times it (usec_matvec also at the served widths C = 8, 32, 128
 beside torch.matmul; tile_checksum against zlib.crc32 of every tile of the
 Sec. V staged buffer; the flash-attention kernels at the JAX tests' cases,
 every head_dim in both dtypes: bf16 on the tensor-core kernel, fp32 on the
-FFMA kernel; one full-width glm4-9b layer), then drives the paper's Sec. V
-experiment through the normal front door, ``ElasticEngine(
-MatVecPowerIteration, backend="device")``: N = 6 workers, J = 3, a
-6000 x 6000 integer-valued matrix, cyclic and MAN placements at S in
-{0, 1}, scripted churn, 8 steps, ``verify="exact"`` at every step, in both
-executor modes (per-block ``usec_matvec`` and one ``usec_segmented`` launch
-a step). Then the model stack's serving path: glm4-9b at full width with
+FFMA kernel; one full-width glm4-9b layer and one deepseek-moe-16b layer),
+then drives the paper's Sec. V experiment through the normal front door,
+``ElasticEngine(MatVecPowerIteration, backend="device")``: N = 6 workers,
+J = 3, a 6000 x 6000 integer-valued matrix, cyclic and MAN placements at
+S in {0, 1}, scripted churn, 8 steps, ``verify="exact"`` at every step, in
+both executor modes (per-block ``usec_matvec`` and one ``usec_segmented``
+launch a step). Then the model stack's serving path: glm4-9b and then
+deepseek-moe-16b (64 routed experts, top-6) at full width and depth with
 random weights through ``repro_torch.launch.serve.generate`` (an 8192-token
 prompt, 32 greedy decode steps; one kernel launch per prefill layer, none
-in decode), a profiled prefill + decode, and card-vs-host parity at reduced
-size. Then ``checkpoint`` cuts Sec. V runs after step 5 and resumes them
-bitwise in fresh engines (and a card checkpoint on the host), and
+in decode; layer 0's attention and MoE FFN against their plain versions),
+a profiled prefill + decode each, the MoE decode's expert-read floor, and
+card-vs-host parity at reduced size (glm4-9b and both MoE models). Then
+``checkpoint`` cuts Sec. V runs after step 5 and resumes them bitwise in
+fresh engines (and a card checkpoint on the host), and
 ``serve_path`` drives serve_cli's seeded request trace through both serving
 lanes at Sec. V width (every response exact, launches per window exact,
 snapshots equal to the host's at 768^2). Last, ``elastic_faults`` injects
@@ -1740,10 +1743,19 @@ def phase_profile():
 
 
 # ---------------------------------------------------------------------- #
-# The model stack's serving path: glm4-9b prefill + decode
+# The model stack's serving path: glm4-9b and deepseek-moe-16b prefill +
+# decode
 # ---------------------------------------------------------------------- #
 MODEL_ARCH, MODEL_BATCH, PROMPT_LEN, DECODE_STEPS = "glm4-9b", 1, 8192, 32
+# The MoE model, at full width and depth with the same cell sizes.
+MOE_ARCH = "deepseek-moe-16b"
 PROFILE_DECODE_STEPS = 8
+# (rtol, atol as a share of the largest |output|) of the MoE FFN's main path
+# against its one-hot plain version in bf16. Both read the same bf16 inputs
+# and routing; the experts' products and the combine round to bf16 in
+# another order (cuBLAS picks its own sum order per shape), so outputs may
+# differ by a few bf16 ulps of the largest value: 1e-2 is about 2.5 ulps.
+MOE_TOL = (1e-2, 1e-2)
 # tests/test_kernels.py's seven cases: (b, h, hk, sq, skv, d, causal,
 # window, dtype).
 FLASH_CASES = [
@@ -1766,9 +1778,12 @@ FLASH_HEAD_DIM_CASES = [
      # a causal offset (130) that is not a multiple of the KV tile.
      (1, 16, 1, 200, 333, 128, True, None, torch.bfloat16),
      (1, 8, 2, 1000, 1130, 128, True, None, torch.bfloat16)]
-# One glm4-9b layer's prefill attention at the model path's prompt length.
+# One glm4-9b layer's prefill attention at the model path's prompt length,
+# and one deepseek-moe-16b layer's (MHA: 16 query and 16 KV heads).
 FLASH_LAYER = (1, 32, 2, PROMPT_LEN, PROMPT_LEN, 128, True, None,
                torch.bfloat16)
+FLASH_LAYER_MHA = (1, 16, 16, PROMPT_LEN, PROMPT_LEN, 128, True, None,
+                   torch.bfloat16)
 # (rtol, atol) of the flash kernel against an fp32 version of the same
 # function. Both sides read the inputs exactly, compute in fp32 and round
 # once to the output type, so they differ by the fp32 sum order and, in
@@ -1842,12 +1857,10 @@ def flash_check(case, dev, seed):
             from None
 
 
-def phase_flash(dev, paths):
-    """The flash kernels against their plain version at the test cases,
-    every head_dim in both dtypes (bf16: tensor-core kernel, fp32: FFMA
-    kernel) and one full-width glm4-9b layer; then that layer's times:
-    kernel, plain version, and one library call (SDPA) as a yardstick; and
-    both kernels' ptxas registers and spills."""
+def flash_layer(case, dev, seed):
+    """One full-width layer's prefill attention at ``case``: the kernel
+    against its plain version, then the kernel's, the plain version's and
+    one library call's (SDPA) times, and the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
@@ -1855,22 +1868,13 @@ def phase_flash(dev, paths):
         flash_attention_plain,
     )
 
-    cases = FLASH_CASES + FLASH_HEAD_DIM_CASES
-    routes0 = (flash_attention_cuda.launches_tc,
-               flash_attention_cuda.launches_ffma)
-    errs = {str(dt).replace("torch.", ""): max(
-        flash_check(c, dev, i) for i, c in enumerate(cases) if c[8] == dt)
-        for dt in ATTN_TOL}
-    layer_err = flash_check(FLASH_LAYER, dev, 99)
-    b, h, hk, sq, skv, d, causal, window, dt = FLASH_LAYER
-    q, k, v = flash_operands(FLASH_LAYER, dev, 99)
-    routes = {"launches_tc": flash_attention_cuda.launches_tc - routes0[0],
-              "launches_ffma": flash_attention_cuda.launches_ffma - routes0[1]}
+    err = flash_check(case, dev, seed)
+    b, h, hk, sq, skv, d, causal, window, dt = case
+    q, k, v = flash_operands(case, dev, seed)
     pairs = b * h * live_pairs(sq, skv, causal, window)
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     n_flops = 4 * d * pairs
     bound, by = bound_ms(n_bytes, n_flops, BF16_FLOPS_PER_S)
-    fp32_bound, _ = bound_ms(n_bytes, n_flops, FP32_FLOPS_PER_S)
     kern = timed(lambda: flash_attention_cuda(q, k, v, causal=causal), 10,
                  "flash_tc_kernel", bound)
     plain = timed(lambda: flash_attention_plain(q, k, v, causal=causal), 3,
@@ -1879,27 +1883,52 @@ def phase_flash(dev, paths):
         q, k, v, is_causal=True, enable_gqa=True), 10, bound=bound)
     del q, k, v
     torch.cuda.empty_cache()
+    return {"shape": list(case[:8]), "max_abs_err": err, "kernel": kern,
+            "plain": plain, "library": lib, "live_pairs": pairs,
+            "flops": n_flops, "bytes": n_bytes, "bound_ms": bound,
+            "bound_by": by,
+            "bound_ms_fp32_ffma": bound_ms(n_bytes, n_flops,
+                                           FP32_FLOPS_PER_S)[0],
+            "kernel_tflops": n_flops / kern["ms"] / 1e9,
+            # P.V runs twice (P_hi and P_lo): 6*d FLOPs issued per live pair.
+            "kernel_tflops_issued_6d": 1.5 * n_flops / kern["ms"] / 1e9}
+
+
+def phase_flash(dev, paths):
+    """The flash kernels against their plain version at the test cases,
+    every head_dim in both dtypes (bf16: tensor-core kernel, fp32: FFMA
+    kernel), one full-width glm4-9b layer (GQA 16) and one deepseek-moe-16b
+    layer (MHA); each layer's times: kernel, plain version, and one library
+    call (SDPA) as a yardstick; and both kernels' ptxas registers and
+    spills. The kernels line takes the glm4-9b layer's numbers."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    cases = FLASH_CASES + FLASH_HEAD_DIM_CASES
+    routes0 = (flash_attention_cuda.launches_tc,
+               flash_attention_cuda.launches_ffma)
+    errs = {str(dt).replace("torch.", ""): max(
+        flash_check(c, dev, i) for i, c in enumerate(cases) if c[8] == dt)
+        for dt in ATTN_TOL}
+    layer = flash_layer(FLASH_LAYER, dev, 99)
+    mha = flash_layer(FLASH_LAYER_MHA, dev, 98)
+    routes = {"launches_tc": flash_attention_cuda.launches_tc - routes0[0],
+              "launches_ffma": flash_attention_cuda.launches_ffma - routes0[1]}
     emit({"phase": "kernel", "name": "flash_attention",
-          "cases": len(cases) + 1, "max_abs_err_cases": errs,
+          "cases": len(cases) + 2, "max_abs_err_cases": errs,
           "rtol_atol": {str(dt).replace("torch.", ""): tol
                         for dt, tol in ATTN_TOL.items()},
-          "bitwise_run_to_run": True, "shape": list(FLASH_LAYER[:8]),
-          "dtype": "bfloat16", "max_abs_err_layer": layer_err,
-          "kernel": kern, "plain": plain, "library": lib,
-          "live_pairs": pairs, "flops": n_flops, "bytes": n_bytes,
-          "bound_ms_bf16_tensor_core": bound,
-          "bound_ms_fp32_ffma": fp32_bound,
-          "kernel_tflops": n_flops / kern["ms"] / 1e9,
-          # P.V runs twice (P_hi and P_lo): 6*d FLOPs issued per live pair.
-          "kernel_tflops_issued_6d": 1.5 * n_flops / kern["ms"] / 1e9,
+          "bitwise_run_to_run": True, "dtype": "bfloat16",
+          "layer_glm4_9b": layer, "layer_deepseek_moe_16b_mha": mha,
           "check_launches": routes,
           "ptxas": {stem: ptxas_report(paths[stem])
                     for stem in ("flash_attention_tc", "flash_attention")}})
     return {"route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_tc.cu",
             "replaces": "src/repro/kernels/flash_attention.py:106",
-            "max_abs_err": layer_err, **kern, "plain_ms": plain["ms"],
-            "bound_ms": bound, "bound_by": by, "library_ms": lib["ms"]}
+            "max_abs_err": layer["max_abs_err"], **layer["kernel"],
+            "plain_ms": layer["plain"]["ms"], "bound_ms": layer["bound_ms"],
+            "bound_by": layer["bound_by"],
+            "library_ms": layer["library"]["ms"]}
 
 
 def _counting(fn, tally, key):
@@ -1915,20 +1944,22 @@ def _counting(fn, tally, key):
     return wrapped
 
 
-def phase_model_path(dev, counters, smi):
-    """glm4-9b at full width through ``repro_torch.launch.serve.generate``:
-    weights from a seed, an 8192-token prompt, restage, 32 greedy decode
-    steps. Every prefill layer launches the flash kernel once, on the
-    tensor-core route (bf16); decode never does. Then one layer's prefill
-    attention, kernel route against the plain ``chunked_attention``.
-    Returns the main path's launch counts and what the profile phase
-    reuses."""
+def phase_model_path(dev, counters, smi, arch):
+    """``arch`` at full width and depth through
+    ``repro_torch.launch.serve.generate``: weights from a seed, an
+    8192-token prompt, restage, 32 greedy decode steps. Every prefill layer
+    launches the flash kernel once, on the tensor-core route (bf16); decode
+    never does. Then layer 0's prefill attention, kernel route against the
+    plain ``chunked_attention``, and for an MoE model layer 0's MoE FFN
+    against its plain version (:func:`moe_layer_check`). Returns the main
+    path's launch counts and what the profile phase reuses."""
     import dataclasses
 
     from repro_torch.configs import demo_batch, get_config
     from repro_torch.launch.serve import generate
-    from repro_torch.models import build_model, param_count
+    from repro_torch.models import build_model, moe, param_count
     from repro_torch.models.attention import (
+        attention_prefill,
         chunked_attention,
         long_attention,
         qkv,
@@ -1936,20 +1967,36 @@ def phase_model_path(dev, counters, smi):
     from repro_torch.models.layers import apply_norm
     from repro_torch.models.transformer import tree_map
 
-    cfg = get_config(MODEL_ARCH)
+    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats(dev)
     bundle = build_model(cfg, device=dev)
     t0 = time.perf_counter()
     params = bundle.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    if param_count(params) != cfg.n_params():
+        raise AssertionError(f"{arch}: {param_count(params)} parameters, "
+                             f"config says {cfg.n_params()}")
     batch = demo_batch(cfg, "prefill", MODEL_BATCH, PROMPT_LEN, seed=0)
     tally = {"prefill": 0, "decode": 0}
     counted = dataclasses.replace(
         bundle, prefill=_counting(bundle.prefill, tally, "prefill"),
         decode_step=_counting(bundle.decode_step, tally, "decode"))
+    # Each MoE routing's token count, capacity and dropped (token, choice)
+    # pairs (a device scalar: one small reduction a chunk, read at the end).
+    routed, route = [], moe.route
+
+    def logged_route(router, xt, cfg_):
+        r = route(router, xt, cfg_)
+        routed.append((xt.shape[0], r.capacity, (~r.keep).sum()))
+        return r
+
     reset_launches(counters)
-    out = generate(counted, params, batch, DECODE_STEPS + 1)
+    moe.route = logged_route
+    try:
+        out = generate(counted, params, batch, DECODE_STEPS + 1)
+    finally:
+        moe.route = route
     launches = {n: fn.launches for n, fn in counters.items()}
     flash = counters["flash_attention"]
     routes = {"launches_tc": flash.launches_tc,
@@ -1958,13 +2005,40 @@ def phase_model_path(dev, counters, smi):
     if tally != {"prefill": cfg.n_layers, "decode": 0} or launches != {
             **{n: 0 for n in counters}, "flash_attention": cfg.n_layers} \
             or routes != {"launches_tc": cfg.n_layers, "launches_ffma": 0}:
-        raise AssertionError(f"model path launches {tally} / {launches} / "
-                             f"{routes}")
+        raise AssertionError(f"{arch} model path launches {tally} / "
+                             f"{launches} / {routes}")
     if tuple(out.logits.shape) != (MODEL_BATCH, DECODE_STEPS + 1,
                                    cfg.vocab_size):
         raise AssertionError(f"logits shape {tuple(out.logits.shape)}")
     if not bool(torch.isfinite(out.logits).all()):
-        raise AssertionError("non-finite logits on the model path")
+        raise AssertionError(f"non-finite logits on the {arch} path")
+    row = {"phase": "model_path", "arch": arch,
+           "params": param_count(params), "param_dtype": cfg.param_dtype,
+           "batch": MODEL_BATCH, "prompt_len": PROMPT_LEN,
+           "decode_steps": DECODE_STEPS, "init_s": init_s,
+           "prefill_s": out.prefill_s, "decode_s": out.decode_s,
+           "decode_tokens_per_s": MODEL_BATCH * DECODE_STEPS / out.decode_s,
+           "launches_prefill": tally["prefill"],
+           "launches_decode": tally["decode"], "launches": launches,
+           "flash_routes": routes, "logits_finite": True,
+           "max_memory_allocated_gb": peak / 1e9,
+           "tokens_head": out.tokens[0, :8].tolist(), "nvidia_smi": smi}
+    if cfg.is_moe:
+        n_prompt = MODEL_BATCH * PROMPT_LEN
+        by_part = {"prefill": [r for r in routed if r[0] == n_prompt],
+                   "decode": [r for r in routed if r[0] == MODEL_BATCH]}
+        if len(by_part["prefill"]) != cfg.n_layers or len(
+                by_part["decode"]) != cfg.n_layers * DECODE_STEPS or len(
+                routed) != cfg.n_layers * (DECODE_STEPS + 1):
+            raise AssertionError(f"MoE routings {len(routed)}")
+        row.update({
+            "moe_capacity": {k: sorted({c for _, c, _ in v})
+                             for k, v in by_part.items()},
+            "moe_dropped_choices": {k: int(sum(n for *_, n in v))
+                                    for k, v in by_part.items()},
+            "moe_choices": {k: len(v) * v[0][0] * cfg.top_k
+                            for k, v in by_part.items()}})
+    del out, routed
 
     # Layer 0's prefill attention: the kernel route the path took, against
     # the plain chunked scan, which also computes in fp32 and rounds once
@@ -1972,30 +2046,69 @@ def phase_model_path(dev, counters, smi):
     layer0 = tree_map(lambda t: t[0], params["stack"]["blocks"][0])
     x = params["embed"][torch.as_tensor(batch["tokens"], device=dev).long()]
     h = apply_norm(layer0["norm1"], x, cfg.norm)
-    q, k, v = qkv(layer0["temporal"], h, cfg,
-                  torch.arange(PROMPT_LEN, device=dev))
+    positions = torch.arange(PROMPT_LEN, device=dev)
+    q, k, v = qkv(layer0["temporal"], h, cfg, positions)
     o_kernel = long_attention(q, k, v, True, None, cfg.attn_chunk)
     o_plain = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
     try:
-        layer0_err = attn_err(o_kernel, o_plain)
+        row["layer0_attention_max_abs_err_vs_chunked"] = attn_err(o_kernel,
+                                                                  o_plain)
     except AssertionError as e:
-        raise AssertionError(f"layer-0 attention, kernel vs chunked: {e}") \
-            from None
-    del x, h, q, k, v, o_kernel, o_plain
-    emit({"phase": "model_path", "arch": MODEL_ARCH, "params":
-          param_count(params), "param_dtype": cfg.param_dtype,
-          "batch": MODEL_BATCH, "prompt_len": PROMPT_LEN,
-          "decode_steps": DECODE_STEPS, "init_s": init_s,
-          "prefill_s": out.prefill_s, "decode_s": out.decode_s,
-          "decode_tokens_per_s": MODEL_BATCH * DECODE_STEPS / out.decode_s,
-          "launches_prefill": tally["prefill"],
-          "launches_decode": tally["decode"], "launches": launches,
-          "flash_routes": routes,
-          "logits_finite": True,
-          "layer0_attention_max_abs_err_vs_chunked": layer0_err,
-          "max_memory_allocated_gb": peak / 1e9,
-          "tokens_head": out.tokens[0, :8].tolist(), "nvidia_smi": smi})
+        raise AssertionError(f"{arch} layer-0 attention, kernel vs "
+                             f"chunked: {e}") from None
+    del q, k, v, o_kernel, o_plain
+    if cfg.is_moe:
+        t, _ = attention_prefill(layer0["temporal"], h, cfg, positions)
+        x = x + t.to(x.dtype)
+        row.update(moe_layer_check(layer0, apply_norm(layer0["norm2"], x,
+                                                      cfg.norm), cfg))
+    del x, h
+    torch.cuda.empty_cache()
+    emit(row)
     return launches, bundle, params, batch
+
+
+def moe_layer_check(p, h2, cfg):
+    """Layer 0's MoE FFN on the prompt's normed activations (bf16, one
+    8192-token chunk): the main path (``apply_moe``: index dispatch and
+    combine) against ``moe_chunk_plain`` (the reference's one-hot einsums)
+    plus the shared experts. Equal top-k indices and keep masks, the
+    dispatched (E, C, D) buffers bitwise equal, outputs within
+    :data:`MOE_TOL`; then both versions' times for the routed part."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import apply_mlp
+
+    xt = h2.reshape(-1, cfg.d_model)
+    r = moe.route(p["ffn"]["router"], xt, cfg)
+    out, aux = moe.apply_moe(p["ffn"], h2, cfg)
+    out_p, aux_p, idx_p, keep_p, xin_p = moe.moe_chunk_plain(p["ffn"], xt,
+                                                             cfg)
+    if not (torch.equal(r.idx, idx_p) and torch.equal(r.keep, keep_p)):
+        raise AssertionError("layer-0 MoE: main and plain route differently")
+    if not torch.equal(moe.dispatch(xt, r), xin_p):
+        raise AssertionError("layer-0 MoE: dispatched buffers differ")
+    want = out_p.reshape(h2.shape) + apply_mlp(p["ffn"]["shared"], h2,
+                                               cfg.act)
+    del xin_p, out_p
+    rtol, atol_share = MOE_TOL
+    err = (out.float() - want.float()).abs()
+    limit = atol_share * float(want.float().abs().max()) \
+        + rtol * want.float().abs()
+    if bool((err > limit).any()) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"layer-0 MoE: max abs err {float(err.max())}")
+    aux_err = abs(float(aux) - float(aux_p))
+    if aux_err > 1e-5:
+        raise AssertionError(f"layer-0 MoE: aux differs by {aux_err}")
+    main_ms = cuda_ms(lambda: moe.moe_chunk(p["ffn"], xt, cfg), 5)
+    plain_ms = cuda_ms(lambda: moe.moe_chunk_plain(p["ffn"], xt, cfg), 2, 1)
+    return {"layer0_moe": {
+        "tokens": xt.shape[0], "capacity": r.capacity,
+        "dropped_choices": int((~r.keep).sum()),
+        "routing_equal": True, "dispatch_bitwise": True,
+        "max_abs_err_vs_plain": float(err.max()),
+        "max_abs_out": float(want.float().abs().max()),
+        "rtol_atol_share": list(MOE_TOL), "aux": float(aux),
+        "aux_abs_err": aux_err, "main_ms": main_ms, "plain_ms": plain_ms}}
 
 
 def _ranged(fn, name):
@@ -2059,7 +2172,8 @@ def phase_model_profile(bundle, params, batch):
         dev_us = sum(us for us, _ in entries.values())
         top = sorted(((us, k, n) for k, (us, n) in entries.items()),
                      reverse=True)[:8]
-        row = {"phase": "model_profile", "part": name,
+        row = {"phase": "model_profile", "arch": bundle.cfg.name,
+               "part": name,
                "steps": 1 if name == "prefill" else PROFILE_DECODE_STEPS,
                "wall_s_profiled": walls[name], "device_ms": 1e-3 * dev_us,
                "device_busy_share": 1e-6 * dev_us / walls[name],
@@ -2073,12 +2187,49 @@ def phase_model_profile(bundle, params, batch):
         emit(row)
 
 
+def phase_moe_decode_floor(bundle, params):
+    """What one MoE decode token must read: at capacity 1 every expert of
+    every layer runs on its one-slot buffer, so the expert products read all
+    expert weights, a bytes floor at the card's HBM rate. Measured: the
+    expert products alone (``models.moe.experts`` over every layer on a
+    (E, 1, D) buffer; CUDA events over back-to-back calls, each layer's 1.1
+    GB far past the 50 MB L2)."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import tree_map
+
+    cfg = bundle.cfg
+    blocks = params["stack"]["blocks"][0]["ffn"]
+    n_bytes = sum(blocks[n].numel() * blocks[n].element_size()
+                  for n in ("w_gate", "w_up", "w_down"))
+    layers = [tree_map(lambda t: t[i], blocks) for i in range(cfg.n_layers)]
+    g = torch.Generator(device=bundle.device).manual_seed(1)
+    xin = torch.randn((cfg.n_experts, 1, cfg.d_model), generator=g,
+                      device=bundle.device).to(blocks["w_up"].dtype)
+
+    def all_layers():
+        for p in layers:
+            moe.experts(p, xin, cfg.act)
+
+    ms = cuda_ms(all_layers, 5, 1)
+    floor_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    emit({"phase": "model_profile", "arch": cfg.name,
+          "part": "moe_decode_floor",
+          "expert_bytes_per_token": n_bytes,
+          "expert_bytes_per_layer": n_bytes / cfg.n_layers,
+          "floor_ms_per_token": floor_ms,
+          "experts_ms_per_token": ms,
+          "experts_gb_per_s": n_bytes / ms / 1e6,
+          "floor_share": floor_ms / ms})
+
+
 def phase_model_parity(dev):
     """The port on the card against the port on the host at reduced
-    glm4-9b in fp32, the same weights on both: prompts of 33 (plain
-    attention) and 160 tokens (> attn_chunk = 64: the FFMA kernel on the
-    card, the chunked scan on the host), 8 decode steps; logits within 1e-4
-    of the host's largest, greedy tokens equal."""
+    glm4-9b, deepseek-moe-16b and llama4-scout-17b-a16e in fp32, the same
+    weights on both (the MoE models with ``moe_chunk`` 16, so their chunk
+    loop and its zero-padded tail run): prompts of 33 (plain attention) and
+    160 tokens (> attn_chunk = 64: the FFMA kernel on the card, the chunked
+    scan on the host), 8 decode steps; logits within 1e-4 of the host's
+    largest, greedy tokens equal."""
     import dataclasses
 
     from repro_torch.configs import demo_batch, get_config
@@ -2087,32 +2238,38 @@ def phase_model_parity(dev):
     from repro_torch.models import build_model
     from repro_torch.models.transformer import tree_map
 
-    cfg = dataclasses.replace(get_config(MODEL_ARCH).reduced(),
-                              param_dtype="float32")
-    host, card = build_model(cfg, device="cpu"), build_model(cfg, device=dev)
-    p_host = host.init(torch.Generator().manual_seed(0))
-    p_card = tree_map(lambda t: t.to(dev), p_host)
-    rels = {}
-    ffma0, tc0 = (flash_attention_cuda.launches_ffma,
-                  flash_attention_cuda.launches_tc)
-    for prompt in (33, 160):
-        batch = demo_batch(cfg, "prefill", 2, prompt, seed=prompt)
-        a = generate(host, p_host, batch, 9)
-        b = generate(card, p_card, batch, 9)
-        rel = float((b.logits.cpu() - a.logits).abs().max()
-                    / a.logits.abs().max())
-        if rel > 1e-4 or not torch.equal(a.tokens, b.tokens.cpu()):
-            raise AssertionError(
-                f"card != host at prompt {prompt}: rel {rel}")
-        rels[prompt] = rel
-    routes = {"launches_ffma": flash_attention_cuda.launches_ffma - ffma0,
-              "launches_tc": flash_attention_cuda.launches_tc - tc0}
-    if routes != {"launches_ffma": cfg.n_layers, "launches_tc": 0}:
-        raise AssertionError(f"fp32 model path flash routes {routes}")
-    emit({"phase": "model_parity", "arch": cfg.name + " (reduced, fp32)",
-          "prompts": [33, 160], "decode_steps": 8,
-          "max_rel_logit_err": rels, "greedy_tokens_equal": True,
-          "flash_routes": routes})
+    for arch in (MODEL_ARCH, MOE_ARCH, "llama4-scout-17b-a16e"):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  param_dtype="float32")
+        if cfg.is_moe:
+            cfg = dataclasses.replace(cfg, moe_chunk=16)
+        host = build_model(cfg, device="cpu")
+        card = build_model(cfg, device=dev)
+        p_host = host.init(torch.Generator().manual_seed(0))
+        p_card = tree_map(lambda t: t.to(dev), p_host)
+        rels = {}
+        ffma0, tc0 = (flash_attention_cuda.launches_ffma,
+                      flash_attention_cuda.launches_tc)
+        for prompt in (33, 160):
+            batch = demo_batch(cfg, "prefill", 2, prompt, seed=prompt)
+            a = generate(host, p_host, batch, 9)
+            b = generate(card, p_card, batch, 9)
+            rel = float((b.logits.cpu() - a.logits).abs().max()
+                        / a.logits.abs().max())
+            if rel > 1e-4 or not torch.equal(a.tokens, b.tokens.cpu()):
+                raise AssertionError(
+                    f"{arch}: card != host at prompt {prompt}: rel {rel}")
+            rels[prompt] = rel
+        routes = {"launches_ffma": flash_attention_cuda.launches_ffma - ffma0,
+                  "launches_tc": flash_attention_cuda.launches_tc - tc0}
+        if routes != {"launches_ffma": cfg.n_layers, "launches_tc": 0}:
+            raise AssertionError(f"{arch}: fp32 model path flash routes "
+                                 f"{routes}")
+        emit({"phase": "model_parity", "arch": cfg.name + " (reduced, fp32)",
+              "prompts": [33, 160], "decode_steps": 8,
+              **({"moe_chunk": cfg.moe_chunk} if cfg.is_moe else {}),
+              "max_rel_logit_err": rels, "greedy_tokens_equal": True,
+              "flash_routes": routes})
 
 
 def main() -> int:
@@ -2184,13 +2341,19 @@ def main() -> int:
         totals[n] += elastic[n]
     phase_elastic_profile(smi)
 
-    # ---- 5. main path: the model stack's serving path (glm4-9b) ----
-    model_launches, bundle, params, batch = phase_model_path(
-        dev, counters, smi)
-    totals["flash_attention"] = model_launches["flash_attention"]
-    phase_model_profile(bundle, params, batch)
-    del bundle, params, batch
-    torch.cuda.empty_cache()
+    # ---- 5. main path: the model stack's serving path (glm4-9b, then
+    # deepseek-moe-16b; each drops its weights before the next) ----
+    totals["flash_attention"] = 0
+    for arch in (MODEL_ARCH, MOE_ARCH):
+        model_launches, bundle, params, batch = phase_model_path(
+            dev, counters, smi, arch)
+        totals["flash_attention"] += model_launches["flash_attention"]
+        phase_model_profile(bundle, params, batch)
+        if bundle.cfg.is_moe:
+            phase_moe_decode_floor(bundle, params)
+        del bundle, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
     phase_model_parity(dev)
 
     # ---- 6. checkpoint / resume and the serving path at Sec. V ----

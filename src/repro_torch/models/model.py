@@ -27,7 +27,6 @@ from .transformer import (
     stack_decode,
     stack_prefill,
     tree_leaves,
-    tree_map,
 )
 
 
@@ -52,7 +51,8 @@ def build_model(cfg, device=None) -> ModelBundle:
 
     def init(generator: torch.Generator) -> Dict:
         """Random weights from ``generator`` (on ``device``), every leaf
-        allocated in ``cfg.param_dtype`` on the device."""
+        allocated on the device in ``cfg.param_dtype`` (an MoE router in
+        fp32, as the reference's)."""
         embed = torch.empty((cfg.vocab_size, cfg.d_model), dtype=dt,
                             device=device)
         p: Dict[str, Any] = {
@@ -116,14 +116,22 @@ def _tensor(a) -> torch.Tensor:
 def params_from_reference(tree, cfg, device=None) -> Dict:
     """The reference's params (``jax.tree.map(np.asarray, params)``) as the
     port's tree on ``device``, leaf for leaf with the same dtypes. Raises if
-    a leaf is not in ``cfg.param_dtype``."""
+    a leaf is not in ``cfg.param_dtype``, except an MoE ``router``, which
+    the reference keeps in fp32."""
     device = resolve_device(device)
     dt = dtype_of(cfg.param_dtype)
 
-    def one(a):
-        t = _tensor(a)
-        if t.dtype != dt:
-            raise ValueError(f"leaf of dtype {t.dtype}, want {dt}")
+    def carry(node, key=None):
+        if isinstance(node, dict):
+            return {k: carry(node[k], k) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(carry(v, key) for v in node)
+        if node is None:
+            return None
+        t = _tensor(node)
+        want = torch.float32 if key == "router" and cfg.is_moe else dt
+        if t.dtype != want:
+            raise ValueError(f"leaf {key!r} of dtype {t.dtype}, want {want}")
         return t.to(device)
 
-    return tree_map(one, tree)
+    return carry(tree)

@@ -7,13 +7,14 @@ architecture is an instance of one stack schema:
   -> final norm -> unembed
 
 A *pattern block* is ``cfg.layer_pattern`` applied in order. Ported layer
-kinds: "attn" (global GQA attention + dense FFN) and "lattn" (sliding-window
-attention + dense FFN). Homogeneous-layer params and caches are stacked on a
+kinds: "attn" (global GQA attention + FFN) and "lattn" (sliding-window
+attention + FFN); the FFN is dense, or the MoE of :mod:`.moe` when
+``cfg.is_moe``. Homogeneous-layer params and caches are stacked on a
 leading ``n_repeats`` axis, the reference's ``lax.scan`` layout, and the
 stack runs as a Python loop over that axis; the remainder layers
 (depth % pattern) have their own params and caches. The "rglru" and "ssm"
-kinds, MoE FFNs and training raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+kinds and training raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -23,11 +24,11 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 
 from . import attention as attn_mod
+from . import moe as moe_mod
 from .layers import apply_mlp, apply_norm, dtype_of, init_mlp, init_norm
 
 PORTED_KINDS = ("attn", "lattn")
 _ROADMAP = {
-    "moe": "the MoE FFN (models/moe.py): ROADMAP.md Queue 1 item 12b",
     "rglru": "the rglru layer kind: ROADMAP.md Queue 1 item 12c",
     "ssm": "the ssm layer kind: ROADMAP.md Queue 1 item 12c",
     "frontend": "modality frontends and encoder-only models: "
@@ -45,12 +46,10 @@ def not_ported(what: str) -> NotImplementedError:
 
 def require_ported(cfg) -> None:
     """Raise ``NotImplementedError`` unless every layer of ``cfg`` is of a
-    ported kind with a dense FFN."""
+    ported kind."""
     for kind in cfg.layer_pattern:
         if kind not in PORTED_KINDS:
             raise not_ported(kind) if kind in _ROADMAP else ValueError(kind)
-    if cfg.is_moe:
-        raise not_ported("moe")
 
 
 # ---------------------------------------------------------------------- #
@@ -88,15 +87,20 @@ def _init_layer(generator, kind: str, cfg, device, lead=()) -> Dict:
         "norm1": init_norm(cfg.d_model, cfg.norm, dt, device, lead),
         "temporal": attn_mod.init_attention(generator, cfg, device, lead),
         "norm2": init_norm(cfg.d_model, cfg.norm, dt, device, lead),
-        "ffn": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt,
-                        device, lead),
+        "ffn": (moe_mod.init_moe(generator, cfg, device, lead) if cfg.is_moe
+                else init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt,
+                              device, lead)),
     }
 
 
 def _apply_ffn(p, x, cfg):
-    """The dense FFN (the reference's branch without its MoE aux loss and
-    GSPMD sharding hints)."""
-    return apply_mlp(p, x, cfg.act)
+    """(out, aux): the MoE FFN and its load-balance loss, or the dense FFN
+    and a zero aux (the reference's branches without their GSPMD sharding
+    hints)."""
+    if cfg.is_moe:
+        return moe_mod.apply_moe(p, x, cfg)
+    return apply_mlp(p, x, cfg.act), torch.zeros((), dtype=torch.float32,
+                                                  device=x.device)
 
 
 def _window(kind: str, cfg):
@@ -110,7 +114,8 @@ def _layer_prefill(kind: str, p: Dict, x, cfg, positions):
                                           window=_window(kind, cfg))
     x = x + t.to(x.dtype)
     h2 = apply_norm(p["norm2"], x, cfg.norm)
-    return x + _apply_ffn(p["ffn"], h2, cfg).to(x.dtype), cache
+    f, _ = _apply_ffn(p["ffn"], h2, cfg)
+    return x + f.to(x.dtype), cache
 
 
 def _layer_decode(kind: str, p: Dict, x, cache, cache_pos, cfg):
@@ -120,7 +125,8 @@ def _layer_decode(kind: str, p: Dict, x, cache, cache_pos, cfg):
                                              window=_window(kind, cfg))
     x = x + t.to(x.dtype)
     h2 = apply_norm(p["norm2"], x, cfg.norm)
-    return x + _apply_ffn(p["ffn"], h2, cfg).to(x.dtype), new_cache
+    f, _ = _apply_ffn(p["ffn"], h2, cfg)
+    return x + f.to(x.dtype), new_cache
 
 
 # ---------------------------------------------------------------------- #

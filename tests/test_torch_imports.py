@@ -31,6 +31,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert {"repro_torch.kernels.usec_segmented",
             "repro_torch.kernels.flash_attention",
             "repro_torch.models.transformer",
+            "repro_torch.models.moe",
             "repro_torch.launch.serve",
             "repro_torch.faults",
             "repro_torch.faults.chaos",

@@ -44,8 +44,11 @@ from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.transformer import tree_leaves  # noqa: E402
 
 TOL = 1e-5
-MODEL_ARCHS = ["glm4-9b", "stablelm-1.6b", "qwen1.5-110b", "nemotron-4-15b"]
+MODEL_ARCHS = ["glm4-9b", "stablelm-1.6b", "qwen1.5-110b", "nemotron-4-15b",
+               "deepseek-moe-16b", "llama4-scout-17b-a16e"]
 PORTED = set(MODEL_ARCHS)
+REF_MOE_WARNING = pytest.mark.filterwarnings(
+    "ignore:jax.nn.one_hot input should be integer-typed:DeprecationWarning")
 B, DECODE_STEPS = 2, 8
 
 
@@ -309,6 +312,7 @@ def _port(arch):
     return bundle, params_from_reference(ref_params, cfg, "cpu")
 
 
+@REF_MOE_WARNING
 @pytest.mark.parametrize("prompt_len", [33, 160])
 @pytest.mark.parametrize("arch", MODEL_ARCHS)
 def test_reduced_model_serving_matches_reference(arch, prompt_len):
@@ -328,6 +332,59 @@ def test_reduced_model_serving_matches_reference(arch, prompt_len):
     assert np.array_equal(out.tokens.numpy(), toks_ref)
 
 
+@REF_MOE_WARNING
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "llama4-scout-17b-a16e"])
+def test_moe_decode_at_batch_2_drops_over_capacity(arch, monkeypatch):
+    """Decode at batch 2 routes 2 tokens a layer, so each expert holds
+    ``max(int(2·k/4·1.25), 1) = 1`` of them: where both tokens pick one
+    expert, the later choice is dropped. The port drops the reference's
+    choices: the same logits and tokens, and some decode step dropped."""
+    from repro_torch.models import moe
+
+    routed = []
+    real = moe.route
+
+    def route_spy(router, xt, cfg):
+        r = real(router, xt, cfg)
+        routed.append((xt.shape[0], r.capacity, int((~r.keep).sum())))
+        return r
+
+    _, logits_ref, toks_ref, batch = _reference_run(arch, 33)
+    bundle, params = _port(arch)
+    monkeypatch.setattr(moe, "route", route_spy)
+    out = serve.generate(bundle, params, batch, DECODE_STEPS + 1)
+    decode = [(c, n) for t, c, n in routed if t == B]
+    assert len(decode) == DECODE_STEPS * bundle.cfg.n_layers
+    assert {c for c, _ in decode} == {1}
+    assert sum(n for _, n in decode) > 0
+    assert _rel(out.logits.numpy(), logits_ref) < 1e-4
+    assert np.array_equal(out.tokens.numpy(), toks_ref)
+
+
+def test_params_from_reference_carries_a_bf16_moe_with_its_fp32_router():
+    """A reduced bf16 deepseek-moe-16b crosses leaf for leaf in the
+    reference's dtypes (bf16, the routers fp32); any other leaf that is not
+    in ``param_dtype`` is still refused."""
+    arch = "deepseek-moe-16b"
+    cfg = get_config(arch).reduced()
+    ref = jax.tree.map(np.asarray, ref_build_model(
+        ref_configs.get_config(arch).reduced()).init(jax.random.PRNGKey(1)))
+    carried = params_from_reference(ref, cfg, "cpu")
+    got, want = tree_leaves(carried), jax.tree.leaves(ref)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert str(g.dtype).replace("torch.", "") == str(w.dtype)
+        assert np.array_equal(g.float().numpy(), w.astype(np.float32))
+    routers = [blk["ffn"]["router"] for blk in carried["stack"]["blocks"]]
+    assert routers and {r.dtype for r in routers} == {torch.float32}
+    assert {t.dtype for t in got} == {torch.bfloat16, torch.float32}
+    ffn = ref["stack"]["blocks"][0]["ffn"]
+    ffn["w_up"] = ffn["w_up"].astype(np.float32)
+    with pytest.raises(ValueError, match="w_up"):
+        params_from_reference(ref, cfg, "cpu")
+
+
+@REF_MOE_WARNING
 @pytest.mark.filterwarnings("ignore::UserWarning")
 @pytest.mark.parametrize("arch", MODEL_ARCHS)
 def test_greedy_tokens_match_decode_demo(arch, monkeypatch):
@@ -399,11 +456,24 @@ def test_serve_main_on_host_and_without_gpu(monkeypatch, capsys):
         serve.main(["--arch", "glm4-9b", "--reduced"])
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "llama4-scout-17b-a16e"])
+def test_serve_main_serves_moe_on_host_and_without_gpu(arch, monkeypatch,
+                                                       capsys):
+    gen = serve.main(["--arch", arch, "--reduced", "--batch", "2",
+                      "--prompt-len", "40", "--gen-len", "4",
+                      "--device", "cpu"])
+    assert gen.shape == (2, 4)
+    assert "prefill 2x40" in capsys.readouterr().out
+    build_model(get_config(arch), device="cpu")  # full width builds
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", arch, "--reduced"])
+
+
 @pytest.mark.parametrize("arch", sorted(set(list_archs()) - PORTED))
 def test_unported_families_raise_with_their_roadmap_item(arch):
     cfg = get_config(arch).reduced()
-    item = ("12d" if cfg.frontend or not cfg.decoder else
-            "12c" if set(cfg.layer_pattern) & {"rglru", "ssm"} else "12b")
+    item = "12d" if cfg.frontend or not cfg.decoder else "12c"
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         build_model(cfg, device="cpu")
 
