@@ -9,19 +9,23 @@ card and times it (usec_matvec also at the served widths C = 8, 32, 128
 beside torch.matmul; tile_checksum against zlib.crc32 of every tile of the
 Sec. V staged buffer; the flash-attention kernels at the JAX tests' cases,
 every head_dim in both dtypes: bf16 on the tensor-core kernel, fp32 on the
-FFMA kernel; one full-width glm4-9b layer and one deepseek-moe-16b layer),
+FFMA kernel; one full-width glm4-9b layer, one deepseek-moe-16b layer and
+one recurrentgemma-2b windowed layer),
 then drives the paper's Sec. V experiment through the normal front door,
 ``ElasticEngine(MatVecPowerIteration, backend="device")``: N = 6 workers,
 J = 3, a 6000 x 6000 integer-valued matrix, cyclic and MAN placements at
 S in {0, 1}, scripted churn, 8 steps, ``verify="exact"`` at every step, in
 both executor modes (per-block ``usec_matvec`` and one ``usec_segmented``
-launch a step). Then the model stack's serving path: glm4-9b and then
-deepseek-moe-16b (64 routed experts, top-6) at full width and depth with
-random weights through ``repro_torch.launch.serve.generate`` (an 8192-token
-prompt, 32 greedy decode steps; one kernel launch per prefill layer, none
-in decode; layer 0's attention and MoE FFN against their plain versions),
-a profiled prefill + decode each, the MoE decode's expert-read floor, and
-card-vs-host parity at reduced size (glm4-9b and both MoE models). Then
+launch a step). Then the model stack's serving path: glm4-9b,
+deepseek-moe-16b (64 routed experts, top-6), recurrentgemma-2b (RG-LRU +
+local attention) and mamba2-370m (Mamba-2 SSD) in turn at full width and
+depth with random weights through ``repro_torch.launch.serve.generate`` (an
+8192-token prompt, 32 greedy decode steps; one kernel launch per prefill
+attention layer, none in decode; the first attention layer and layer 0's
+MoE FFN against their plain versions; the first rglru and ssm layer's
+prefill-to-decode state handoff in fp32), a profiled prefill + decode
+each, the MoE decode's expert-read floor, and card-vs-host parity at
+reduced size (glm4-9b, both MoE models and both recurrent models). Then
 ``checkpoint`` cuts Sec. V runs after step 5 and resumes them bitwise in
 fresh engines (and a card checkpoint on the host), and
 ``serve_path`` drives serve_cli's seeded request trace through both serving
@@ -1749,6 +1753,23 @@ def phase_profile():
 MODEL_ARCH, MODEL_BATCH, PROMPT_LEN, DECODE_STEPS = "glm4-9b", 1, 8192, 32
 # The MoE model, at full width and depth with the same cell sizes.
 MOE_ARCH = "deepseek-moe-16b"
+# Every arch the model path serves at full width and depth, in turn, with
+# the same cell: the dense and MoE attention stacks, the Griffin hybrid
+# (RG-LRU + local attention) and the attention-free Mamba-2 SSD stack.
+MODEL_ARCHS = (MODEL_ARCH, MOE_ARCH, "recurrentgemma-2b", "mamba2-370m")
+# The exact parameter count of the reference's init of each (its
+# ``jax.eval_shape``; ``cfg.n_params()`` is an analytic approximation that
+# misses the RG-LRU gates and the SSD norm). tests/test_torch_models.py
+# holds this table to the reference.
+EXACT_PARAMS = {"glm4-9b": 9399767040, "deepseek-moe-16b": 16879568896,
+                "recurrentgemma-2b": 2894528000, "mamba2-370m": 368227840}
+ATTENTION_KINDS = ("attn", "lattn")
+# (share of the largest |output|) of the recurrent state handoff: one
+# layer in fp32 with TF32 off, a decode step after a P-token prefill
+# against row P+1 of a (P+1)-token prefill. Both sides compute the same
+# function in fp32 and sum in another order (the chunked or log-depth scan
+# against the one-step recurrence, an (S, K) GEMM against a (1, K) GEMV).
+HANDOFF_TOL = 1e-4
 PROFILE_DECODE_STEPS = 8
 # (rtol, atol as a share of the largest |output|) of the MoE FFN's main path
 # against its one-hot plain version in bf16. Both read the same bf16 inputs
@@ -1784,6 +1805,10 @@ FLASH_LAYER = (1, 32, 2, PROMPT_LEN, PROMPT_LEN, 128, True, None,
                torch.bfloat16)
 FLASH_LAYER_MHA = (1, 16, 16, PROMPT_LEN, PROMPT_LEN, 128, True, None,
                    torch.bfloat16)
+# One recurrentgemma-2b local-attention layer: head_dim 256, GQA 10:1, a
+# 2048-token sliding window.
+FLASH_LAYER_WINDOW = (1, 10, 1, PROMPT_LEN, PROMPT_LEN, 256, True, 2048,
+                      torch.bfloat16)
 # (rtol, atol) of the flash kernel against an fp32 version of the same
 # function. Both sides read the inputs exactly, compute in fp32 and round
 # once to the output type, so they differ by the fp32 sum order and, in
@@ -1857,12 +1882,34 @@ def flash_check(case, dev, seed):
             from None
 
 
+def sdpa_call(q, k, v, causal: bool, window):
+    """(the library call computing the layer's function, the SDPA backend
+    it runs on). A windowed layer gives SDPA an explicit boolean
+    causal+window mask, which takes it off its flash backend."""
+    import torch.nn.functional as F
+
+    mask = None
+    if window is not None:
+        sq, skv = q.shape[-2], k.shape[-2]
+        q_pos = torch.arange(sq, device=q.device)[:, None] + skv - sq
+        k_pos = torch.arange(skv, device=q.device)[None, :]
+        mask = (k_pos > q_pos - window) & (k_pos <= q_pos if causal else True)
+    kw = dict(attn_mask=mask, is_causal=causal and mask is None,
+              enable_gqa=True)
+    choice = getattr(torch, "_fused_sdp_choice", None)
+    backend = "unknown"
+    if choice is not None:
+        idx = choice(q, k, v, mask, 0.0, kw["is_causal"], enable_gqa=True)
+        backend = torch.nn.attention.SDPBackend(idx).name
+    return (lambda: F.scaled_dot_product_attention(q, k, v, **kw)), backend
+
+
 def flash_layer(case, dev, seed):
     """One full-width layer's prefill attention at ``case``: the kernel
     against its plain version, then the kernel's, the plain version's and
-    one library call's (SDPA) times, and the bound."""
-    import torch.nn.functional as F
-
+    one library call's (SDPA, on the backend named) times, all three on
+    the same function (causal, and the window where the layer has one),
+    and the bound."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda,
         flash_attention_plain,
@@ -1875,16 +1922,19 @@ def flash_layer(case, dev, seed):
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     n_flops = 4 * d * pairs
     bound, by = bound_ms(n_bytes, n_flops, BF16_FLOPS_PER_S)
-    kern = timed(lambda: flash_attention_cuda(q, k, v, causal=causal), 10,
+    kern = timed(lambda: flash_attention_cuda(q, k, v, causal=causal,
+                                              window=window), 10,
                  "flash_tc_kernel", bound)
-    plain = timed(lambda: flash_attention_plain(q, k, v, causal=causal), 3,
+    plain = timed(lambda: flash_attention_plain(q, k, v, causal=causal,
+                                                window=window), 3,
                   bound=bound)
-    lib = timed(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 10, bound=bound)
-    del q, k, v
+    sdpa, backend = sdpa_call(q, k, v, causal, window)
+    lib = timed(sdpa, 10, bound=bound)
+    del q, k, v, sdpa
     torch.cuda.empty_cache()
     return {"shape": list(case[:8]), "max_abs_err": err, "kernel": kern,
-            "plain": plain, "library": lib, "live_pairs": pairs,
+            "plain": plain, "library": lib, "sdpa_backend": backend,
+            "live_pairs": pairs,
             "flops": n_flops, "bytes": n_bytes, "bound_ms": bound,
             "bound_by": by,
             "bound_ms_fp32_ffma": bound_ms(n_bytes, n_flops,
@@ -1897,8 +1947,9 @@ def flash_layer(case, dev, seed):
 def phase_flash(dev, paths):
     """The flash kernels against their plain version at the test cases,
     every head_dim in both dtypes (bf16: tensor-core kernel, fp32: FFMA
-    kernel), one full-width glm4-9b layer (GQA 16) and one deepseek-moe-16b
-    layer (MHA); each layer's times: kernel, plain version, and one library
+    kernel), one full-width glm4-9b layer (GQA 16), one deepseek-moe-16b
+    layer (MHA) and one recurrentgemma-2b local-attention layer (d 256, GQA
+    10, window 2048); each layer's times: kernel, plain version, and one library
     call (SDPA) as a yardstick; and both kernels' ptxas registers and
     spills. The kernels line takes the glm4-9b layer's numbers."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -1911,14 +1962,16 @@ def phase_flash(dev, paths):
         for dt in ATTN_TOL}
     layer = flash_layer(FLASH_LAYER, dev, 99)
     mha = flash_layer(FLASH_LAYER_MHA, dev, 98)
+    windowed = flash_layer(FLASH_LAYER_WINDOW, dev, 97)
     routes = {"launches_tc": flash_attention_cuda.launches_tc - routes0[0],
               "launches_ffma": flash_attention_cuda.launches_ffma - routes0[1]}
     emit({"phase": "kernel", "name": "flash_attention",
-          "cases": len(cases) + 2, "max_abs_err_cases": errs,
+          "cases": len(cases) + 3, "max_abs_err_cases": errs,
           "rtol_atol": {str(dt).replace("torch.", ""): tol
                         for dt, tol in ATTN_TOL.items()},
           "bitwise_run_to_run": True, "dtype": "bfloat16",
           "layer_glm4_9b": layer, "layer_deepseek_moe_16b_mha": mha,
+          "layer_recurrentgemma_2b_lattn": windowed,
           "check_launches": routes,
           "ptxas": {stem: ptxas_report(paths[stem])
                     for stem in ("flash_attention_tc", "flash_attention")}})
@@ -1944,15 +1997,46 @@ def _counting(fn, tally, key):
     return wrapped
 
 
+def attention_layer_count(cfg) -> int:
+    """The number of attention (``attn``/``lattn``) layers in ``cfg``'s
+    stack: one flash launch each in a long prefill."""
+    from repro_torch.models.transformer import stack_layout
+
+    n_rep, extra_kinds = stack_layout(cfg)
+    return (n_rep * sum(k in ATTENTION_KINDS for k in cfg.layer_pattern)
+            + sum(k in ATTENTION_KINDS for k in extra_kinds))
+
+
+def first_layer(params, cfg, kinds):
+    """(kind, name, params) of the first layer in stack order whose kind is
+    in ``kinds``, or None."""
+    from repro_torch.models.transformer import stack_layout, tree_map
+
+    n_rep, extra_kinds = stack_layout(cfg)
+    stack = params["stack"]
+    for pos, kind in enumerate(cfg.layer_pattern if n_rep else ()):
+        if kind in kinds:
+            return (kind, f"blocks[{pos}][0]",
+                    tree_map(lambda t: t[0], stack["blocks"][pos]))
+    for i, kind in enumerate(extra_kinds):
+        if kind in kinds:
+            return kind, f"extras[{i}]", stack["extras"][i]
+    return None
+
+
 def phase_model_path(dev, counters, smi, arch):
     """``arch`` at full width and depth through
     ``repro_torch.launch.serve.generate``: weights from a seed, an
-    8192-token prompt, restage, 32 greedy decode steps. Every prefill layer
-    launches the flash kernel once, on the tensor-core route (bf16); decode
-    never does. Then layer 0's prefill attention, kernel route against the
-    plain ``chunked_attention``, and for an MoE model layer 0's MoE FFN
-    against its plain version (:func:`moe_layer_check`). Returns the main
-    path's launch counts and what the profile phase reuses."""
+    8192-token prompt, restage, 32 greedy decode steps. The parameter count
+    is the reference init's exact count (:data:`EXACT_PARAMS`). Every
+    attention layer of the prefill launches the flash kernel once, on the
+    tensor-core route (bf16); recurrent layers and decode never do. Then
+    the first attention layer's prefill attention (with its window), kernel
+    route against the plain ``chunked_attention``; for an MoE model layer
+    0's MoE FFN against its plain version (:func:`moe_layer_check`); for a
+    recurrent model its first rglru or ssm layer's state handoff
+    (:func:`state_handoff`). Returns the main path's launch counts and what
+    the profile phase reuses."""
     import dataclasses
 
     from repro_torch.configs import demo_batch, get_config
@@ -1965,18 +2049,18 @@ def phase_model_path(dev, counters, smi, arch):
         qkv,
     )
     from repro_torch.models.layers import apply_norm
-    from repro_torch.models.transformer import tree_map
 
     cfg = get_config(arch)
+    n_attn = attention_layer_count(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
     bundle = build_model(cfg, device=dev)
     t0 = time.perf_counter()
     params = bundle.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    if param_count(params) != cfg.n_params():
+    if param_count(params) != EXACT_PARAMS[arch]:
         raise AssertionError(f"{arch}: {param_count(params)} parameters, "
-                             f"config says {cfg.n_params()}")
+                             f"the reference's init has {EXACT_PARAMS[arch]}")
     batch = demo_batch(cfg, "prefill", MODEL_BATCH, PROMPT_LEN, seed=0)
     tally = {"prefill": 0, "decode": 0}
     counted = dataclasses.replace(
@@ -2002,9 +2086,9 @@ def phase_model_path(dev, counters, smi, arch):
     routes = {"launches_tc": flash.launches_tc,
               "launches_ffma": flash.launches_ffma}
     peak = torch.cuda.max_memory_allocated(dev)
-    if tally != {"prefill": cfg.n_layers, "decode": 0} or launches != {
-            **{n: 0 for n in counters}, "flash_attention": cfg.n_layers} \
-            or routes != {"launches_tc": cfg.n_layers, "launches_ffma": 0}:
+    if tally != {"prefill": n_attn, "decode": 0} or launches != {
+            **{n: 0 for n in counters}, "flash_attention": n_attn} \
+            or routes != {"launches_tc": n_attn, "launches_ffma": 0}:
         raise AssertionError(f"{arch} model path launches {tally} / "
                              f"{launches} / {routes}")
     if tuple(out.logits.shape) != (MODEL_BATCH, DECODE_STEPS + 1,
@@ -2012,8 +2096,11 @@ def phase_model_path(dev, counters, smi, arch):
         raise AssertionError(f"logits shape {tuple(out.logits.shape)}")
     if not bool(torch.isfinite(out.logits).all()):
         raise AssertionError(f"non-finite logits on the {arch} path")
-    row = {"phase": "model_path", "arch": arch,
-           "params": param_count(params), "param_dtype": cfg.param_dtype,
+    row = {"phase": "model_path", "arch": arch, "layers": cfg.n_layers,
+           "layer_pattern": list(cfg.layer_pattern),
+           "attention_layers": n_attn,
+           "params": param_count(params), "n_params_formula": cfg.n_params(),
+           "param_dtype": cfg.param_dtype,
            "batch": MODEL_BATCH, "prompt_len": PROMPT_LEN,
            "decode_steps": DECODE_STEPS, "init_s": init_s,
            "prefill_s": out.prefill_s, "decode_s": out.decode_s,
@@ -2040,32 +2127,129 @@ def phase_model_path(dev, counters, smi, arch):
                             for k, v in by_part.items()}})
     del out, routed
 
-    # Layer 0's prefill attention: the kernel route the path took, against
-    # the plain chunked scan, which also computes in fp32 and rounds once
-    # (ATTN_TOL's bf16 limit).
-    layer0 = tree_map(lambda t: t[0], params["stack"]["blocks"][0])
+    # The first attention layer's prefill attention (its window too): the
+    # kernel route the path took, against the plain chunked scan, which
+    # also computes in fp32 and rounds once (ATTN_TOL's bf16 limit).
     x = params["embed"][torch.as_tensor(batch["tokens"], device=dev).long()]
-    h = apply_norm(layer0["norm1"], x, cfg.norm)
     positions = torch.arange(PROMPT_LEN, device=dev)
-    q, k, v = qkv(layer0["temporal"], h, cfg, positions)
-    o_kernel = long_attention(q, k, v, True, None, cfg.attn_chunk)
-    o_plain = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    try:
-        row["layer0_attention_max_abs_err_vs_chunked"] = attn_err(o_kernel,
-                                                                  o_plain)
-    except AssertionError as e:
-        raise AssertionError(f"{arch} layer-0 attention, kernel vs "
-                             f"chunked: {e}") from None
-    del q, k, v, o_kernel, o_plain
-    if cfg.is_moe:
-        t, _ = attention_prefill(layer0["temporal"], h, cfg, positions)
-        x = x + t.to(x.dtype)
-        row.update(moe_layer_check(layer0, apply_norm(layer0["norm2"], x,
-                                                      cfg.norm), cfg))
-    del x, h
+    first = first_layer(params, cfg, ATTENTION_KINDS)
+    if first is not None:
+        kind, name, layer = first
+        window = cfg.window if kind == "lattn" else None
+        h = apply_norm(layer["norm1"], x, cfg.norm)
+        q, k, v = qkv(layer["temporal"], h, cfg, positions)
+        o_kernel = long_attention(q, k, v, True, window, cfg.attn_chunk)
+        o_plain = chunked_attention(q, k, v, causal=True, window=window,
+                                    chunk=cfg.attn_chunk)
+        try:
+            err = attn_err(o_kernel, o_plain)
+        except AssertionError as e:
+            raise AssertionError(f"{arch} {name} attention, kernel vs "
+                                 f"chunked: {e}") from None
+        row["attention_check"] = {"layer": name, "kind": kind,
+                                  "window": window,
+                                  "max_abs_err_vs_chunked": err}
+        del q, k, v, o_kernel, o_plain
+        if cfg.is_moe:
+            t, _ = attention_prefill(layer["temporal"], h, cfg, positions)
+            x2 = x + t.to(x.dtype)
+            row.update(moe_layer_check(layer, apply_norm(layer["norm2"], x2,
+                                                         cfg.norm), cfg))
+            del t, x2
+        del h
+    del x
+    for kind in ("rglru", "ssm"):
+        found = first_layer(params, cfg, (kind,))
+        if found is not None:
+            row.setdefault("layer0_state_handoff", {})[kind] = \
+                state_handoff(found, cfg, params["embed"])
+            row.setdefault("recurrence_ms", {})[kind] = recurrence_times(
+                found, cfg, params["embed"], batch["tokens"])
     torch.cuda.empty_cache()
     emit(row)
     return launches, bundle, params, batch
+
+
+def recurrence_times(found, cfg, embed, tokens):
+    """The first rglru or ssm layer's prefill over the prompt as the main
+    path runs it (bf16 weights and activations): the recurrence alone
+    (``linear_scan`` of its fp32 decays and inputs, or ``ssd_chunked``) and
+    the whole temporal block with its cache (``rglru_prefill`` or
+    ``_ssm_prefill``). CUDA events over back-to-back calls: where the host
+    dispatches slower than the card runs, that is the host's time."""
+    from repro_torch.models import rglru, ssm
+    from repro_torch.models.layers import apply_norm, causal_depthwise_conv
+    from repro_torch.models.transformer import _ssm_prefill
+
+    kind, name, layer = found
+    p = layer["temporal"]
+    x = embed[torch.as_tensor(tokens, device=embed.device).long()]
+    h = apply_norm(layer["norm1"], x, cfg.norm)
+    if kind == "rglru":
+        xc, _ = causal_depthwise_conv(h @ p["w_x"], p["conv_w"])
+        log_a, b = rglru._gates(p, xc)
+        a = torch.exp(log_a)
+        scan, block = (lambda: rglru.linear_scan(a, b),
+                       lambda: rglru.rglru_prefill(p, h, cfg))
+    else:
+        z, _, xs, bs, cs, dt, _ = ssm._in_proj(p, h, cfg)
+        xh = xs.reshape(*xs.shape[:2], -1, cfg.ssm_head_dim)
+        x_dt = xh * dt[..., None].to(xh.dtype)
+        da = dt * -torch.exp(p["A_log"])
+        scan, block = (lambda: ssm.ssd_chunked(x_dt, da, bs, cs,
+                                               cfg.ssm_chunk),
+                       lambda: _ssm_prefill(p, h, cfg))
+    out = {"layer": name, "tokens": h.shape[1], "scan_ms": cuda_ms(scan, 5),
+           "block_prefill_ms": cuda_ms(block, 5)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def state_handoff(found, cfg, embed):
+    """The recurrent layer's prefill-to-decode handoff at full width, in
+    fp32 (TF32 off): prefill P = 8192 tokens, then one decode step for
+    token P+1 from the prompt's cache (restaged into fresh tensors, as
+    ``generate`` does), against a prefill over all P+1 tokens: the step's
+    output against that prefill's last row, and the cache the step wrote
+    in place against that prefill's cache, each within
+    :data:`HANDOFF_TOL` of its largest |value|. A wrong conv tail, a wrong
+    prefill state or a cache not updated in place fails it."""
+    from repro_torch.configs import demo_batch
+    from repro_torch.models import rglru, ssm
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.transformer import _ssm_prefill, tree_map
+
+    kind, name, layer = found
+    prefill, decode = {
+        "rglru": (rglru.rglru_prefill, rglru.apply_rglru_decode),
+        "ssm": (_ssm_prefill, ssm.apply_ssm_decode)}[kind]
+    p = tree_map(lambda t: t.float(), layer["temporal"])
+    tokens = demo_batch(cfg, "prefill", MODEL_BATCH, PROMPT_LEN + 1,
+                        seed=1)["tokens"]
+    x = embed[torch.as_tensor(tokens, device=embed.device).long()].float()
+    h = apply_norm(tree_map(lambda t: t.float(), layer["norm1"]), x,
+                   cfg.norm)
+    want, want_cache = prefill(p, h, cfg)
+    _, cache = prefill(p, h[:, :PROMPT_LEN], cfg)
+    cache = {n: t.clone() for n, t in cache.items()}
+    held = dict(cache)
+    got, _ = decode(p, h[:, PROMPT_LEN:], cache, cfg)
+    torch.cuda.synchronize()
+    if any(cache[n] is not held[n] for n in held):
+        raise AssertionError(f"{cfg.name} {name} ({kind}): decode rebound "
+                             f"its cache")
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    errs = {"output": rel(got[:, 0], want[:, -1]),
+            **{f"cache_{n}": rel(cache[n], want_cache[n]) for n in cache}}
+    if not all(e <= HANDOFF_TOL for e in errs.values()) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"{cfg.name} {name} ({kind}) state handoff: "
+                             f"{errs}")
+    return {"layer": name, "prompt_len": PROMPT_LEN, "dtype": "float32",
+            "max_rel_err": errs, "tol_share_of_max": HANDOFF_TOL}
 
 
 def moe_layer_check(p, h2, cfg):
@@ -2224,12 +2408,15 @@ def phase_moe_decode_floor(bundle, params):
 
 def phase_model_parity(dev):
     """The port on the card against the port on the host at reduced
-    glm4-9b, deepseek-moe-16b and llama4-scout-17b-a16e in fp32, the same
-    weights on both (the MoE models with ``moe_chunk`` 16, so their chunk
-    loop and its zero-padded tail run): prompts of 33 (plain attention) and
-    160 tokens (> attn_chunk = 64: the FFMA kernel on the card, the chunked
-    scan on the host), 8 decode steps; logits within 1e-4 of the host's
-    largest, greedy tokens equal."""
+    glm4-9b, deepseek-moe-16b, llama4-scout-17b-a16e, mamba2-370m and
+    recurrentgemma-2b in fp32, the same weights on both (the MoE models
+    with ``moe_chunk`` 16, so their chunk loop and its zero-padded tail
+    run; recurrentgemma at 8 layers, so its two trailing layers run):
+    prompts of 33 (plain attention; not a multiple of the SSD chunk 16) and
+    160 tokens (> attn_chunk = 64: the FFMA kernel on the card, window 32
+    for recurrentgemma's local attention; the chunked scan on the host), 8
+    decode steps; logits within 1e-4 of the host's largest, greedy tokens
+    equal; one FFMA launch per attention layer at 160."""
     import dataclasses
 
     from repro_torch.configs import demo_batch, get_config
@@ -2238,11 +2425,14 @@ def phase_model_parity(dev):
     from repro_torch.models import build_model
     from repro_torch.models.transformer import tree_map
 
-    for arch in (MODEL_ARCH, MOE_ARCH, "llama4-scout-17b-a16e"):
+    for arch in (MODEL_ARCH, MOE_ARCH, "llama4-scout-17b-a16e",
+                 "mamba2-370m", "recurrentgemma-2b"):
         cfg = dataclasses.replace(get_config(arch).reduced(),
                                   param_dtype="float32")
         if cfg.is_moe:
             cfg = dataclasses.replace(cfg, moe_chunk=16)
+        if arch == "recurrentgemma-2b":
+            cfg = dataclasses.replace(cfg, n_layers=8)
         host = build_model(cfg, device="cpu")
         card = build_model(cfg, device=dev)
         p_host = host.init(torch.Generator().manual_seed(0))
@@ -2262,10 +2452,12 @@ def phase_model_parity(dev):
             rels[prompt] = rel
         routes = {"launches_ffma": flash_attention_cuda.launches_ffma - ffma0,
                   "launches_tc": flash_attention_cuda.launches_tc - tc0}
-        if routes != {"launches_ffma": cfg.n_layers, "launches_tc": 0}:
+        n_attn = attention_layer_count(cfg)
+        if routes != {"launches_ffma": n_attn, "launches_tc": 0}:
             raise AssertionError(f"{arch}: fp32 model path flash routes "
                                  f"{routes}")
         emit({"phase": "model_parity", "arch": cfg.name + " (reduced, fp32)",
+              "layers": cfg.n_layers, "attention_layers": n_attn,
               "prompts": [33, 160], "decode_steps": 8,
               **({"moe_chunk": cfg.moe_chunk} if cfg.is_moe else {}),
               "max_rel_logit_err": rels, "greedy_tokens_equal": True,
@@ -2341,10 +2533,11 @@ def main() -> int:
         totals[n] += elastic[n]
     phase_elastic_profile(smi)
 
-    # ---- 5. main path: the model stack's serving path (glm4-9b, then
-    # deepseek-moe-16b; each drops its weights before the next) ----
+    # ---- 5. main path: the model stack's serving path (glm4-9b,
+    # deepseek-moe-16b, recurrentgemma-2b, mamba2-370m; each drops its
+    # weights before the next) ----
     totals["flash_attention"] = 0
-    for arch in (MODEL_ARCH, MOE_ARCH):
+    for arch in MODEL_ARCHS:
         model_launches, bundle, params, batch = phase_model_path(
             dev, counters, smi, arch)
         totals["flash_attention"] += model_launches["flash_attention"]

@@ -3,14 +3,19 @@
 Twin of ``examples/decode_demo.py`` (which the reference's
 ``repro.launch.serve`` loads): build one of the ported architectures, draw
 random weights from a seed, prefill a prompt batch from ``demo_batch``,
-restage the prompt's KV cache into a full-length cache, then run the greedy
-(or temperature) decode loop. On a GPU every long-sequence attention of the
-prefill runs the hand-written flash kernel. Not connected to the elastic
-engine.
+restage the prompt's cache into a full-length cache (KV leaves at the
+start of the longer ones; the recurrent layers' fixed-shape conv and state
+leaves whole), then run the greedy (or temperature) decode loop. On a GPU
+every long-sequence attention of the prefill runs the hand-written flash
+kernel. Not connected to the elastic engine.
 
 Run (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain
 PyTorch versions on the host):
   python -m repro_torch.launch.serve --arch glm4-9b --batch 1 \\
+      --prompt-len 8192 --gen-len 32
+  python -m repro_torch.launch.serve --arch recurrentgemma-2b --batch 1 \\
+      --prompt-len 8192 --gen-len 32
+  python -m repro_torch.launch.serve --arch mamba2-370m --batch 1 \\
       --prompt-len 8192 --gen-len 32
 """
 
@@ -53,7 +58,9 @@ def generate(bundle, params, batch: Dict, gen_len: int,
     t0 = time.perf_counter()
     cache = make_cache(cfg, b, prompt_len + gen_len, device=device)
     prefill_cache, logits = bundle.prefill(params, batch)
-    # Place each prompt-length KV leaf at the start of the full-size one.
+    # Place each prompt-length KV leaf at the start of the full-size one
+    # (a recurrent layer's conv and state leaves have the same shape in
+    # both and are copied whole).
     for full, pre in zip(tree_leaves(cache), tree_leaves(prefill_cache)):
         full[tuple(slice(0, s) for s in pre.shape)] = pre
     del prefill_cache

@@ -1,4 +1,5 @@
-"""Primitive layers: norms, rotary embeddings, MLPs, initializers.
+"""Primitive layers: norms, rotary embeddings, MLPs, the causal depthwise
+conv, initializers.
 
 Twin of :mod:`repro.models.layers`. Pure-function style: ``init_*`` builds a
 param dict of tensors; the matching ``apply`` is a plain function. Params
@@ -10,7 +11,7 @@ device, a bounded fp32 chunk at a time.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -126,3 +127,24 @@ def apply_mlp(p: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         raise ValueError(act)
     return h @ p["w_down"]
+
+
+def causal_depthwise_conv(
+    x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal 1D conv. x: (B, S, C); w: (K, C).
+
+    Returns (y, new_state) where state is the trailing (K-1) inputs for
+    streaming decode. When ``state`` is given it is prepended (decode path);
+    otherwise zero history (training path). ``y`` and the state are in
+    ``x.dtype``; the K shifted products are summed in the reference's
+    order, in ``x.dtype``.
+    """
+    b, s, c = x.shape
+    k = w.shape[0]
+    if state is None:
+        state = torch.zeros((b, k - 1, c), dtype=x.dtype, device=x.device)
+    xx = torch.cat([state, x], dim=1)  # (B, S+K-1, C)
+    y = sum(xx[:, i: i + s, :] * w[i][None, None, :] for i in range(k))
+    new_state = xx[:, xx.shape[1] - (k - 1):, :]
+    return y.to(x.dtype), new_state

@@ -1,8 +1,11 @@
 """build_model(cfg) -> ModelBundle: init / prefill / decode.
 
 Twin of :mod:`repro.models.model` for the serving path of decoder-only LM
-families (batch ``{"tokens": (B, S) int}``). Parameters are the reference's
-nested dicts of arrays as dicts of tensors, in the same layout and dtypes;
+families (batch ``{"tokens": (B, S) int}``): attention, MoE, RG-LRU and
+Mamba-2 SSD stacks. Parameters are the reference's nested dicts of arrays
+as dicts of tensors, in the same layout and dtypes (the leaves the
+reference keeps in fp32 in a bf16 model too: the MoE router, the ssm
+``A_log``/``D``/``dt_bias``, the rglru ``b_a``/``b_i``/``lam``);
 :func:`params_from_reference` carries a reference tree (as numpy) across.
 Training (``loss_fn``), the audio-encoder and VLM frontends raise
 ``NotImplementedError`` naming their ROADMAP.md item.
@@ -25,9 +28,15 @@ from .transformer import (
     not_ported,
     require_ported,
     stack_decode,
+    stack_layout,
     stack_prefill,
     tree_leaves,
 )
+
+# The leaves the reference keeps in fp32 whatever ``param_dtype`` is, by the
+# kind of layer whose temporal block holds them.
+_FP32_LEAVES = {"ssm": ("A_log", "D", "dt_bias"),
+                "rglru": ("b_a", "b_i", "lam")}
 
 
 @dataclass
@@ -51,8 +60,8 @@ def build_model(cfg, device=None) -> ModelBundle:
 
     def init(generator: torch.Generator) -> Dict:
         """Random weights from ``generator`` (on ``device``), every leaf
-        allocated on the device in ``cfg.param_dtype`` (an MoE router in
-        fp32, as the reference's)."""
+        allocated on the device in ``cfg.param_dtype`` (the reference's fp32
+        leaves in fp32)."""
         embed = torch.empty((cfg.vocab_size, cfg.d_model), dtype=dt,
                             device=device)
         p: Dict[str, Any] = {
@@ -116,22 +125,36 @@ def _tensor(a) -> torch.Tensor:
 def params_from_reference(tree, cfg, device=None) -> Dict:
     """The reference's params (``jax.tree.map(np.asarray, params)``) as the
     port's tree on ``device``, leaf for leaf with the same dtypes. Raises if
-    a leaf is not in ``cfg.param_dtype``, except an MoE ``router``, which
-    the reference keeps in fp32."""
+    a leaf is not in ``cfg.param_dtype``, except the leaves the reference
+    keeps in fp32: an MoE ``router``, and the fp32 leaves of an ssm or
+    rglru layer's temporal block (:data:`_FP32_LEAVES`)."""
     device = resolve_device(device)
     dt = dtype_of(cfg.param_dtype)
+    _, extra_kinds = stack_layout(cfg)
+    kinds = {"blocks": list(cfg.layer_pattern), "extras": extra_kinds}
 
-    def carry(node, key=None):
+    def want(path):
+        key = path[-1]
+        if key == "router" and cfg.is_moe:
+            return torch.float32
+        if len(path) == 5 and path[0] == "stack" and path[3] == "temporal":
+            kind = kinds[path[1]][path[2]]
+            if key in _FP32_LEAVES.get(kind, ()):
+                return torch.float32
+        return dt
+
+    def carry(node, path=()):
         if isinstance(node, dict):
-            return {k: carry(node[k], k) for k in sorted(node)}
+            return {k: carry(node[k], path + (k,)) for k in sorted(node)}
         if isinstance(node, (list, tuple)):
-            return type(node)(carry(v, key) for v in node)
+            return type(node)(carry(v, path + (i,))
+                              for i, v in enumerate(node))
         if node is None:
             return None
         t = _tensor(node)
-        want = torch.float32 if key == "router" and cfg.is_moe else dt
-        if t.dtype != want:
-            raise ValueError(f"leaf {key!r} of dtype {t.dtype}, want {want}")
+        if t.dtype != want(path):
+            raise ValueError(f"leaf {'/'.join(map(str, path))} of dtype "
+                             f"{t.dtype}, want {want(path)}")
         return t.to(device)
 
     return carry(tree)

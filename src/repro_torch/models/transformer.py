@@ -6,15 +6,19 @@ architecture is an instance of one stack schema:
   embed -> [pattern block] * n_repeats  (+ unrolled remainder layers)
   -> final norm -> unembed
 
-A *pattern block* is ``cfg.layer_pattern`` applied in order. Ported layer
-kinds: "attn" (global GQA attention + FFN) and "lattn" (sliding-window
-attention + FFN); the FFN is dense, or the MoE of :mod:`.moe` when
-``cfg.is_moe``. Homogeneous-layer params and caches are stacked on a
-leading ``n_repeats`` axis, the reference's ``lax.scan`` layout, and the
-stack runs as a Python loop over that axis; the remainder layers
-(depth % pattern) have their own params and caches. The "rglru" and "ssm"
-kinds and training raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+A *pattern block* is ``cfg.layer_pattern`` applied in order; entries:
+  "attn"   — global GQA attention + FFN (dense, or the MoE of :mod:`.moe`
+             when ``cfg.is_moe``)
+  "lattn"  — sliding-window attention + FFN
+  "rglru"  — RG-LRU recurrent block + FFN        (RecurrentGemma)
+  "ssm"    — Mamba-2 SSD block, no separate FFN  (mamba2)
+
+Homogeneous-layer params and caches are stacked on a leading ``n_repeats``
+axis, the reference's ``lax.scan`` layout, and the stack runs as a Python
+loop over that axis; the remainder layers (depth % pattern) have their own
+params and caches. Decode hands each layer views of the stacked cache and
+every layer kind updates them in place. Training raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -25,12 +29,12 @@ import torch
 
 from . import attention as attn_mod
 from . import moe as moe_mod
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .layers import apply_mlp, apply_norm, dtype_of, init_mlp, init_norm
 
-PORTED_KINDS = ("attn", "lattn")
+PORTED_KINDS = ("attn", "lattn", "rglru", "ssm")
 _ROADMAP = {
-    "rglru": "the rglru layer kind: ROADMAP.md Queue 1 item 12c",
-    "ssm": "the ssm layer kind: ROADMAP.md Queue 1 item 12c",
     "frontend": "modality frontends and encoder-only models: "
                 "ROADMAP.md Queue 1 item 12d",
     "train": "training (losses.py, stack_train, optim): "
@@ -83,14 +87,23 @@ def _layer(tree, i: int):
 # ---------------------------------------------------------------------- #
 def _init_layer(generator, kind: str, cfg, device, lead=()) -> Dict:
     dt = dtype_of(cfg.param_dtype)
-    return {
-        "norm1": init_norm(cfg.d_model, cfg.norm, dt, device, lead),
-        "temporal": attn_mod.init_attention(generator, cfg, device, lead),
-        "norm2": init_norm(cfg.d_model, cfg.norm, dt, device, lead),
-        "ffn": (moe_mod.init_moe(generator, cfg, device, lead) if cfg.is_moe
-                else init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt,
-                              device, lead)),
-    }
+    p: Dict[str, Any] = {"norm1": init_norm(cfg.d_model, cfg.norm, dt,
+                                            device, lead)}
+    if kind in ("attn", "lattn"):
+        p["temporal"] = attn_mod.init_attention(generator, cfg, device, lead)
+    elif kind == "rglru":
+        p["temporal"] = rglru_mod.init_rglru(generator, cfg, device, lead)
+    elif kind == "ssm":
+        p["temporal"] = ssm_mod.init_ssm(generator, cfg, device, lead)
+    else:
+        raise ValueError(kind)
+    if kind != "ssm":
+        p["norm2"] = init_norm(cfg.d_model, cfg.norm, dt, device, lead)
+        p["ffn"] = (moe_mod.init_moe(generator, cfg, device, lead)
+                    if cfg.is_moe else
+                    init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt,
+                             device, lead))
+    return p
 
 
 def _apply_ffn(p, x, cfg):
@@ -107,26 +120,62 @@ def _window(kind: str, cfg):
     return cfg.window if kind == "lattn" else None
 
 
-def _layer_prefill(kind: str, p: Dict, x, cfg, positions):
-    """Pre-norm attention + FFN over the prompt; also this layer's cache."""
-    h = apply_norm(p["norm1"], x, cfg.norm)
-    t, cache = attn_mod.attention_prefill(p["temporal"], h, cfg, positions,
-                                          window=_window(kind, cfg))
-    x = x + t.to(x.dtype)
+def _ffn_residual(kind: str, p: Dict, x, cfg):
+    """The pre-norm FFN and its residual (none after an ssm block)."""
+    if kind == "ssm":
+        return x
     h2 = apply_norm(p["norm2"], x, cfg.norm)
     f, _ = _apply_ffn(p["ffn"], h2, cfg)
-    return x + f.to(x.dtype), cache
+    return x + f.to(x.dtype)
+
+
+def _layer_prefill(kind: str, p: Dict, x, cfg, positions):
+    """One layer over the prompt; also this layer's decode cache."""
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    if kind in ("attn", "lattn"):
+        t, cache = attn_mod.attention_prefill(p["temporal"], h, cfg,
+                                              positions,
+                                              window=_window(kind, cfg))
+    elif kind == "rglru":
+        t, cache = rglru_mod.rglru_prefill(p["temporal"], h, cfg)
+    else:
+        t, cache = _ssm_prefill(p["temporal"], h, cfg)
+    return _ffn_residual(kind, p, x + t.to(x.dtype), cfg), cache
 
 
 def _layer_decode(kind: str, p: Dict, x, cache, cache_pos, cfg):
+    """One token through one layer; ``cache`` is updated in place."""
     h = apply_norm(p["norm1"], x, cfg.norm)
-    t, new_cache = attn_mod.attention_decode(p["temporal"], h, cache,
+    if kind in ("attn", "lattn"):
+        t, cache = attn_mod.attention_decode(p["temporal"], h, cache,
                                              cache_pos, cfg,
                                              window=_window(kind, cfg))
-    x = x + t.to(x.dtype)
-    h2 = apply_norm(p["norm2"], x, cfg.norm)
-    f, _ = _apply_ffn(p["ffn"], h2, cfg)
-    return x + f.to(x.dtype), new_cache
+    elif kind == "rglru":
+        t, cache = rglru_mod.apply_rglru_decode(p["temporal"], h, cache, cfg)
+    else:
+        t, cache = ssm_mod.apply_ssm_decode(p["temporal"], h, cache, cfg)
+    return _ffn_residual(kind, p, x + t.to(x.dtype), cfg), cache
+
+
+def _ssm_prefill(p, h, cfg):
+    """SSD forward + final (conv, state) caches for streaming decode. The
+    in-projection and conv run once (the reference runs them again for the
+    caches; the values are identical). The state is the reference's
+    closed form, sum_t exp(sum_{u>t} dt_u A) dt_t B_t x_t^T, from a
+    reversed cumsum."""
+    z, xbc, x, b, c, dt, _ = ssm_mod._in_proj(p, h, cfg)
+    y = ssm_mod.ssm_forward(p, z, x, b, c, dt, cfg)
+    conv_state = xbc[:, -(cfg.ssm_conv - 1):, :]
+    a = -torch.exp(p["A_log"])
+    bsz, s, _ = x.shape
+    xh = x.reshape(bsz, s, -1, cfg.ssm_head_dim).to(torch.float32)
+    da = (dt * a).transpose(1, 2)  # (B,H,S): the cumsum's axis last
+    rev_cum = torch.flip(torch.cumsum(torch.flip(da, (-1,)), dim=-1),
+                         (-1,)) - da  # sum_{u>t}
+    w_t = torch.exp(rev_cum).transpose(1, 2)  # (B,S,H)
+    state = torch.einsum("bsn,bsh,bshp->bhpn", b.to(torch.float32),
+                         w_t * dt, xh)
+    return y, {"conv": conv_state, "state": state}
 
 
 # ---------------------------------------------------------------------- #
@@ -156,6 +205,10 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> Dict:
     n_rep, extra_kinds = stack_layout(cfg)
 
     def one(kind, lead=()):
+        if kind == "rglru":
+            return rglru_mod.init_rglru_cache(cfg, batch, device, lead)
+        if kind == "ssm":
+            return ssm_mod.init_ssm_cache(cfg, batch, device, lead)
         return attn_mod.init_kv_cache(cfg, batch, max_len,
                                       window=_window(kind, cfg),
                                       device=device, lead=lead)

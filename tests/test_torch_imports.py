@@ -32,6 +32,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "repro_torch.kernels.flash_attention",
             "repro_torch.models.transformer",
             "repro_torch.models.moe",
+            "repro_torch.models.ssm",
+            "repro_torch.models.rglru",
             "repro_torch.launch.serve",
             "repro_torch.faults",
             "repro_torch.faults.chaos",

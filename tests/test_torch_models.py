@@ -4,8 +4,11 @@ Same numpy-seeded inputs and the same weights (the reference's init carried
 across with ``params_from_reference``) go through ``repro.models`` and
 ``repro_torch.models`` on the CPU, in fp32: layers, the attention paths and
 reduced glm4-9b / stablelm-1.6b / qwen1.5-110b / nemotron-4-15b (layernorm,
-squared-ReLU MLP) end to end (prefill logits and caches, decode logits,
-greedy tokens against ``examples/decode_demo.py``).
+squared-ReLU MLP), the MoE archs, mamba2-370m (SSD) and recurrentgemma-2b
+(RG-LRU + local attention; also at 8 layers, so its two trailing layers
+run) end to end (prefill logits and caches, decode logits, greedy tokens
+against ``examples/decode_demo.py``), and every served arch's full-width
+parameter tree against the reference's ``jax.eval_shape``.
 Tolerances: 1e-5 for a layer or an attention call (one fp32 op chain,
 summed in another order), 1e-4 relative for a whole model's logits.
 """
@@ -45,7 +48,9 @@ from repro_torch.models.transformer import tree_leaves  # noqa: E402
 
 TOL = 1e-5
 MODEL_ARCHS = ["glm4-9b", "stablelm-1.6b", "qwen1.5-110b", "nemotron-4-15b",
-               "deepseek-moe-16b", "llama4-scout-17b-a16e"]
+               "deepseek-moe-16b", "llama4-scout-17b-a16e", "mamba2-370m",
+               "recurrentgemma-2b"]
+RECURRENT_ARCHS = ["mamba2-370m", "recurrentgemma-2b"]
 PORTED = set(MODEL_ARCHS)
 REF_MOE_WARNING = pytest.mark.filterwarnings(
     "ignore:jax.nn.one_hot input should be integer-typed:DeprecationWarning")
@@ -68,8 +73,10 @@ def _pair(rng, shape, scale=1.0):
     return jnp.asarray(a), torch.as_tensor(a)
 
 
-def _fp32(cfg):
-    return dataclasses.replace(cfg.reduced(), param_dtype="float32")
+def _fp32(cfg, n_layers=None):
+    cfg = dataclasses.replace(cfg.reduced(), param_dtype="float32")
+    return cfg if n_layers is None else dataclasses.replace(cfg,
+                                                            n_layers=n_layers)
 
 
 # ---------------------------------------------------------------------- #
@@ -263,15 +270,17 @@ def test_prefill_then_decode_match_reference(window, s):
 # Whole models
 # ---------------------------------------------------------------------- #
 @functools.lru_cache(maxsize=None)
-def _reference_model(arch):
+def _reference_model(arch, n_layers=None):
     """(reference bundle, reference params as numpy) for reduced ``arch``
-    in fp32; qkv biases drawn non-zero so that they matter."""
-    cfg = _fp32(ref_configs.get_config(arch))
+    in fp32 (``n_layers`` deep if given); qkv biases and the recurrent
+    blocks' gate biases, ``dt_bias`` and ``D`` drawn anew so that they
+    matter."""
+    cfg = _fp32(ref_configs.get_config(arch), n_layers)
     bundle = ref_build_model(cfg)
     params = jax.tree.map(np.asarray, bundle.init(jax.random.PRNGKey(0)))
     rng = np.random.default_rng(10)
-    for blk in params["stack"]["blocks"]:
-        for n in ("bq", "bk", "bv"):
+    for blk in params["stack"]["blocks"] + params["stack"]["extras"]:
+        for n in ("bq", "bk", "bv", "b_a", "b_i", "dt_bias", "D"):
             if n in blk["temporal"]:
                 t = blk["temporal"][n]
                 blk["temporal"][n] = rng.normal(size=t.shape).astype(t.dtype)
@@ -279,11 +288,11 @@ def _reference_model(arch):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_run(arch, prompt_len):
+def _reference_run(arch, prompt_len, n_layers=None):
     """The reference's prefill of a ``demo_batch`` prompt, then greedy
     decode in a restaged full-length cache: (prefill cache, logits of each
     step (B, 1 + DECODE_STEPS, V), tokens)."""
-    bundle, params = _reference_model(arch)
+    bundle, params = _reference_model(arch, n_layers)
     cfg = bundle.cfg
     params = jax.tree.map(jnp.asarray, params)
     batch = demo_batch(get_config(arch).reduced(), "prefill", B, prompt_len,
@@ -305,10 +314,10 @@ def _reference_run(arch, prompt_len):
             np.concatenate(toks, axis=1), batch)
 
 
-def _port(arch):
-    cfg = _fp32(get_config(arch))
+def _port(arch, n_layers=None):
+    cfg = _fp32(get_config(arch), n_layers)
     bundle = build_model(cfg, device="cpu")
-    _, ref_params = _reference_model(arch)
+    _, ref_params = _reference_model(arch, n_layers)
     return bundle, params_from_reference(ref_params, cfg, "cpu")
 
 
@@ -330,6 +339,66 @@ def test_reduced_model_serving_matches_reference(arch, prompt_len):
     assert out.logits.shape == logits_ref.shape
     assert _rel(out.logits.numpy(), logits_ref) < 1e-4
     assert np.array_equal(out.tokens.numpy(), toks_ref)
+
+
+@pytest.mark.parametrize("prompt_len", [33, 160])
+def test_recurrentgemma_with_trailing_layers_matches_reference(prompt_len):
+    """Reduced recurrentgemma-2b at 8 layers: (rglru, rglru, lattn) × 2
+    stacked + 2 trailing rglru layers with their own params and caches, as
+    at full width (26 = 3 × 8 + 2). Prefill logits and caches, then 8
+    greedy decode steps: within 1e-4 of the reference's largest, the same
+    tokens."""
+    pre_ref, logits_ref, toks_ref, batch = _reference_run(
+        "recurrentgemma-2b", prompt_len, 8)
+    bundle, params = _port("recurrentgemma-2b", 8)
+    assert len(params["stack"]["extras"]) == 2
+    pre, logits = bundle.prefill(params, batch)
+    assert _rel(logits.numpy(), logits_ref[:, 0]) < 1e-4
+    for got, want in zip(tree_leaves(pre), jax.tree.leaves(pre_ref)):
+        _close(got, want, 1e-4)
+    out = serve.generate(bundle, params, batch, DECODE_STEPS + 1)
+    assert _rel(out.logits.numpy(), logits_ref) < 1e-4
+    assert np.array_equal(out.tokens.numpy(), toks_ref)
+
+
+@pytest.mark.parametrize("arch,n_layers", [("mamba2-370m", None),
+                                           ("recurrentgemma-2b", 8)])
+def test_decode_updates_the_stacked_cache_in_place(arch, n_layers):
+    """``decode_step`` hands every layer views of the stacked cache and
+    keeps none of what the layers return, so each recurrent layer must
+    write its new conv and state into those views. After a prefill, a
+    restage and 3 decode steps every cache leaf equals the reference's
+    returned cache after the same steps; a layer that rebinds its cache
+    dict's entries leaves the prompt's state in the stack and fails
+    here."""
+    bundle, params = _port(arch, n_layers)
+    ref_bundle, ref_params = _reference_model(arch, n_layers)
+    ref_params = jax.tree.map(jnp.asarray, ref_params)
+    batch = demo_batch(bundle.cfg, "prefill", B, 20, seed=5)
+    total = 20 + 3
+    pre, logits = bundle.prefill(params, batch)
+    cache = make_cache(bundle.cfg, B, total, device="cpu")
+    for full, p in zip(tree_leaves(cache), tree_leaves(pre)):
+        full[tuple(slice(0, s) for s in p.shape)] = p
+    pre_ref, logits_ref = jax.jit(ref_bundle.prefill)(
+        ref_params, {"tokens": jnp.asarray(batch["tokens"])})
+    cache_ref = jax.tree.map(
+        lambda f, p: f.at[tuple(slice(0, s) for s in p.shape)].set(p),
+        ref_make_cache(ref_bundle.cfg, B, total), pre_ref)
+    before = [t.clone() for t in tree_leaves(cache)]
+    tok = np.array(jnp.argmax(logits_ref, -1))[:, None]
+    for i in range(3):
+        cache, _ = bundle.decode_step(params, cache, torch.as_tensor(tok),
+                                      20 + i)
+        cache_ref, logits_ref = jax.jit(ref_bundle.decode_step)(
+            ref_params, cache_ref, jnp.asarray(tok, jnp.int32),
+            jnp.int32(20 + i))
+        tok = np.array(jnp.argmax(logits_ref, -1))[:, None]
+    leaves, leaves_ref = tree_leaves(cache), jax.tree.leaves(cache_ref)
+    assert len(leaves) == len(leaves_ref)
+    for got, want, old in zip(leaves, leaves_ref, before):
+        assert not torch.equal(got, old)
+        _close(got, want, 1e-4)
 
 
 @REF_MOE_WARNING
@@ -384,6 +453,83 @@ def test_params_from_reference_carries_a_bf16_moe_with_its_fp32_router():
         params_from_reference(ref, cfg, "cpu")
 
 
+@pytest.mark.parametrize("arch,fp32_names", [
+    ("recurrentgemma-2b", {"b_a", "b_i", "lam"}),
+    ("mamba2-370m", {"A_log", "D", "dt_bias"})])
+def test_params_from_reference_carries_the_recurrent_fp32_leaves(arch,
+                                                                 fp32_names):
+    """A reduced bf16 recurrentgemma-2b (at 8 layers, trailing layers
+    included) or mamba2-370m crosses leaf for leaf in the reference's
+    dtypes: bf16, and fp32 for its recurrent blocks' fp32 leaves only. An
+    fp32 leaf of another name, or one of those names in a layer of another
+    kind, is refused, naming the leaf."""
+    cfg = get_config(arch).reduced()
+    ref_cfg = ref_configs.get_config(arch).reduced()
+    if arch == "recurrentgemma-2b":
+        cfg = dataclasses.replace(cfg, n_layers=8)
+        ref_cfg = dataclasses.replace(ref_cfg, n_layers=8)
+    ref = jax.tree.map(np.asarray,
+                       ref_build_model(ref_cfg).init(jax.random.PRNGKey(1)))
+    carried = params_from_reference(ref, cfg, "cpu")
+    got, want = tree_leaves(carried), jax.tree.leaves(ref)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert str(g.dtype).replace("torch.", "") == str(w.dtype)
+        assert np.array_equal(g.float().numpy(), w.astype(np.float32))
+    layers_ = carried["stack"]["blocks"] + carried["stack"]["extras"]
+    fp32 = {n for blk in layers_ for n, t in blk["temporal"].items()
+            if t.dtype == torch.float32}
+    assert fp32 == fp32_names
+    temporal = ref["stack"]["blocks"][0]["temporal"]
+    stray = "w_a" if arch == "recurrentgemma-2b" else "w_in"
+    temporal[stray] = temporal[stray].astype(np.float32)
+    with pytest.raises(ValueError, match=stray):
+        params_from_reference(ref, cfg, "cpu")
+    temporal[stray] = temporal[stray].astype(want[0].dtype)
+    if arch == "recurrentgemma-2b":  # "lam" is fp32 in rglru layers only
+        attn_layer = ref["stack"]["blocks"][2]["temporal"]
+        attn_layer["lam"] = np.zeros((2, 4), np.float32)
+        with pytest.raises(ValueError, match="lam"):
+            params_from_reference(ref, cfg, "cpu")
+
+
+def _smoke_module():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("arch", sorted(PORTED))
+def test_full_width_params_match_reference_eval_shape(arch):
+    """Every served arch at full width and depth, built on the meta
+    device: the parameter tree's shapes and dtypes equal
+    ``jax.eval_shape`` of the reference's init, leaf for leaf."""
+    mine = build_model(get_config(arch), device="meta").init(
+        torch.Generator().manual_seed(0))
+    ref = jax.eval_shape(ref_build_model(ref_configs.get_config(arch)).init,
+                         jax.random.PRNGKey(0))
+    assert [(tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            for t in tree_leaves(mine)] == [
+        (tuple(a.shape), str(a.dtype)) for a in jax.tree.leaves(ref)]
+
+
+def test_smoke_param_table_is_the_reference_init_count():
+    """``chip_smoke.EXACT_PARAMS`` (the card run's exact parameter count of
+    each arch it serves) equals the count of ``jax.eval_shape`` of the
+    reference's init: ``cfg.n_params()`` is an analytic approximation,
+    exact for glm4-9b and deepseek-moe-16b only."""
+    table = _smoke_module().EXACT_PARAMS
+    assert set(table) >= set(RECURRENT_ARCHS)
+    for arch, count in table.items():
+        ref = jax.eval_shape(
+            ref_build_model(ref_configs.get_config(arch)).init,
+            jax.random.PRNGKey(0))
+        assert count == sum(int(np.prod(a.shape))
+                            for a in jax.tree.leaves(ref)), arch
+
+
 @REF_MOE_WARNING
 @pytest.mark.filterwarnings("ignore::UserWarning")
 @pytest.mark.parametrize("arch", MODEL_ARCHS)
@@ -412,7 +558,8 @@ def test_greedy_tokens_match_decode_demo(arch, monkeypatch):
     assert np.array_equal(got.tokens.numpy(), want)
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "stablelm-1.6b"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "stablelm-1.6b"]
+                         + RECURRENT_ARCHS)
 def test_prefill_decode_consistency(arch):
     """prefill(t_1..t_n) logits == incremental decode of the same tokens
     (the port's own counterpart of tests/test_models.py's check)."""
@@ -470,12 +617,26 @@ def test_serve_main_serves_moe_on_host_and_without_gpu(arch, monkeypatch,
         serve.main(["--arch", arch, "--reduced"])
 
 
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_serve_main_serves_recurrent_archs_on_host_and_without_gpu(
+        arch, monkeypatch, capsys):
+    gen = serve.main(["--arch", arch, "--reduced", "--batch", "2",
+                      "--prompt-len", "40", "--gen-len", "4",
+                      "--device", "cpu"])
+    assert gen.shape == (2, 4)
+    assert "prefill 2x40" in capsys.readouterr().out
+    build_model(get_config(arch), device="cpu")  # full width builds
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", arch, "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(get_config(arch))
+
+
 @pytest.mark.parametrize("arch", sorted(set(list_archs()) - PORTED))
 def test_unported_families_raise_with_their_roadmap_item(arch):
-    cfg = get_config(arch).reduced()
-    item = "12d" if cfg.frontend or not cfg.decoder else "12c"
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12d"):
+        build_model(get_config(arch).reduced(), device="cpu")
 
 
 def test_training_raises_with_its_roadmap_item():
