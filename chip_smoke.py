@@ -6,8 +6,10 @@ Run from the repository root:  python3 chip_smoke.py
 It builds the hand-written kernels from src/repro_torch/csrc with nvcc (into
 build/kernels/), holds each kernel against its plain PyTorch version on the
 card and times it (usec_matvec also at the served widths C = 8, 32, 128
-beside torch.matmul; tile_checksum against zlib.crc32 of every tile of the
-Sec. V staged buffer; the flash-attention kernels at the JAX tests' cases,
+beside torch.matmul; tile_checksum against zlib.crc32 at the boundaries of
+its span split, from an unaligned base, over 70,001 tiles and over every
+tile of the Sec. V staged buffer, with its grid and its share of its bytes
+bound; the flash-attention kernels at the JAX tests' cases,
 every head_dim in both dtypes: bf16 on the tensor-core kernel, fp32 on the
 FFMA kernel; one full-width glm4-9b layer, one deepseek-moe-16b layer and
 one recurrentgemma-2b windowed layer),
@@ -158,16 +160,17 @@ def reset_launches(counters) -> None:
 
 
 def ptxas_report(lib_path):
-    """Registers and spill bytes per kernel from nvcc's ``-Xptxas -v`` log
-    beside a built library: [{"kernel", "registers", "spill_stores",
-    "spill_loads"}], kernels named ``<name><template args>``."""
+    """Registers, spill bytes and static shared memory per kernel from
+    nvcc's ``-Xptxas -v`` log beside a built library: [{"kernel",
+    "registers", "spill_stores", "spill_loads", "smem"}], kernels named
+    ``<name><template args>``."""
     import re
 
     rows, cur = [], None
     for ln in lib_path.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            n = re.search(r"\d([a-z][a-z_]*_kernel)I(\w*?)Li(\d+)E",
+            n = re.search(r"\d([a-z][a-z_]*_kernel)I(\w*?)L[ib](\d+)E",
                           m.group(1))
             cur = {"kernel": (f"{n.group(1)}<{n.group(2) or ''}"
                               f"{',' if n.group(2) else ''}{n.group(3)}>"
@@ -180,6 +183,9 @@ def ptxas_report(lib_path):
         m = re.search(r"Used (\d+) registers", ln)
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m and cur is not None:
+            cur["smem"] = int(m.group(1))
     return rows
 
 
@@ -390,55 +396,78 @@ def phase_kernels(dev):
 
 
 def tile_checksum_phase(dev, staged, sm):
-    """The tile audit's kernel: against its plain version on small buffers
-    (random, all-zero and all-ones bytes; 16-byte and odd tile byte counts,
-    the head chunk partial or whole), then against zlib.crc32 of every tile
-    of the Sec. V staged buffer (432 MB, one launch), timed against its
-    bytes bound. The kernel is an integer checksum: equality is the limit.
-    No PyTorch call computes a CRC32, so it has no library time."""
+    """The tile audit's kernel: against its plain version (run with the
+    kernel's split of spans over warps) and zlib.crc32 on small buffers
+    (random, all-zero and all-ones bytes; 16-byte and odd tile byte counts
+    on every boundary of the 512-byte span split; a buffer one byte past
+    its allocation, the byte path; 70,001 tiles in one launch), then against
+    zlib.crc32 of every tile of the Sec. V staged buffer (432 MB, one
+    launch), timed against its bytes bound, with its grid, GB/s and share
+    of the bound. The kernel is an integer checksum: equality is the
+    limit. No PyTorch call computes a CRC32, so it has no library time."""
     import zlib
 
     from repro_torch.kernels.tile_checksum import (
+        SPAN,
+        WARPS,
         tile_checksum_cuda,
+        tile_checksum_grid,
         tile_checksum_plain,
     )
 
+    def check(xd, what):
+        got = tile_checksum_cuda(xd, 1)
+        plain = tile_checksum_plain(
+            xd, 1, n_warps=tile_checksum_grid(xd, 1)["warps"])
+        want = [zlib.crc32(r.tobytes()) for r in xd.cpu().numpy()]
+        if not torch.equal(got, plain) or got.cpu().tolist() != want:
+            raise AssertionError(f"tile_checksum disagrees: {what}")
+
     rng = np.random.default_rng(5)
     small = 0
-    for n_bytes in (1, 3, 511, 512, 513, 4096, 131_088, 393_217):
+    for n_bytes in (1, 3, 16, SPAN - 1, SPAN, SPAN + 1, SPAN + 16,
+                    4096, 37 * SPAN + 1, SPAN * WARPS + 16, 131_088,
+                    393_217):
         for fill in ("random", "zeros", "ones"):
             x = (rng.integers(0, 256, size=(3, n_bytes), dtype=np.uint8)
                  if fill == "random" else
                  np.full((3, n_bytes), 0 if fill == "zeros" else 255,
                          np.uint8))
-            xd = torch.from_numpy(x).to(dev)
-            got = tile_checksum_cuda(xd, 1)
-            if not torch.equal(got, tile_checksum_plain(xd, 1)) or \
-                    got.cpu().tolist() != [zlib.crc32(r.tobytes())
-                                           for r in x]:
-                raise AssertionError(
-                    f"tile_checksum disagrees at {n_bytes} bytes ({fill})")
+            check(torch.from_numpy(x).to(dev), f"{n_bytes} bytes ({fill})")
             small += 1
+    buf = torch.as_tensor(rng.integers(0, 256, size=3 * 4099 + 1,
+                                       dtype=np.uint8), device=dev)
+    shifted = buf[1:].view(3, 4099)
+    assert shifted.data_ptr() % 16 == 1
+    check(shifted, "a base one byte past its allocation")
+    many = torch.as_tensor(rng.integers(0, 256, size=(70_001, 16),
+                                        dtype=np.uint8), device=dev)
+    check(many, "70,001 tiles")
+    small += 2
     t0 = time.perf_counter()
     want = np.array([[zlib.crc32(sm.staged[n, t].tobytes())
                       for t in range(sm.staged.shape[1])]
                      for n in range(sm.staged.shape[0])], dtype=np.int64)
     zlib_s = time.perf_counter() - t0
+    grid = tile_checksum_grid(staged, 2)
     got = tile_checksum_cuda(staged, 2).cpu().numpy()
-    plain = tile_checksum_plain(staged, 2).cpu().numpy()
-    if not (np.array_equal(got, want) and np.array_equal(plain, want)):
+    plain = tile_checksum_plain(staged, 2, n_warps=grid["warps"])
+    if not (np.array_equal(got, want)
+            and np.array_equal(plain.cpu().numpy(), want)):
         raise AssertionError("tile_checksum != zlib.crc32 on the Sec. V "
                              "staged buffer")
     n_bytes = staged.numel() * staged.element_size()
     tc_bound, tc_by = bound_ms(n_bytes + got.size * 8, 0.0)
     tc = timed(lambda: tile_checksum_cuda(staged, 2), 30, "tile_crc",
                tc_bound)
-    tc_plain = timed(lambda: tile_checksum_plain(staged, 2), 2,
-                     bound=tc_bound)
+    tc_plain = timed(lambda: tile_checksum_plain(
+        staged, 2, n_warps=grid["warps"]), 2, bound=tc_bound)
     emit({"phase": "kernel", "name": "tile_checksum", "small_cases": small,
           "equals_zlib": True, "tiles": int(got.size),
-          "staged_mb": n_bytes / 1e6, "kernel": tc, "plain": tc_plain,
-          "library": None, "bound_us": 1e3 * tc_bound,
+          "staged_mb": n_bytes / 1e6, "grid": grid, "kernel": tc,
+          "plain": tc_plain, "library": None, "bound_us": 1e3 * tc_bound,
+          "gb_per_s": n_bytes / tc["ms"] / 1e6,
+          "bound_share": tc_bound / tc["ms"],
           "host_zlib_s": zlib_s, "launches": tile_checksum_cuda.launches})
     return {"route": "cuda", "source": "src/repro_torch/csrc/tile_checksum.cu",
             "replaces": "src/repro/faults/integrity.py:71 (host zlib; no "
@@ -1274,7 +1303,7 @@ def _tile_fault_moves_output(runner, entry, bad, n, w) -> bool:
     return abs(float(moved)) >= 2.0 ** -10
 
 
-def phase_elastic_faults(counters, smi):
+def phase_elastic_faults(counters, smi, tc_ms):
     """Faults and integrity at the Sec. V configuration (cyclic, N = 6,
     J = 3, 6000^2, 8 steps of the churn script, verify="exact" at every
     step), both executor modes, no forced stragglers. Covered faults at
@@ -1292,8 +1321,10 @@ def phase_elastic_faults(counters, smi):
     the window graph captures once and replays once a window, and a
     window's corrupt row chunk is recomputed from a replica tile on the
     card by one usec_matvec launch. Then a
-    seeded fault schedule at 768^2, card against host. Returns the
-    launches of these runs."""
+    seeded fault schedule at 768^2, card against host. ``tc_ms`` is the
+    tile_checksum kernel's time from its kernel phase: the checks report
+    its share of the card audit per verified step. Returns the launches of
+    these runs."""
     from repro_torch.faults import ChaosPlan, FaultSpec, IntegrityChecker
     from repro_torch.runtime import make_exact_matrix
 
@@ -1625,6 +1656,12 @@ def phase_elastic_faults(counters, smi):
           "launch_counts_exact": True, "card_vs_host_seeded": parity,
           "card_only_corruption_restaged_in_place": True,
           "card_audit_ms_per_verified_step": audit_ms["card"],
+          # The median audit is one that repaired nothing (one audit a run
+          # re-stages 24 MB from the host copy).
+          "card_audit_ms_median": float(np.median(audit_ms["card"])),
+          "tile_checksum_ms": tc_ms,
+          "tile_checksum_share_of_card_audit": (
+              tc_ms / float(np.median(audit_ms["card"]))),
           "host_zlib_audit_ms": audit_ms["host"],
           "checker_build_s": checker_s,
           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
@@ -2500,9 +2537,13 @@ def main() -> int:
         if log.exists():
             ptxas += [ln.strip() for ln in log.read_text().splitlines()
                       if "registers" in ln or "spill" in ln]
+    from repro_torch.kernels.tile_checksum import DYNAMIC_SMEM
+
     emit({"phase": "build", "seconds": build_s,
           "libraries": sorted(p.name for p in paths.values()),
-          "ptxas": ptxas})
+          "ptxas": ptxas,
+          "tile_checksum": {"ptxas": ptxas_report(paths["tile_checksum"]),
+                            "dynamic_smem": DYNAMIC_SMEM}})
 
     # ---- 3. kernels vs their plain versions ----
     dev = torch.device("cuda", 0)
@@ -2562,7 +2603,8 @@ def main() -> int:
     # trace lose kernel records for the rest of the process (gc and
     # empty_cache do not bring them back), so every profiled phase runs
     # before it.
-    faulted = phase_elastic_faults(counters, smi)
+    faulted = phase_elastic_faults(counters, smi,
+                                   kernels["tile_checksum"]["ms"])
     for n in ("usec_matvec", "usec_segmented", "tile_checksum"):
         if faulted[n] <= 0:
             raise AssertionError(f"{n} never launched by elastic_faults")

@@ -1,6 +1,8 @@
 // zlib's CRC32 of every tile of a staged buffer, in one launch:
-//   out[i] = crc32(bytes of tile i)            for i < n_tiles
-// where tile i is the tile_bytes bytes at base + i * tile_stride. The result
+//   out[i] ^= crc32(bytes of tile i) ^ init     for i < n_tiles
+// where tile i is the tile_bytes bytes at base + i * tile_stride and the
+// wrapper fills out[i] with init = x^(8L) * 0xFFFFFFFF ^ 0xFFFFFFFF (zlib's
+// initial value carried through the tile, and its final XOR). The result
 // equals zlib.crc32 bit for bit, so the integrity checker's staging-time
 // fingerprints (repro_torch.faults.integrity.tile_checksum) stay the one
 // source of truth for what a clean tile is.
@@ -9,26 +11,52 @@
 // zlib (repro.faults.integrity.tile_checksum), and on the card the kernels
 // read the card's copy, so the audit has to read that copy too.
 //
-// Algorithm. A tile is cut into kChunk-byte chunks counted from its END
-// (chunk j covers bytes [L - (j+1)*kChunk, L - j*kChunk)), so the head chunk
-// is the only partial one and its missing bytes are leading zeros, which a
-// zero-initialised CRC register ignores. Each thread computes the raw CRC
-// (register starts at 0, no final XOR) of one chunk with slicing-by-4 over
-// 16-byte loads, its tables in shared memory. CRC is linear over GF(2), and
-// appending n zero bytes multiplies the register by x^(8n) mod P, so
-//   crc32(tile) = x^(8L) * 0xFFFFFFFF  ^  XOR_j x^(8 kChunk j) * raw_j  ^  ~0
-// (zlib's crc32_combine algebra). The powers come from the wrapper: thread t
-// of CTA b multiplies by pow_t[t] = x^(8 kChunk t), the CTA's XOR of its
-// threads by pow_b[b] = x^(8 kChunk kThreads b), and CTA 0 of a tile adds
-// the constant term. Each CTA XORs its share into out[tile] with atomicXor
-// (the wrapper zeroes out first); XOR is associative and commutative, so the
-// order the CTAs land in cannot change the bits.
-//
 // Bound: memory. Every byte is read once; at the paper's Sec. V size the
-// staged buffer is 6 x 3000 x 6000 fp32 = 432 MB, 0.129 ms at 3.35 TB/s. The
-// table lookups (one per byte, four per 32-bit word) run from shared memory
-// beside the loads. Neighbouring threads read chunks kChunk bytes apart, so
-// the loads are not coalesced; a simple kernel is enough for an audit.
+// staged buffer is 6 x 3 tiles of 1000 x 6000 fp32 = 432 MB, 0.129 ms at
+// 3.35 TB/s. The CRC costs one table lookup per byte: 432 M lookups, 13.5 M
+// warp-wide shared-memory reads, about 0.06 ms on 132 SMs if every one is a
+// single wavefront. The design keeps both under the memory time:
+//
+// Spans. A tile is cut into kSpan = 512-byte spans counted from its END, so
+// only the head span is partial and its missing bytes are leading zeros,
+// which a zero-initialised CRC register ignores. A warp reads one span with
+// one coalesced 16-byte load per lane (lane l: bytes [16 l, 16 l + 16)), so
+// every warp load is four whole 128-byte lines.
+//
+// Lane-interleaved chains. Lane l keeps four CRC registers c_q, q < 4, one
+// per 32-bit word of its 16 bytes. Word q of lane l recurs every 512 bytes,
+// so its register advances 512 bytes per span: c_q = A512(c_q) ^ w_q, where
+// A_D (appending D zero bytes to a raw CRC, i.e. multiplying by x^(8D) mod
+// P) is linear and is read from four 256-entry tables, one lookup per byte
+// of c_q. After its last span, c_q still owes the 512 - 16 l - 4 q bytes
+// from its word to the span's end: the lane folds its four registers with
+// the A4 tables (u = A12(c_0) ^ A8(c_1) ^ A4(c_2) ^ c_3) and multiplies u by
+// lane_pow[l] = x^(8 (500 - 16 l)). CRC is linear over GF(2), so the XOR of
+// the 32 lanes' products is the raw CRC of the warp's run of spans, and a
+// run that ends g spans before its tile's end adds x^(8 kSpan g) times it
+// to the tile's CRC (zlib's crc32_combine algebra), with x^(8 kSpan g) =
+// pow_hi[g >> 8] * pow_lo[g & 255] from the wrapper. Lane 0 XORs the
+// product into out[tile] with atomicXor; XOR is associative and
+// commutative, so the order the warps land in cannot change the bits.
+//
+// Bank-conflict-free lookups. The A512 tables sit in shared memory 32
+// times over: entry (k, v) for lane l is word ((k * 256 + v) * 32 + l), so
+// lane l reads only bank l and each warp-wide lookup is one wavefront,
+// whatever the data (4 x 256 x 32 x 4 B = 128 KB of dynamic shared memory,
+// plus the 4 KB A4 tables, read only at a run's end). The tables' 132 KB
+// leave room for one CTA per SM.
+//
+// A persistent grid of whole waves. The wrapper launches one CTA of 32
+// warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), fewer for
+// small inputs. The n_tiles * spans spans of the buffer, in address order,
+// are dealt out as one contiguous run per warp, equal to within one span;
+// a run that crosses a tile's end is cut there (one fold and atomic per
+// piece). Each CTA builds its tables once per launch. Every lane loads
+// kBatch spans ahead before it folds them, so with 32 warps an SM keeps up
+// to 64 KB of loads in flight.
+//
+// A tile whose base or length is not a 16-byte multiple takes the byte
+// path: the same spans and chains, each lane's 16 bytes loaded one by one.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,8 +65,13 @@
 namespace {
 
 constexpr unsigned kPoly = 0xEDB88320u;  // zlib's reflected CRC-32 polynomial
-constexpr int kChunk = 512;              // bytes one thread CRCs
-constexpr int kThreads = 256;            // chunks one CTA folds
+constexpr int kSpan = 512;        // bytes a warp reads per step (SPAN)
+constexpr int kWarps = 32;        // warps per CTA (WARPS)
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBatch = 4;         // spans a lane loads before it folds them
+constexpr int kFarWords = 4 * 256 * 32;  // A512 tables, one copy per bank
+constexpr int kNearWords = 4 * 256;      // A4 tables
+constexpr int kSmemBytes = 4 * (kFarWords + kNearWords);  // 135,168
 
 // a * b mod P in zlib's reflected representation (bit 31 is x^0).
 __device__ __forceinline__ unsigned multmodp(unsigned a, unsigned b) {
@@ -51,85 +84,155 @@ __device__ __forceinline__ unsigned multmodp(unsigned a, unsigned b) {
   return p;
 }
 
-__global__ void __launch_bounds__(kThreads) tile_crc_kernel(
-    const unsigned char* __restrict__ base, long long tile_stride,
-    long long tile_bytes, const unsigned* __restrict__ pow_t,
-    const unsigned* __restrict__ pow_b, unsigned init, int vec,
-    unsigned* __restrict__ out) {
-  __shared__ unsigned tab[4][256];
-  __shared__ unsigned warp_acc[kThreads / 32];
-  const int tid = threadIdx.x;
-  for (int i = tid; i < 256; i += kThreads) {
-    unsigned c = (unsigned)i;
+// A512(c) from the lane's copy of the tables (tl = far + lane).
+__device__ __forceinline__ unsigned far_step(const unsigned* tl, unsigned c) {
+  return tl[(c & 0xffu) << 5] ^ tl[(256u + ((c >> 8) & 0xffu)) << 5] ^
+         tl[(512u + ((c >> 16) & 0xffu)) << 5] ^ tl[(768u + (c >> 24)) << 5];
+}
+
+// A4(c).
+__device__ __forceinline__ unsigned near_step(const unsigned* t, unsigned c) {
+  return t[c & 0xffu] ^ t[256u + ((c >> 8) & 0xffu)] ^
+         t[512u + ((c >> 16) & 0xffu)] ^ t[768u + (c >> 24)];
+}
+
+// The lane's 16 bytes of one span, from byte `off` of the tile (negative
+// in a partial head span: those bytes are leading zeros).
+template <bool kVec>
+__device__ __forceinline__ uint4 load_span(const unsigned char* tile,
+                                           long long off) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (kVec) {
+    // base and tile_bytes are 16-byte multiples, so off is: whole or none.
+    if (off >= 0) {
+      asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+          : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+          : "l"(tile + off));
+    }
+  } else {
+    unsigned w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-    for (int k = 0; k < 8; ++k) c = (c & 1u) ? (c >> 1) ^ kPoly : c >> 1;
-    tab[0][i] = c;
+    for (int j = 0; j < 16; ++j) {
+      if (off + j >= 0) w[j >> 2] |= unsigned(__ldg(tile + off + j)) << (8 * (j & 3));
+    }
+    v = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  return v;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 1) tile_crc_kernel(
+    const unsigned char* __restrict__ base, long long tile_stride,
+    long long tile_bytes, long long n_tiles, long long spans, unsigned x512,
+    unsigned x4, const unsigned* __restrict__ lane_pow,
+    const unsigned* __restrict__ pow_lo, const unsigned* __restrict__ pow_hi,
+    unsigned* __restrict__ out) {
+  extern __shared__ uint4 smem[];
+  unsigned* far = reinterpret_cast<unsigned*>(smem);
+  unsigned* near = far + kFarWords;
+  // Entry e = 256 k + v of each table is A_D(v << 8k); 1024 entries, one a
+  // thread, each A512 entry written to its 32 copies (128 contiguous bytes).
+  for (int e = threadIdx.x; e < 1024; e += kThreads) {
+    const unsigned v = unsigned(e & 0xff) << (8 * (e >> 8));
+    const unsigned f = multmodp(x512, v);
+    uint4* dst = reinterpret_cast<uint4*>(far + 32 * e);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) dst[r] = make_uint4(f, f, f, f);
+    near[e] = multmodp(x4, v);
   }
   __syncthreads();
-#pragma unroll
-  for (int k = 1; k < 4; ++k) {
-    for (int i = tid; i < 256; i += kThreads) {
-      const unsigned prev = tab[k - 1][i];
-      tab[k][i] = (prev >> 8) ^ tab[0][prev & 0xffu];
-    }
-    __syncthreads();
-  }
 
-  const int tile = blockIdx.y;
-  const long long j = (long long)blockIdx.x * kThreads + tid;
-  const unsigned char* t0 = base + (long long)tile * tile_stride;
-  const long long hi = tile_bytes - j * kChunk;  // this chunk's end
-  const long long lo = hi - kChunk;              // < 0 only for the head
-  unsigned c = 0;
-  if (hi > 0) {
-    const long long start = lo < 0 ? 0 : lo;
-    if (vec) {
-      // tile_bytes, tile_stride and base are 16-byte multiples, so start is.
-      const uint4* p = reinterpret_cast<const uint4*>(t0 + start);
-      const int n = (int)((hi - start) >> 4);
-#pragma unroll 4
-      for (int i = 0; i < n; ++i) {
-        const uint4 v = __ldg(p + i);
-        const unsigned w[4] = {v.x, v.y, v.z, v.w};
+  const int lane = threadIdx.x & 31;
+  const unsigned* tl = far + lane;
+  const long long n_warps = (long long)gridDim.x * kWarps;
+  const long long warp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const long long total = n_tiles * spans;
+  const long long each = total / n_warps, extra = total % n_warps;
+  long long a = warp * each + (warp < extra ? warp : extra);
+  const long long b = a + each + (warp < extra ? 1 : 0);
+  const unsigned my_pow = lane_pow[lane];
+  while (a < b) {
+    // The run's piece in tile t: spans [a, e) in address order.
+    const long long t = a / spans;
+    const long long t_end = (t + 1) * spans;
+    const long long e = b < t_end ? b : t_end;
+    const unsigned char* tile = base + t * tile_stride;
+    long long off = tile_bytes - (t_end - a) * kSpan + 16 * lane;
+    unsigned c0 = 0u, c1 = 0u, c2 = 0u, c3 = 0u;
+    for (long long s = a; s < e; s += kBatch) {
+      uint4 w[kBatch];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          c ^= w[q];
-          c = tab[3][c & 0xffu] ^ tab[2][(c >> 8) & 0xffu] ^
-              tab[1][(c >> 16) & 0xffu] ^ tab[0][c >> 24];
+      for (int i = 0; i < kBatch; ++i) {
+        w[i] = s + i < e ? load_span<kVec>(tile, off + i * kSpan)
+                         : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        if (s + i < e) {
+          c0 = far_step(tl, c0) ^ w[i].x;
+          c1 = far_step(tl, c1) ^ w[i].y;
+          c2 = far_step(tl, c2) ^ w[i].z;
+          c3 = far_step(tl, c3) ^ w[i].w;
         }
       }
-    } else {
-      for (long long i = start; i < hi; ++i) {
-        c = tab[0][(c ^ t0[i]) & 0xffu] ^ (c >> 8);
-      }
+      off += kBatch * kSpan;
     }
-    c = multmodp(pow_t[tid], c);
-  }
+    unsigned u = near_step(near, c0) ^ c1;
+    u = near_step(near, u) ^ c2;
+    u = near_step(near, u) ^ c3;
+    u = multmodp(my_pow, u);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) c ^= __shfl_xor_sync(0xffffffffu, c, o);
-  if ((tid & 31) == 0) warp_acc[tid >> 5] = c;
-  __syncthreads();
-  if (tid == 0) {
-    unsigned v = 0;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) v ^= warp_acc[w];
-    v = multmodp(pow_b[blockIdx.x], v);
-    if (blockIdx.x == 0) v ^= init;
-    atomicXor(out + tile, v);
+    for (int o = 16; o > 0; o >>= 1) u ^= __shfl_xor_sync(0xffffffffu, u, o);
+    if (lane == 0) {
+      const long long g = t_end - e;  // spans after the piece in its tile
+      u = multmodp(pow_lo[g & 0xff], u);
+      u = multmodp(pow_hi[g >> 8], u);
+      atomicXor(out + t, u);
+    }
+    a = e;
   }
+}
+
+template <bool kVec>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(tile_crc_kernel<kVec>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kSmemBytes);
 }
 
 }  // namespace
 
+// CTAs of the kernel one SM holds (1: the tables take 132 KB).
+extern "C" int tile_crc32_occupancy(int* ctas_per_sm) {
+  cudaError_t e = allow_smem<true>();
+  if (e == cudaSuccess) e = allow_smem<false>();
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas_per_sm, tile_crc_kernel<true>, kThreads, kSmemBytes);
+  }
+  return static_cast<int>(e);
+}
+
 extern "C" int tile_crc32(const void* base, long long tile_stride,
-                          long long tile_bytes, int n_tiles, const void* pow_t,
-                          const void* pow_b, int n_ctas, unsigned init,
-                          int vec, void* out, void* stream) {
+                          long long tile_bytes, long long n_tiles,
+                          long long spans, unsigned x512, unsigned x4,
+                          const void* lane_pow, const void* pow_lo,
+                          const void* pow_hi, int n_ctas, int vec, void* out,
+                          void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  tile_crc_kernel<<<dim3((unsigned)n_ctas, (unsigned)n_tiles, 1), kThreads, 0,
-                    s>>>(static_cast<const unsigned char*>(base), tile_stride,
-                         tile_bytes, static_cast<const unsigned*>(pow_t),
-                         static_cast<const unsigned*>(pow_b), init, vec,
-                         static_cast<unsigned*>(out));
+  const auto* b = static_cast<const unsigned char*>(base);
+  const auto* lp = static_cast<const unsigned*>(lane_pow);
+  const auto* lo = static_cast<const unsigned*>(pow_lo);
+  const auto* hi = static_cast<const unsigned*>(pow_hi);
+  auto* o = static_cast<unsigned*>(out);
+  cudaError_t e = vec ? allow_smem<true>() : allow_smem<false>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (vec) {
+    tile_crc_kernel<true><<<n_ctas, kThreads, kSmemBytes, s>>>(
+        b, tile_stride, tile_bytes, n_tiles, spans, x512, x4, lp, lo, hi, o);
+  } else {
+    tile_crc_kernel<false><<<n_ctas, kThreads, kSmemBytes, s>>>(
+        b, tile_stride, tile_bytes, n_tiles, spans, x512, x4, lp, lo, hi, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }

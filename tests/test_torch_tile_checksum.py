@@ -2,10 +2,14 @@
 on the host, the kernel itself on the card) against ``zlib.crc32``, and the
 runner's audit counters on the host path it keeps.
 
-The checksum cuts a tile into 512-byte chunks counted from its end and folds
-the chunks' CRCs with zlib's combine algebra; the cases below straddle every
-boundary of that scheme (empty tiles, tails of 1 to 511 bytes, one chunk,
-one CTA's 256 chunks and more) and include all-zero and all-ones tiles.
+The checksum cuts a tile into 512-byte spans counted from its end, deals the
+buffer's spans out as one contiguous run per warp (cut where a tile ends),
+and folds each piece's lane registers with zlib's combine algebra and the
+wrapper's precomputed multipliers; the plain version runs the same split for
+any number of warps. The cases below straddle every boundary of that scheme
+(empty tiles, a partial head span, exactly one span, a span and a byte,
+several spans a tile, more spans than warps and more warps than spans, runs
+crossing tile ends) and include all-zero and all-ones tiles.
 Tolerance: bit for bit (an integer checksum).
 """
 
@@ -20,11 +24,19 @@ from _hypothesis_compat import given, strategies as st  # noqa: E402
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.tile_checksum import (  # noqa: E402
-    CHUNK,
-    THREADS,
+    SPAN,
+    WARPS,
+    _multmodp,
+    _x8n,
+    span_constants,
     tile_checksum_cuda,
     tile_checksum_plain,
 )
+
+# Tile lengths on the boundaries of the span split (the kernel's 16-byte
+# vector path and its byte path both).
+BOUNDARY_BYTES = (1, 3, 16, SPAN - 1, SPAN, SPAN + 1, SPAN + 16, 2 * SPAN,
+                  4096 + 17, 37 * SPAN, 37 * SPAN + 1)
 
 
 def _zlib_rows(x: np.ndarray):
@@ -39,27 +51,94 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _bytes(rng, fill, n, length):
+    if fill == "random":
+        return rng.integers(0, 256, size=(n, length), dtype=np.uint8)
+    return np.full((n, length), 0 if fill == "zeros" else 255,
+                   dtype=np.uint8)
+
+
 @given(
-    n_chunks=st.integers(min_value=0, max_value=2 * THREADS + 3),
-    tail=st.integers(min_value=0, max_value=CHUNK - 1),
+    n_spans=st.integers(min_value=0, max_value=40),
+    tail=st.integers(min_value=0, max_value=SPAN - 1),
     fill=st.sampled_from(("random", "zeros", "ones")),
     n_tiles=st.integers(min_value=1, max_value=3),
+    n_warps=st.sampled_from((1, 2, 3, 7, WARPS, 132 * WARPS)),
     seed=st.integers(min_value=0, max_value=2 ** 16),
 )
-def test_plain_equals_zlib_property(n_chunks, tail, fill, n_tiles, seed):
-    """Any tile length (whole chunks plus a tail that straddles the chunk
-    boundary), random, all-zero and all-ones bytes: the plain version is
-    zlib's CRC32 of every tile."""
-    length = n_chunks * CHUNK + tail
-    rng = np.random.default_rng(seed)
-    if fill == "random":
-        x = rng.integers(0, 256, size=(n_tiles, length), dtype=np.uint8)
-    else:
-        x = np.full((n_tiles, length), 0 if fill == "zeros" else 255,
-                    dtype=np.uint8)
-    got = tile_checksum_plain(torch.from_numpy(x), tile_dims=1)
+def test_plain_equals_zlib_property(n_spans, tail, fill, n_tiles, n_warps,
+                                    seed):
+    """Any tile length (whole spans plus a tail that makes the head span
+    partial), random, all-zero and all-ones bytes, the spans split over
+    any number of warps (runs of many spans, runs across tile ends, more
+    warps than spans): the plain version is zlib's CRC32 of every tile."""
+    length = n_spans * SPAN + tail
+    x = _bytes(np.random.default_rng(seed), fill, n_tiles, length)
+    got = tile_checksum_plain(torch.from_numpy(x), tile_dims=1,
+                              n_warps=n_warps)
     assert got.dtype == torch.int64
     assert got.tolist() == _zlib_rows(x)
+
+
+@pytest.mark.parametrize("n_warps", [1, 5, 132 * WARPS])
+@pytest.mark.parametrize("tile_bytes", BOUNDARY_BYTES)
+def test_plain_span_boundaries_equal_zlib(tile_bytes, n_warps):
+    """The span split's boundary lengths: a partial head, exactly one span,
+    a span and one byte, a span and 16 bytes, several spans; one warp (one
+    run across every tile), a few, and the H100 grid's 4224 warps (more
+    warps than spans)."""
+    rng = np.random.default_rng(tile_bytes)
+    for fill in ("random", "zeros", "ones"):
+        x = _bytes(rng, fill, 3, tile_bytes)
+        got = tile_checksum_plain(torch.from_numpy(x), 1, n_warps=n_warps)
+        assert got.tolist() == _zlib_rows(x)
+
+
+def test_span_constants_equal_zlib():
+    """The multipliers the wrapper hands the kernel, against zlib: a word at
+    lane l, word q of a span is carried to the span's end by A4^(3-q) and
+    lane_pow[l]; x512 and x4 are the chain's and the fold's steps; pow_lo
+    and pow_hi carry a span's raw CRC over g later spans, for every g the
+    tables hold (the plain version split into one-span runs uses each)."""
+    k = span_constants(600)
+    rng = np.random.default_rng(19)
+
+    def raw(msg: bytes) -> int:
+        # zlib's register with a zero start and no final XOR.
+        return zlib.crc32(msg, 0xFFFFFFFF) ^ zlib.crc32(b"\0" * len(msg),
+                                                         0xFFFFFFFF)
+
+    for lane in range(32):
+        for q in range(4):
+            w = int(rng.integers(1, 2 ** 32))
+            msg = bytearray(SPAN)
+            msg[16 * lane + 4 * q: 16 * lane + 4 * q + 4] = w.to_bytes(
+                4, "little")
+            u = w
+            for _ in range(3 - q):
+                u = _multmodp(k["x4"], u)
+            assert _multmodp(k["lane_pow"][lane], u) == raw(bytes(msg))
+    assert k["x512"] == _x8n(SPAN) and k["x4"] == _x8n(4)
+    span = rng.integers(0, 256, size=SPAN, dtype=np.uint8).tobytes()
+    for g in (0, 1, 255, 256, 257, 599):
+        hi, lo = k["pow_hi"][g >> 8], k["pow_lo"][g & 255]
+        assert _multmodp(hi, _multmodp(lo, raw(span))) == raw(
+            span + b"\0" * (SPAN * g))
+    assert len(k["pow_lo"]) == 256 and len(k["pow_hi"]) == 3
+    x = rng.integers(0, 256, size=(2, 600 * SPAN), dtype=np.uint8)
+    assert tile_checksum_plain(torch.from_numpy(x), 1,
+                               n_warps=1200).tolist() == _zlib_rows(x)
+
+
+def test_plain_unaligned_base_equals_zlib():
+    """A tile buffer that starts one byte past an allocation (the kernel's
+    byte path on the card), tiles of odd length."""
+    rng = np.random.default_rng(3)
+    buf = torch.from_numpy(rng.integers(0, 256, size=4 * 1333 + 1,
+                                        dtype=np.uint8))
+    x = buf[1:].view(4, 1333)
+    assert tile_checksum_plain(x, 1, n_warps=3).tolist() == _zlib_rows(
+        x.numpy())
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 40, 6), (6, 3, 20, 517),
@@ -138,23 +217,37 @@ def test_runner_cpu_audit_counters(segmented):
 # The kernel itself (needs the card)
 # ---------------------------------------------------------------------- #
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile_bytes", [1, 511, 512, 513, 4096,
-                                        CHUNK * THREADS + 16,
-                                        3 * CHUNK * THREADS + 1,
-                                        1000 * 6000 * 4])
+@pytest.mark.parametrize("tile_bytes", sorted(set(BOUNDARY_BYTES) | {
+    4096, SPAN * WARPS + 16, 3 * SPAN * WARPS + 1, 1000 * 6000 * 4}))
 def test_tile_checksum_kernel_vs_zlib_on_card(cuda_device, tile_bytes):
     """One launch checksums every tile: random, all-zero and all-ones
     bytes, 16-byte aligned lengths (the vector path) and odd ones (the
-    byte path), up to one Sec. V cyclic tile (24 MB)."""
+    byte path), the span split's boundaries, up to one Sec. V cyclic tile
+    (24 MB)."""
     rng = np.random.default_rng(tile_bytes)
     n = 3 if tile_bytes < 10 ** 7 else 2
     for fill in ("random", "zeros", "ones"):
-        if fill == "random":
-            x = rng.integers(0, 256, size=(n, tile_bytes), dtype=np.uint8)
-        else:
-            x = np.full((n, tile_bytes), 0 if fill == "zeros" else 255,
-                        dtype=np.uint8)
+        x = _bytes(rng, fill, n, tile_bytes)
         before = tile_checksum_cuda.launches
         got = ops.tile_checksum(torch.from_numpy(x).to(cuda_device), 1)
         assert tile_checksum_cuda.launches == before + 1
         assert got.cpu().tolist() == _zlib_rows(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_bytes", [3, 16])
+def test_tile_checksum_kernel_many_tiles_and_unaligned_base(cuda_device,
+                                                            tile_bytes):
+    """More than 65,535 tiles in one launch (the first design's grid limit),
+    and a buffer one byte past an allocation (the byte path)."""
+    n = 70_001
+    rng = np.random.default_rng(tile_bytes)
+    x = rng.integers(0, 256, size=(n, tile_bytes), dtype=np.uint8)
+    got = ops.tile_checksum(torch.from_numpy(x).to(cuda_device), 1)
+    assert got.cpu().tolist() == _zlib_rows(x)
+    buf = torch.from_numpy(rng.integers(0, 256, size=3 * 4099 + 1,
+                                        dtype=np.uint8)).to(cuda_device)
+    shifted = buf[1:].view(3, 4099)
+    assert shifted.data_ptr() % 16 == 1
+    assert ops.tile_checksum(shifted, 1).cpu().tolist() == _zlib_rows(
+        shifted.cpu().numpy())
