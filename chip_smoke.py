@@ -11,8 +11,9 @@ its span split, from an unaligned base, over 70,001 tiles and over every
 tile of the Sec. V staged buffer, with its grid and its share of its bytes
 bound; the flash-attention kernels at the JAX tests' cases,
 every head_dim in both dtypes: bf16 on the tensor-core kernel, fp32 on the
-FFMA kernel; one full-width glm4-9b layer, one deepseek-moe-16b layer and
-one recurrentgemma-2b windowed layer),
+FFMA kernel, causal and bidirectional; one full-width glm4-9b layer, one
+deepseek-moe-16b layer, one recurrentgemma-2b windowed layer, one
+hubert-xlarge bidirectional layer and one internvl2-2b layer),
 then drives the paper's Sec. V experiment through the normal front door,
 ``ElasticEngine(MatVecPowerIteration, backend="device")``: N = 6 workers,
 J = 3, a 6000 x 6000 integer-valued matrix, cyclic and MAN placements at
@@ -20,14 +21,25 @@ S in {0, 1}, scripted churn, 8 steps, ``verify="exact"`` at every step, in
 both executor modes (per-block ``usec_matvec`` and one ``usec_segmented``
 launch a step). Then the model stack's serving path: glm4-9b,
 deepseek-moe-16b (64 routed experts, top-6), recurrentgemma-2b (RG-LRU +
-local attention) and mamba2-370m (Mamba-2 SSD) in turn at full width and
-depth with random weights through ``repro_torch.launch.serve.generate`` (an
-8192-token prompt, 32 greedy decode steps; one kernel launch per prefill
-attention layer, none in decode; the first attention layer and layer 0's
-MoE FFN against their plain versions; the first rglru and ssm layer's
-prefill-to-decode state handoff in fp32), a profiled prefill + decode
-each, the MoE decode's expert-read floor, and card-vs-host parity at
-reduced size (glm4-9b, both MoE models and both recurrent models). Then
+local attention), mamba2-370m (Mamba-2 SSD) and internvl2-2b (a VLM: 1024
+patch embeddings prefix 7168 tokens) in turn at full width and depth with
+random weights through ``repro_torch.launch.serve.generate`` (an
+8192-position prompt, 32 greedy decode steps; one kernel launch per
+prefill attention layer, none in decode; the first attention layer and
+layer 0's MoE FFN against their plain versions; the first rglru and ssm
+layer's prefill-to-decode state handoff in fp32), and the hubert-xlarge
+encoder's one forward over 8192 audio frames (48 bidirectional launches),
+a profiled prefill + decode each decoder, the MoE decode's expert-read
+floor, and card-vs-host parity at reduced size (glm4-9b, both MoE models,
+both recurrent models, internvl2-2b and hubert-xlarge). Then training:
+``train_path`` takes 3 steps of internvl2-2b at full width and depth
+through ``repro_torch.launch.train.main`` (4 workers, S = 1, a worker
+dropped a step, 8192 positions a tile, so the flash kernel runs under
+autograd: exact launch counts, the last step profiled),
+``train_drop_exact`` holds the step's loss to 1e-5 with each worker
+dropped, ``train_flash_grad`` holds the kernel route's gradients to the
+plain scan's at one layer's shape, and ``train_parity`` holds one usec
+step on the card to the host's for three reduced archs. Then
 ``checkpoint`` cuts Sec. V runs after step 5 and resumes them bitwise in
 fresh engines (and a card checkpoint on the host), and
 ``serve_path`` drives serve_cli's seeded request trace through both serving
@@ -1793,13 +1805,36 @@ MOE_ARCH = "deepseek-moe-16b"
 # Every arch the model path serves at full width and depth, in turn, with
 # the same cell: the dense and MoE attention stacks, the Griffin hybrid
 # (RG-LRU + local attention) and the attention-free Mamba-2 SSD stack.
-MODEL_ARCHS = (MODEL_ARCH, MOE_ARCH, "recurrentgemma-2b", "mamba2-370m")
+MODEL_ARCHS = (MODEL_ARCH, MOE_ARCH, "recurrentgemma-2b", "mamba2-370m",
+               "internvl2-2b")
+# The encoder: one forward over 8192 audio frames (no decode).
+ENCODER_ARCH = "hubert-xlarge"
+# The trainer's cell: internvl2-2b at full width and depth, N = 4 workers,
+# cyclic J = 2 over 4 tiles of one 8192-position sample (1024 patches + 7168
+# tokens: above attn_chunk = 4096, so the flash kernel runs under autograd),
+# S = 1, one worker dropped a step, 3 steps.
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_SEQ = "internvl2-2b", 3, 8192
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--workers", "4", "--replication", "2",
+              "--straggler-tolerance", "1", "--drop-stragglers", "1",
+              "--tiles-per-worker", "1", "--tile-samples", "1",
+              "--seq-len", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+              "--log-every", "1"]
+# train_drop_exact's sequence: the same plan and model, 2048 positions
+# (512 patches + 1536 tokens) so the five steps stay short.
+DROP_SEQ = 2048
+# (share of the largest |value|) of the gradient norm with one worker
+# dropped against none: each worker's bf16 sum (internvl2-2b accumulates in
+# bf16) rounds at most three times (each tile's weighted gradient, the adds)
+# and a drop hands tiles to other workers' sums, so per element the two
+# totals may differ by 6 roundings of 2^-9: 6 x 2^-9 = 1.2e-2.
+DROP_GNORM_TOL = 6 * 2 ** -9
 # The exact parameter count of the reference's init of each (its
 # ``jax.eval_shape``; ``cfg.n_params()`` is an analytic approximation that
 # misses the RG-LRU gates and the SSD norm). tests/test_torch_models.py
 # holds this table to the reference.
 EXACT_PARAMS = {"glm4-9b": 9399767040, "deepseek-moe-16b": 16879568896,
-                "recurrentgemma-2b": 2894528000, "mamba2-370m": 368227840}
+                "recurrentgemma-2b": 2894528000, "mamba2-370m": 368227840,
+                "hubert-xlarge": 945912320, "internvl2-2b": 1891244032}
 ATTENTION_KINDS = ("attn", "lattn")
 # (share of the largest |output|) of the recurrent state handoff: one
 # layer in fp32 with TF32 off, a decode step after a P-token prefill
@@ -1835,7 +1870,15 @@ FLASH_HEAD_DIM_CASES = [
      # GQA 16:1, sq not a multiple of the 128-row query block, skv > sq;
      # a causal offset (130) that is not a multiple of the KV tile.
      (1, 16, 1, 200, 333, 128, True, None, torch.bfloat16),
-     (1, 8, 2, 1000, 1130, 128, True, None, torch.bfloat16)]
+     (1, 8, 2, 1000, 1130, 128, True, None, torch.bfloat16),
+     # Bidirectional (the encoder's): sq != skv either way, skv not a
+     # multiple of the KV tile, MHA and GQA, d 80 (two 64-column panels,
+     # the second a quarter live) and 128; fp32 at d 80.
+     (1, 16, 16, 300, 333, 80, False, None, torch.bfloat16),
+     (2, 8, 2, 333, 150, 80, False, None, torch.bfloat16),
+     (1, 16, 8, 200, 333, 128, False, None, torch.bfloat16),
+     (1, 4, 4, 1000, 1130, 128, False, None, torch.bfloat16),
+     (1, 4, 2, 200, 333, 80, False, None, torch.float32)]
 # One glm4-9b layer's prefill attention at the model path's prompt length,
 # and one deepseek-moe-16b layer's (MHA: 16 query and 16 KV heads).
 FLASH_LAYER = (1, 32, 2, PROMPT_LEN, PROMPT_LEN, 128, True, None,
@@ -1846,6 +1889,12 @@ FLASH_LAYER_MHA = (1, 16, 16, PROMPT_LEN, PROMPT_LEN, 128, True, None,
 # 2048-token sliding window.
 FLASH_LAYER_WINDOW = (1, 10, 1, PROMPT_LEN, PROMPT_LEN, 256, True, 2048,
                       torch.bfloat16)
+# One hubert-xlarge encoder layer (MHA 16 x 80, bidirectional) and one
+# internvl2-2b layer (GQA 16:8 x 128, causal) at 8192 positions.
+FLASH_LAYER_HUBERT = (1, 16, 16, PROMPT_LEN, PROMPT_LEN, 80, False, None,
+                      torch.bfloat16)
+FLASH_LAYER_INTERNVL2 = (1, 16, 8, PROMPT_LEN, PROMPT_LEN, 128, True, None,
+                         torch.bfloat16)
 # (rtol, atol) of the flash kernel against an fp32 version of the same
 # function. Both sides read the inputs exactly, compute in fp32 and round
 # once to the output type, so they differ by the fp32 sum order and, in
@@ -1985,8 +2034,10 @@ def phase_flash(dev, paths):
     """The flash kernels against their plain version at the test cases,
     every head_dim in both dtypes (bf16: tensor-core kernel, fp32: FFMA
     kernel), one full-width glm4-9b layer (GQA 16), one deepseek-moe-16b
-    layer (MHA) and one recurrentgemma-2b local-attention layer (d 256, GQA
-    10, window 2048); each layer's times: kernel, plain version, and one library
+    layer (MHA), one recurrentgemma-2b local-attention layer (d 256, GQA
+    10, window 2048), one hubert-xlarge encoder layer (bidirectional, MHA,
+    d 80) and one internvl2-2b layer (GQA 2, d 128); each layer's times:
+    kernel, plain version, and one library
     call (SDPA) as a yardstick; and both kernels' ptxas registers and
     spills. The kernels line takes the glm4-9b layer's numbers."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -2000,15 +2051,19 @@ def phase_flash(dev, paths):
     layer = flash_layer(FLASH_LAYER, dev, 99)
     mha = flash_layer(FLASH_LAYER_MHA, dev, 98)
     windowed = flash_layer(FLASH_LAYER_WINDOW, dev, 97)
+    hubert = flash_layer(FLASH_LAYER_HUBERT, dev, 96)
+    internvl2 = flash_layer(FLASH_LAYER_INTERNVL2, dev, 95)
     routes = {"launches_tc": flash_attention_cuda.launches_tc - routes0[0],
               "launches_ffma": flash_attention_cuda.launches_ffma - routes0[1]}
     emit({"phase": "kernel", "name": "flash_attention",
-          "cases": len(cases) + 3, "max_abs_err_cases": errs,
+          "cases": len(cases) + 5, "max_abs_err_cases": errs,
           "rtol_atol": {str(dt).replace("torch.", ""): tol
                         for dt, tol in ATTN_TOL.items()},
           "bitwise_run_to_run": True, "dtype": "bfloat16",
           "layer_glm4_9b": layer, "layer_deepseek_moe_16b_mha": mha,
           "layer_recurrentgemma_2b_lattn": windowed,
+          "layer_hubert_xlarge_bidirectional": hubert,
+          "layer_internvl2_2b": internvl2,
           "check_launches": routes,
           "ptxas": {stem: ptxas_report(paths[stem])
                     for stem in ("flash_attention_tc", "flash_attention")}})
@@ -2061,19 +2116,38 @@ def first_layer(params, cfg, kinds):
     return None
 
 
+def _causal_spy(seen):
+    """Wrap ``kernels.ops.flash_attention`` (the model's route to the flash
+    kernel) so that each call's ``causal`` lands in ``seen``; returns the
+    function that undoes it."""
+    from repro_torch.kernels import ops
+
+    real = ops.flash_attention
+
+    def spy(*args, **kwargs):
+        seen.append(bool(kwargs.get("causal", True)))
+        return real(*args, **kwargs)
+
+    ops.flash_attention = spy
+    return lambda: setattr(ops, "flash_attention", real)
+
+
 def phase_model_path(dev, counters, smi, arch):
-    """``arch`` at full width and depth through
-    ``repro_torch.launch.serve.generate``: weights from a seed, an
-    8192-token prompt, restage, 32 greedy decode steps. The parameter count
-    is the reference init's exact count (:data:`EXACT_PARAMS`). Every
-    attention layer of the prefill launches the flash kernel once, on the
-    tensor-core route (bf16); recurrent layers and decode never do. Then
-    the first attention layer's prefill attention (with its window), kernel
-    route against the plain ``chunked_attention``; for an MoE model layer
-    0's MoE FFN against its plain version (:func:`moe_layer_check`); for a
-    recurrent model its first rglru or ssm layer's state handoff
-    (:func:`state_handoff`). Returns the main path's launch counts and what
-    the profile phase reuses."""
+    """``arch`` at full width and depth: weights from a seed and an
+    8192-position prompt. A decoder goes through
+    ``repro_torch.launch.serve.generate`` (restage, 32 greedy decode steps;
+    internvl2-2b's prompt is 1024 patches + 7168 tokens); the encoder
+    (hubert-xlarge) through one ``bundle.prefill``, its forward over 8192
+    frames. The parameter count is the reference init's exact count
+    (:data:`EXACT_PARAMS`). Every attention layer of the prefill launches
+    the flash kernel once, on the tensor-core route (bf16), causal in a
+    decoder and bidirectional in the encoder; recurrent layers and decode
+    never do. Then the first attention layer's prefill attention (with its
+    window), kernel route against the plain ``chunked_attention``; for an
+    MoE model layer 0's MoE FFN against its plain version
+    (:func:`moe_layer_check`); for a recurrent model its first rglru or ssm
+    layer's state handoff (:func:`state_handoff`). Returns the main path's
+    launch counts and what the profile phase reuses."""
     import dataclasses
 
     from repro_torch.configs import demo_batch, get_config
@@ -2112,12 +2186,23 @@ def phase_model_path(dev, counters, smi, arch):
         routed.append((xt.shape[0], r.capacity, (~r.keep).sum()))
         return r
 
+    causal_seen = []
     reset_launches(counters)
     moe.route = logged_route
+    undo_spy = _causal_spy(causal_seen)
     try:
-        out = generate(counted, params, batch, DECODE_STEPS + 1)
+        if cfg.decoder:
+            out = generate(counted, params, batch, DECODE_STEPS + 1)
+            logits, steps = out.logits, DECODE_STEPS + 1
+        else:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                _, logits = counted.prefill(params, batch)
+            torch.cuda.synchronize()
+            encode_s, steps = time.perf_counter() - t0, None
     finally:
         moe.route = route
+        undo_spy()
     launches = {n: fn.launches for n, fn in counters.items()}
     flash = counters["flash_attention"]
     routes = {"launches_tc": flash.launches_tc,
@@ -2125,28 +2210,37 @@ def phase_model_path(dev, counters, smi, arch):
     peak = torch.cuda.max_memory_allocated(dev)
     if tally != {"prefill": n_attn, "decode": 0} or launches != {
             **{n: 0 for n in counters}, "flash_attention": n_attn} \
-            or routes != {"launches_tc": n_attn, "launches_ffma": 0}:
+            or routes != {"launches_tc": n_attn, "launches_ffma": 0} \
+            or causal_seen != [cfg.decoder] * n_attn:
         raise AssertionError(f"{arch} model path launches {tally} / "
-                             f"{launches} / {routes}")
-    if tuple(out.logits.shape) != (MODEL_BATCH, DECODE_STEPS + 1,
-                                   cfg.vocab_size):
-        raise AssertionError(f"logits shape {tuple(out.logits.shape)}")
-    if not bool(torch.isfinite(out.logits).all()):
+                             f"{launches} / {routes} / causal {causal_seen}")
+    want_shape = ((MODEL_BATCH, steps, cfg.vocab_size) if steps
+                  else (MODEL_BATCH, cfg.vocab_size))
+    if tuple(logits.shape) != want_shape:
+        raise AssertionError(f"logits shape {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"non-finite logits on the {arch} path")
     row = {"phase": "model_path", "arch": arch, "layers": cfg.n_layers,
            "layer_pattern": list(cfg.layer_pattern),
-           "attention_layers": n_attn,
+           "attention_layers": n_attn, "causal": cfg.decoder,
            "params": param_count(params), "n_params_formula": cfg.n_params(),
            "param_dtype": cfg.param_dtype,
            "batch": MODEL_BATCH, "prompt_len": PROMPT_LEN,
-           "decode_steps": DECODE_STEPS, "init_s": init_s,
-           "prefill_s": out.prefill_s, "decode_s": out.decode_s,
-           "decode_tokens_per_s": MODEL_BATCH * DECODE_STEPS / out.decode_s,
-           "launches_prefill": tally["prefill"],
+           "prompt": {k: list(np.shape(v)) for k, v in batch.items()},
+           "init_s": init_s, "launches_prefill": tally["prefill"],
            "launches_decode": tally["decode"], "launches": launches,
-           "flash_routes": routes, "logits_finite": True,
-           "max_memory_allocated_gb": peak / 1e9,
-           "tokens_head": out.tokens[0, :8].tolist(), "nvidia_smi": smi}
+           "flash_routes": routes, "flash_causal": sorted(set(causal_seen)),
+           "logits_finite": True,
+           "max_memory_allocated_gb": peak / 1e9, "nvidia_smi": smi}
+    if cfg.decoder:
+        row.update({"decode_steps": DECODE_STEPS, "prefill_s": out.prefill_s,
+                    "decode_s": out.decode_s,
+                    "decode_tokens_per_s": MODEL_BATCH * DECODE_STEPS
+                    / out.decode_s,
+                    "tokens_head": out.tokens[0, :8].tolist()})
+    else:
+        row.update({"encode_s": encode_s,
+                    "frames_per_s": MODEL_BATCH * PROMPT_LEN / encode_s})
     if cfg.is_moe:
         n_prompt = MODEL_BATCH * PROMPT_LEN
         by_part = {"prefill": [r for r in routed if r[0] == n_prompt],
@@ -2162,12 +2256,15 @@ def phase_model_path(dev, counters, smi, arch):
                                     for k, v in by_part.items()},
             "moe_choices": {k: len(v) * v[0][0] * cfg.top_k
                             for k, v in by_part.items()}})
-    del out, routed
+    del logits, routed
+    if cfg.decoder:
+        del out
 
     # The first attention layer's prefill attention (its window too): the
     # kernel route the path took, against the plain chunked scan, which
     # also computes in fp32 and rounds once (ATTN_TOL's bf16 limit).
-    x = params["embed"][torch.as_tensor(batch["tokens"], device=dev).long()]
+    with torch.no_grad():
+        x, _ = bundle.embed_batch(params, batch)
     positions = torch.arange(PROMPT_LEN, device=dev)
     first = first_layer(params, cfg, ATTENTION_KINDS)
     if first is not None:
@@ -2175,16 +2272,17 @@ def phase_model_path(dev, counters, smi, arch):
         window = cfg.window if kind == "lattn" else None
         h = apply_norm(layer["norm1"], x, cfg.norm)
         q, k, v = qkv(layer["temporal"], h, cfg, positions)
-        o_kernel = long_attention(q, k, v, True, window, cfg.attn_chunk)
-        o_plain = chunked_attention(q, k, v, causal=True, window=window,
-                                    chunk=cfg.attn_chunk)
+        o_kernel = long_attention(q, k, v, cfg.decoder, window,
+                                  cfg.attn_chunk)
+        o_plain = chunked_attention(q, k, v, causal=cfg.decoder,
+                                    window=window, chunk=cfg.attn_chunk)
         try:
             err = attn_err(o_kernel, o_plain)
         except AssertionError as e:
             raise AssertionError(f"{arch} {name} attention, kernel vs "
                                  f"chunked: {e}") from None
         row["attention_check"] = {"layer": name, "kind": kind,
-                                  "window": window,
+                                  "window": window, "causal": cfg.decoder,
                                   "max_abs_err_vs_chunked": err}
         del q, k, v, o_kernel, o_plain
         if cfg.is_moe:
@@ -2311,12 +2409,10 @@ def moe_layer_check(p, h2, cfg):
     want = out_p.reshape(h2.shape) + apply_mlp(p["ffn"]["shared"], h2,
                                                cfg.act)
     del xin_p, out_p
-    rtol, atol_share = MOE_TOL
-    err = (out.float() - want.float()).abs()
-    limit = atol_share * float(want.float().abs().max()) \
-        + rtol * want.float().abs()
-    if bool((err > limit).any()) or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"layer-0 MoE: max abs err {float(err.max())}")
+    try:
+        err = _within(out, want, MOE_TOL)
+    except AssertionError as e:
+        raise AssertionError(f"layer-0 MoE: {e}") from None
     aux_err = abs(float(aux) - float(aux_p))
     if aux_err > 1e-5:
         raise AssertionError(f"layer-0 MoE: aux differs by {aux_err}")
@@ -2326,7 +2422,7 @@ def moe_layer_check(p, h2, cfg):
         "tokens": xt.shape[0], "capacity": r.capacity,
         "dropped_choices": int((~r.keep).sum()),
         "routing_equal": True, "dispatch_bitwise": True,
-        "max_abs_err_vs_plain": float(err.max()),
+        "max_abs_err_vs_plain": err,
         "max_abs_out": float(want.float().abs().max()),
         "rtol_atol_share": list(MOE_TOL), "aux": float(aux),
         "aux_abs_err": aux_err, "main_ms": main_ms, "plain_ms": plain_ms}}
@@ -2445,8 +2541,10 @@ def phase_moe_decode_floor(bundle, params):
 
 def phase_model_parity(dev):
     """The port on the card against the port on the host at reduced
-    glm4-9b, deepseek-moe-16b, llama4-scout-17b-a16e, mamba2-370m and
-    recurrentgemma-2b in fp32, the same weights on both (the MoE models
+    glm4-9b, deepseek-moe-16b, llama4-scout-17b-a16e, mamba2-370m,
+    recurrentgemma-2b, internvl2-2b (16 patches + text) and hubert-xlarge
+    (the encoder: its forward's logits, no decode) in fp32, the same
+    weights on both (the MoE models
     with ``moe_chunk`` 16, so their chunk loop and its zero-padded tail
     run; recurrentgemma at 8 layers, so its two trailing layers run):
     prompts of 33 (plain attention; not a multiple of the SSD chunk 16) and
@@ -2463,7 +2561,8 @@ def phase_model_parity(dev):
     from repro_torch.models.transformer import tree_map
 
     for arch in (MODEL_ARCH, MOE_ARCH, "llama4-scout-17b-a16e",
-                 "mamba2-370m", "recurrentgemma-2b"):
+                 "mamba2-370m", "recurrentgemma-2b", "internvl2-2b",
+                 ENCODER_ARCH):
         cfg = dataclasses.replace(get_config(arch).reduced(),
                                   param_dtype="float32")
         if cfg.is_moe:
@@ -2479,11 +2578,18 @@ def phase_model_parity(dev):
                       flash_attention_cuda.launches_tc)
         for prompt in (33, 160):
             batch = demo_batch(cfg, "prefill", 2, prompt, seed=prompt)
-            a = generate(host, p_host, batch, 9)
-            b = generate(card, p_card, batch, 9)
-            rel = float((b.logits.cpu() - a.logits).abs().max()
-                        / a.logits.abs().max())
-            if rel > 1e-4 or not torch.equal(a.tokens, b.tokens.cpu()):
+            if cfg.decoder:
+                a = generate(host, p_host, batch, 9)
+                b = generate(card, p_card, batch, 9)
+                same = torch.equal(a.tokens, b.tokens.cpu())
+                a, b = a.logits, b.logits
+            else:  # the encoder: its one forward's last-frame logits
+                with torch.no_grad():
+                    a = host.prefill(p_host, batch)[1]
+                    b = card.prefill(p_card, batch)[1]
+                same = True
+            rel = float((b.cpu() - a).abs().max() / a.abs().max())
+            if rel > 1e-4 or not same:
                 raise AssertionError(
                     f"{arch}: card != host at prompt {prompt}: rel {rel}")
             rels[prompt] = rel
@@ -2495,10 +2601,334 @@ def phase_model_parity(dev):
                                  f"{routes}")
         emit({"phase": "model_parity", "arch": cfg.name + " (reduced, fp32)",
               "layers": cfg.n_layers, "attention_layers": n_attn,
-              "prompts": [33, 160], "decode_steps": 8,
+              "prompts": [33, 160], "decode_steps": 8 if cfg.decoder else 0,
               **({"moe_chunk": cfg.moe_chunk} if cfg.is_moe else {}),
               "max_rel_logit_err": rels, "greedy_tokens_equal": True,
               "flash_routes": routes})
+
+
+# (rtol, atol as a share of the largest |value|) of the training attention
+# on the kernel route (FlashAttentionFn) against autograd through the plain
+# chunked scan, in bf16: the forwards differ by one bf16 rounding (ATTN_TOL)
+# and both backwards are the same fp32 recompute of the scan, summed in
+# another order and rounded once to bf16; 1e-2 is ~2.5 bf16 ulps.
+GRAD_TOL = (1e-2, 1e-2)
+TRAIN_PARITY_ARCHS = ("stablelm-1.6b", "internvl2-2b", ENCODER_ARCH)
+
+
+def _within(got, want, tol):
+    """Max abs error of ``got`` against ``want``; raises past ``tol`` =
+    (rtol, atol as a share of the largest |want|)."""
+    rtol, share = tol
+    err = (got.float() - want.float()).abs()
+    limit = share * float(want.float().abs().max()) + rtol * want.float().abs()
+    if bool((err > limit).any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"max abs err {float(err.max())} of max "
+                             f"{float(want.float().abs().max())}")
+    return float(err.max())
+
+
+def phase_train_path(dev, counters, smi):
+    """internvl2-2b at full width and depth through
+    ``repro_torch.launch.train.main`` (:data:`TRAIN_ARGS`: 4 workers, J = 2,
+    S = 1, one worker dropped a step, 8192 positions a tile, 3 steps): the
+    pipeline, the scheduler, the usec step on the card (bf16 weights, bf16
+    accumulation per worker, an fp32 sum, AdamW). Hard checks: a finite
+    loss every step; the flash kernel launched exactly ``2 x 24`` times per
+    micro-step (each of the 24 layers' forward, run again by the block's
+    remat in the backward; ``FlashAttentionFn``'s backward recomputes the
+    plain scan and launches nothing), all on the tensor-core route, no
+    other kernel. Records each step's wall (synchronized), tokens/s, the
+    peak memory and the device's busy share over the last step, which runs
+    under torch.profiler (device activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train
+    from repro_torch.runtime import executor, trainstep
+
+    trips, walls, metrics, busy = [], [], [], {}
+    real_bp, real_make = executor.block_plan, trainstep.make_usec_train_step
+
+    def bp_spy(*args, **kwargs):
+        bp = real_bp(*args, **kwargs)
+        trips.append(int(bp.n_blocks.sum()))
+        return bp
+
+    def make_spy(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def timed_step(*step_args):
+            last = len(walls) == TRAIN_STEPS - 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if last:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    out = step(*step_args)
+                    torch.cuda.synchronize()
+            else:
+                out = step(*step_args)
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if last:
+                busy["device_ms"] = _device_busy_ms(prof)
+                busy["top_device"] = [
+                    [e.key[:60], e.self_device_time_total / 1e3, e.count]
+                    for e in sorted(prof.key_averages(), key=lambda e:
+                                    -e.self_device_time_total)[:8]]
+                del prof
+            metrics.append({k: float(v) for k, v in out[3].items()})
+            return out
+        return timed_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(counters)
+    executor.block_plan, trainstep.make_usec_train_step = bp_spy, make_spy
+    try:
+        loss = train.main(TRAIN_ARGS)
+    finally:
+        executor.block_plan, trainstep.make_usec_train_step = (real_bp,
+                                                               real_make)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    flash = counters["flash_attention"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    from repro_torch.configs import get_config
+
+    n_attn = attention_layer_count(get_config(TRAIN_ARCH))
+    want = 2 * n_attn * sum(trips)
+    if len(metrics) != TRAIN_STEPS or not all(
+            np.isfinite(m["loss"]) for m in metrics) or loss != metrics[-1][
+            "loss"]:
+        raise AssertionError(f"train_path losses {metrics} / {loss}")
+    if launches != {**{n: 0 for n in counters}, "flash_attention": want} \
+            or flash.launches_tc != want or flash.launches_ffma != 0:
+        raise AssertionError(f"train_path launches {launches}, tc "
+                             f"{flash.launches_tc}, want {want}")
+    computed = [t * TRAIN_SEQ for t in trips]
+    emit({"phase": "train_path", "arch": TRAIN_ARCH, "args": TRAIN_ARGS,
+          "steps": TRAIN_STEPS, "micro_steps": trips,
+          "losses": [m["loss"] for m in metrics],
+          "grad_norms": [m["grad_norm"] for m in metrics],
+          "trained_tokens": [m["n_tokens"] for m in metrics],
+          "step_wall_s": walls, "profiled_step": TRAIN_STEPS - 1,
+          "computed_tokens_per_s": [c / w for c, w in zip(computed, walls)],
+          "trained_tokens_per_s": [m["n_tokens"] / w
+                                   for m, w in zip(metrics, walls)],
+          "flash_launches": want, "flash_per_micro_step": 2 * n_attn,
+          "launches": launches, "max_memory_allocated_gb": peak / 1e9,
+          "profiled_device_ms": busy["device_ms"],
+          "profiled_device_busy_share": busy["device_ms"] / 1e3 / walls[-1],
+          "profiled_top_device": busy["top_device"], "nvidia_smi": smi})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_drop_exact(dev, smi):
+    """At full width (internvl2-2b, bf16), one S = 1 plan over the train
+    cell's placement and one staged step of :data:`DROP_SEQ` positions: the
+    usec step with no worker dropped, then with each single worker dropped
+    (the redundant copies take over; tests/test_distributed.py's
+    ``test_usec_train_straggler_drop_keeps_loss_exact``). The loss within
+    1e-5 relative (fp32 sums in another order); the gradient norm within
+    :data:`DROP_GNORM_TOL` (per-worker bf16 sums over other tiles)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import compile_plan, cyclic_placement, solve_assignment
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.executor import block_plan
+    from repro_torch.runtime.trainstep import make_usec_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    bundle = build_model(cfg, device=dev)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    opt = adamw.init(params)
+    n = 4
+    place = cyclic_placement(n, n, 2)
+    pipe = TokenPipeline(cfg, place, seq_len=DROP_SEQ, tile_samples=1,
+                         seed=0)
+    plan = compile_plan(place, solve_assignment(place, np.ones(n),
+                                                stragglers=1),
+                        rows_per_tile=1, stragglers=1)
+    b_max = int(plan.n_valid.max()) + 1
+    step = make_usec_train_step(bundle, pipe.t_stage, b_max)
+    sb = pipe.staged_for_step(0)
+    runs = []
+    for bad in [(), (0,), (1,), (2,), (3,)]:
+        bp = block_plan(plan, sb.slot_of, 1, stragglers=bad, b_max=b_max)
+        t0 = time.perf_counter()
+        _, _, _, m = step(params, opt, None, sb.arrays, bp.blk_slot,
+                          bp.blk_include, bp.n_blocks[:, None], 0.0)
+        runs.append({"dropped": list(bad), "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "n_tokens": float(m["n_tokens"]),
+                     "micro_steps": int(bp.n_blocks.sum()),
+                     "wall_s": time.perf_counter() - t0})
+        del m
+        gc.collect()
+    base = runs[0]
+    loss_err = max(abs(r["loss"] - base["loss"]) / abs(base["loss"])
+                   for r in runs)
+    gnorm_err = max(abs(r["grad_norm"] - base["grad_norm"])
+                    / base["grad_norm"] for r in runs)
+    if loss_err > 1e-5 or gnorm_err > DROP_GNORM_TOL or not all(
+            np.isfinite(r["loss"]) and r["n_tokens"] == base["n_tokens"]
+            for r in runs):
+        raise AssertionError(f"train_drop_exact: {runs}")
+    emit({"phase": "train_drop_exact", "arch": TRAIN_ARCH,
+          "seq_len": DROP_SEQ, "workers": n, "runs": runs,
+          "max_rel_loss_err": loss_err, "max_rel_grad_norm_err": gnorm_err,
+          "tol": {"loss": 1e-5, "grad_norm": DROP_GNORM_TOL},
+          "nvidia_smi": smi})
+    del bundle, params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_flash_grad(dev):
+    """One internvl2-2b layer's training attention at 8192 positions in
+    bf16 (GQA 16:8 x 128, causal, attn_chunk 4096): (a) on q, k, v,
+    ``FlashAttentionFn`` (the kernel forward, the recomputed scan's
+    backward) against autograd through ``chunked_attention``: the outputs
+    within ATTN_TOL and dq, dk, dv within :data:`GRAD_TOL`; (b) the whole
+    ``attention_train`` of a layer with random weights against the same
+    projections around the plain scan: the output and the gradients of x,
+    wq, wk, wv, wo within :data:`GRAD_TOL`. One kernel launch in each of (a)
+    and (b) (the timing runs between them are not counted); the plain side
+    launches none. Also times (a)'s kernel forward and both routes' forward
+    + backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.attention import (
+        FlashAttentionFn,
+        attention_train,
+        chunked_attention,
+        init_attention,
+        qkv,
+    )
+
+    cfg = get_config(TRAIN_ARCH)
+    s, ck = TRAIN_SEQ, cfg.attn_chunk
+    g = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev).to(
+        torch.bfloat16)
+    q, k, v = (rnd(1, s, h, cfg.head_dim).requires_grad_()
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    go = rnd(1, s, cfg.n_heads, cfg.head_dim)
+    before = flash_attention_cuda.launches_tc
+    o1 = FlashAttentionFn.apply(q, k, v, True, None, ck)
+    d1 = torch.autograd.grad(o1, (q, k, v), go)
+    o2 = chunked_attention(q, k, v, causal=True, chunk=ck)
+    d2 = torch.autograd.grad(o2, (q, k, v), go)
+    out = {"a_output": attn_err(o1.detach(), o2.detach()),
+           **{f"a_d{n}": _within(a, b, GRAD_TOL)
+              for n, a, b in zip("qkv", d1, d2)}}
+    del o1, o2, d1, d2
+    launched = flash_attention_cuda.launches_tc - before
+    # What one layer's attention costs a training micro-step (CUDA events):
+    # the kernel forward, and forward + backward on each route.
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: FlashAttentionFn.apply(q, k, v, True, None, ck),
+                      3, 1)
+    fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+        FlashAttentionFn.apply(q, k, v, True, None, ck), (q, k, v), go), 3, 1)
+    plain = cuda_ms(lambda: torch.autograd.grad(
+        chunked_attention(q, k, v, causal=True, chunk=ck), (q, k, v), go),
+        2, 1)
+    times = {"kernel_forward_ms": fwd, "flash_fn_forward_backward_ms": fwd_bwd,
+             "flash_fn_backward_ms": fwd_bwd - fwd,
+             "chunked_forward_backward_ms": plain}
+    del q, k, v, go
+    torch.cuda.empty_cache()
+    before = flash_attention_cuda.launches_tc
+    p = {n: t.requires_grad_() for n, t in init_attention(g, cfg, dev).items()}
+    x = (rnd(1, s, cfg.d_model) * 0.5).requires_grad_()
+    pos = torch.arange(s, device=dev)
+    gy = rnd(1, s, cfg.d_model)
+    leaves = (x, p["wq"], p["wk"], p["wv"], p["wo"])
+    y1 = attention_train(p, x, cfg, pos, causal=True)
+    e1 = torch.autograd.grad(y1, leaves, gy)
+    qq, kk, vv = qkv(p, x, cfg, pos)
+    y2 = chunked_attention(qq, kk, vv, causal=True, chunk=ck).reshape(
+        1, s, -1) @ p["wo"]
+    e2 = torch.autograd.grad(y2, leaves, gy)
+    out["b_output"] = _within(y1.detach(), y2.detach(), GRAD_TOL)
+    out.update({f"b_d{n}": _within(a, b, GRAD_TOL) for n, a, b in zip(
+        ("x", "wq", "wk", "wv", "wo"), e1, e2)})
+    launched += flash_attention_cuda.launches_tc - before
+    if launched != 2:
+        raise AssertionError(f"train_flash_grad: {launched} kernel launches")
+    emit({"phase": "train_flash_grad", "arch": TRAIN_ARCH, "seq_len": s,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
+          "max_abs_err": out, "tol_output": ATTN_TOL[torch.bfloat16],
+          "tol_grad": GRAD_TOL, "kernel_launches": launched, **times})
+    del p, x, y1, y2, e1, e2, qq, kk, vv
+    torch.cuda.empty_cache()
+
+
+def phase_train_parity(dev):
+    """One usec step on the card against the same step on the host for
+    reduced stablelm-1.6b, internvl2-2b and hubert-xlarge in fp32 (gradients
+    accumulated in fp32; TF32 off): 4 workers, J = 2, S = 1, worker 1
+    dropped, 160 positions a tile (> attn_chunk 64: the FFMA flash kernel
+    under autograd on the card, the chunked scan on the host). Loss,
+    gradient norm and every updated parameter and first moment within 1e-4
+    of the host's largest value per leaf; on the card ``2 x attention
+    layers`` FFMA launches per micro-step (remat)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import compile_plan, cyclic_placement, solve_assignment
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.executor import block_plan
+    from repro_torch.runtime.trainstep import make_usec_train_step
+
+    n = 4
+    place = cyclic_placement(n, 2 * n, 2)
+    plan = compile_plan(place, solve_assignment(place, np.ones(n),
+                                                stragglers=1),
+                        rows_per_tile=1, stragglers=1)
+    b_max = int(plan.n_valid.max()) + 1
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  param_dtype="float32",
+                                  grad_accum_dtype="float32")
+        pipe = TokenPipeline(cfg, place, seq_len=160, tile_samples=1, seed=1)
+        sb = pipe.staged_for_step(0)
+        bp = block_plan(plan, sb.slot_of, 1, stragglers=(1,), b_max=b_max)
+        res = {}
+        p_host = build_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        for where in ("cpu", dev):
+            bundle = build_model(cfg, device=where)
+            params = tree_map(lambda t: t.to(where), p_host)
+            step = make_usec_train_step(bundle, pipe.t_stage, b_max)
+            ffma0 = flash_attention_cuda.launches_ffma
+            new_p, new_o, _, m = step(params, adamw.init(params), None,
+                                      sb.arrays, bp.blk_slot, bp.blk_include,
+                                      bp.n_blocks[:, None], 1e-3)
+            res[str(where)] = (m, tree_leaves(new_p) + tree_leaves(new_o["m"]),
+                               flash_attention_cuda.launches_ffma - ffma0)
+        (mh, lh, fh), (mc, lc, fc) = res["cpu"], res[str(dev)]
+        want_ffma = 2 * attention_layer_count(cfg) * int(bp.n_blocks.sum())
+        rel = lambda a, b: float((a.cpu().double() - b.double()).abs().max()
+                                 / max(float(b.abs().max()), 1e-30))
+        errs = {"loss": rel(mc["loss"], mh["loss"]),
+                "grad_norm": rel(mc["grad_norm"], mh["grad_norm"]),
+                "leaves": max(rel(a, b) for a, b in zip(lc, lh))}
+        if max(errs.values()) > 1e-4 or fh != 0 or fc != want_ffma:
+            raise AssertionError(f"train_parity {arch}: {errs}, ffma host "
+                                 f"{fh} card {fc} want {want_ffma}")
+        emit({"phase": "train_parity", "arch": cfg.name + " (reduced, fp32)",
+              "seq_len": 160, "micro_steps": int(bp.n_blocks.sum()),
+              "max_rel_err": errs, "tol": 1e-4, "ffma_launches": fc,
+              "loss": float(mh["loss"])})
 
 
 def main() -> int:
@@ -2575,20 +3005,30 @@ def main() -> int:
     phase_elastic_profile(smi)
 
     # ---- 5. main path: the model stack's serving path (glm4-9b,
-    # deepseek-moe-16b, recurrentgemma-2b, mamba2-370m; each drops its
-    # weights before the next) ----
+    # deepseek-moe-16b, recurrentgemma-2b, mamba2-370m, internvl2-2b, then
+    # the hubert-xlarge encoder's forward; each drops its weights before
+    # the next) ----
     totals["flash_attention"] = 0
-    for arch in MODEL_ARCHS:
+    for arch in MODEL_ARCHS + (ENCODER_ARCH,):
         model_launches, bundle, params, batch = phase_model_path(
             dev, counters, smi, arch)
         totals["flash_attention"] += model_launches["flash_attention"]
-        phase_model_profile(bundle, params, batch)
+        if bundle.cfg.decoder:
+            phase_model_profile(bundle, params, batch)
         if bundle.cfg.is_moe:
             phase_moe_decode_floor(bundle, params)
         del bundle, params, batch
         gc.collect()
         torch.cuda.empty_cache()
     phase_model_parity(dev)
+
+    # ---- 5b. main path: training (internvl2-2b at full width through
+    # launch.train.main), then its checks ----
+    trained = phase_train_path(dev, counters, smi)
+    totals["flash_attention"] += trained["flash_attention"]
+    phase_train_drop_exact(dev, smi)
+    phase_train_flash_grad(dev)
+    phase_train_parity(dev)
 
     # ---- 6. checkpoint / resume and the serving path at Sec. V ----
     phase_checkpoint(smi)

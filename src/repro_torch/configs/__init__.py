@@ -1,5 +1,5 @@
 """Config system: one module per assigned architecture, a registry for
---arch selection, and the batch schema of the serving path. Pure data,
+--arch selection, and the model-input batch schemas. Pure data,
 copied from :mod:`repro.configs` so the port needs nothing of the JAX
 package; the dry-run's abstract specs (``input_specs``, ``cache_specs``,
 ``decode_inputs``) are not here."""

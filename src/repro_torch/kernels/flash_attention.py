@@ -120,7 +120,20 @@ def flash_attention_cuda(
     (batch, head, row) strides that keep rows 16-byte aligned; d in
     :data:`HEAD_DIMS`. Returns a new contiguous (b, h, sq, d) tensor in q's
     dtype. Raises on anything the kernel does not take, and on a launch
-    error."""
+    error.
+
+    The kernel has no backward (the reference's ``flash_attention_padded``
+    has none either): with grad enabled and an input that requires grad it
+    raises, before anything else, rather than return an output cut off from
+    the graph. Training reaches it through
+    :class:`repro_torch.models.attention.FlashAttentionFn`, whose forward
+    runs with grad disabled."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_cuda has no backward and would return an output "
+            "detached from the graph; differentiate through "
+            "repro_torch.models.attention.FlashAttentionFn, or call it under "
+            "torch.no_grad()")
     if not q.is_cuda:
         raise ValueError("flash_attention_cuda needs CUDA tensors; use the "
                          "plain version (mode='ref') for host tensors")

@@ -5,9 +5,11 @@ Twin of ``examples/decode_demo.py`` (which the reference's
 random weights from a seed, prefill a prompt batch from ``demo_batch``,
 restage the prompt's cache into a full-length cache (KV leaves at the
 start of the longer ones; the recurrent layers' fixed-shape conv and state
-leaves whole), then run the greedy (or temperature) decode loop. On a GPU
-every long-sequence attention of the prefill runs the hand-written flash
-kernel. Not connected to the elastic engine.
+leaves whole), then run the greedy (or temperature) decode loop. A VLM's
+prompt is its patch prefix and its text (``--prompt-len`` counts both, as
+in the reference demo); decode is token-only. On a GPU every long-sequence
+attention of the prefill runs the hand-written flash kernel. Not connected
+to the elastic engine.
 
 Run (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain
 PyTorch versions on the host):
@@ -16,6 +18,8 @@ PyTorch versions on the host):
   python -m repro_torch.launch.serve --arch recurrentgemma-2b --batch 1 \\
       --prompt-len 8192 --gen-len 32
   python -m repro_torch.launch.serve --arch mamba2-370m --batch 1 \\
+      --prompt-len 8192 --gen-len 32
+  python -m repro_torch.launch.serve --arch internvl2-2b --batch 1 \\
       --prompt-len 8192 --gen-len 32
 """
 
@@ -46,15 +50,23 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def prompt_length(batch: Dict) -> int:
+    """The prompt's positions: a VLM's patch prefix plus its text."""
+    n = batch["tokens"].shape[1]
+    return n + batch["patches"].shape[1] if "patches" in batch else n
+
+
+@torch.no_grad()
 def generate(bundle, params, batch: Dict, gen_len: int,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None) -> Generation:
-    """Prefill ``batch["tokens"]`` (B, P), restage its cache into a
-    ``make_cache(cfg, B, P + gen_len)`` cache, and decode ``gen_len - 1``
-    more tokens: greedy at ``temperature == 0``, else sampled from
-    ``softmax(logits / temperature)`` with ``generator``."""
+    """Prefill the prompt of ``batch`` (B, P positions: the tokens, after a
+    VLM's patches), restage its cache into a ``make_cache(cfg, B, P +
+    gen_len)`` cache, and decode ``gen_len - 1`` more tokens: greedy at
+    ``temperature == 0``, else sampled from ``softmax(logits /
+    temperature)`` with ``generator``. Runs without autograd."""
     cfg, device = bundle.cfg, bundle.device
-    b, prompt_len = batch["tokens"].shape
+    b, prompt_len = batch["tokens"].shape[0], prompt_length(batch)
     t0 = time.perf_counter()
     cache = make_cache(cfg, b, prompt_len + gen_len, device=device)
     prefill_cache, logits = bundle.prefill(params, batch)

@@ -1,0 +1,179 @@
+"""End-to-end elastic trainer on one card.
+
+Twin of :mod:`repro.launch.train`, with the same flags and loop:
+
+  data pipeline (tile-addressable, placement-staged)
+   -> USECScheduler (speeds EWMA, elastic membership, LP + filling)
+   -> usec train step (uneven per-worker loops, 1+S redundancy, the sum)
+   -> AdamW -> checkpoint every K steps (restartable; the reference's
+      on-disk format, so either package resumes the other's)
+
+with per-step preemption/straggler simulation driven by --churn and
+--drop-stragglers; the simulated wall time comes from ``simulate_step``.
+The N workers run as a loop on one device (``--device``, CUDA unless
+named). Several model shards per worker (``--model-shards > 1``) need the
+multi-card port and raise.
+
+Run (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain
+PyTorch versions on the host):
+  python -m repro_torch.launch.train --arch internvl2-2b --workers 4 \\
+      --replication 2 --straggler-tolerance 1 --drop-stragglers 1 \\
+      --tiles-per-worker 1 --tile-samples 1 --seq-len 8192 --steps 3
+  python -m repro_torch.launch.train --arch stablelm-1.6b --reduced \\
+      --workers 4 --steps 50 --straggler-tolerance 1 --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+
+def main(argv=None):
+    """Train; returns the last step's loss (None when no step ran)."""
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true", help="tiny same-family config")
+    ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--model-shards", type=int, default=1)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--tile-samples", type=int, default=2)
+    ap.add_argument("--tiles-per-worker", type=int, default=2)
+    ap.add_argument("--replication", type=int, default=2)
+    ap.add_argument("--straggler-tolerance", type=int, default=0)
+    ap.add_argument("--drop-stragglers", type=int, default=0,
+                    help="simulate this many dropped workers per step")
+    ap.add_argument("--churn", type=float, default=0.0,
+                    help="per-step preemption probability per worker")
+    ap.add_argument("--speed-sigma", type=float, default=0.3,
+                    help="lognormal sigma of simulated worker speeds")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the current CUDA device; "
+                         "raises without one)")
+    args = ap.parse_args(argv)
+    if args.model_shards > 1:
+        raise NotImplementedError(
+            "--model-shards > 1 shards each worker's model over several "
+            "cards: ROADMAP.md Queue 1 item 13b (not ported to repro_torch "
+            "yet)")
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import MarkovChurnTrace, USECScheduler, cyclic_placement
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.runtime.compression import init_state as comp_init
+    from repro_torch.runtime.executor import block_plan
+    from repro_torch.runtime.simulate import (
+        SpeedProcess,
+        StragglerProcess,
+        simulate_step,
+    )
+    from repro_torch.runtime.trainstep import make_usec_train_step
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    bundle = build_model(cfg, device=args.device)
+
+    n = args.workers
+    g_tiles = args.tiles_per_worker * n
+    placement = cyclic_placement(n, g_tiles, args.replication)
+    pipe = TokenPipeline(cfg, placement, seq_len=args.seq_len,
+                         tile_samples=args.tile_samples, seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    true_speeds = SpeedProcess(
+        base=np.exp(rng.normal(0, args.speed_sigma, n)) + 0.1,
+        jitter_sigma=0.05, seed=args.seed,
+    )
+    sched = USECScheduler(
+        placement, rows_per_tile=1,
+        initial_speeds=np.ones(n),
+        stragglers=args.straggler_tolerance,
+        gamma=0.5,
+    )
+    churn = MarkovChurnTrace(
+        n, p_preempt=args.churn, p_arrive=3 * args.churn + 1e-9,
+        min_available=max(args.replication, 1 + args.straggler_tolerance),
+        seed=args.seed, placement=placement,
+        min_holders=1 + args.straggler_tolerance,
+    )
+    straggle = StragglerProcess(count=args.drop_stragglers, mode="uniform",
+                                seed=args.seed)
+
+    params = bundle.init(
+        torch.Generator(device=bundle.device).manual_seed(args.seed))
+    opt = adamw.init(params)
+    comp = comp_init(params, n) if args.compress_grads else None
+    t_stage = max(len(z) for z in placement.storage_sets())
+    b_max = sched.t_max
+    step_fn = make_usec_train_step(bundle, t_stage, b_max,
+                                   compress_grads=args.compress_grads)
+
+    start = 0
+    if args.resume and args.ckpt_dir:
+        latest = ckpt.latest_checkpoint(args.ckpt_dir)
+        if latest:
+            start, tree, extra = ckpt.restore_checkpoint(
+                latest, {"params": params, "opt": opt})
+            params, opt = tree["params"], tree["opt"]
+            if "speeds" in extra:
+                sched.estimator._s = np.asarray(extra["speeds"])
+            print(f"resumed from {latest} at step {start}")
+
+    wall = 0.0
+    metrics = None
+    for step in range(start, args.steps):
+        avail = churn.available
+        splan = sched.plan_step(avail)
+        speeds_now = true_speeds.sample()
+        dropped = straggle.sample(avail, speeds_now)
+        timing = simulate_step(splan.plan, speeds_now, dropped=dropped)
+        wall += timing.completion_time
+
+        staged = pipe.staged_for_step(step)
+        bp = block_plan(splan.plan, staged.slot_of, block_rows=1,
+                        stragglers=dropped, b_max=b_max)
+        lr = warmup_cosine(step, args.lr, 10, args.steps)
+        params, opt, comp, metrics = step_fn(
+            params, opt, comp, staged.arrays, bp.blk_slot, bp.blk_include,
+            bp.n_blocks[:, None], lr)
+        # Workers report measured speeds (Algorithm 1 lines 14-15).
+        loads = {w: float(splan.plan.loads()[w]) for w in avail}
+        durations = {w: float(loads[w] / speeds_now[w]) for w in avail
+                     if w not in dropped and loads[w] > 0}
+        sched.report(loads, durations)
+        churn.step()
+
+        if args.log_every and step % args.log_every == 0:
+            print(
+                f"step {step:4d} loss={float(metrics['loss']):.4f} "
+                f"gnorm={float(metrics['grad_norm']):.3f} "
+                f"c*={splan.c_star:.3f} sim_t={timing.completion_time:.3f} "
+                f"avail={len(avail)} dropped={list(dropped)}",
+                flush=True,
+            )
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            ckpt.save_checkpoint(
+                args.ckpt_dir, step + 1, {"params": params, "opt": opt},
+                extra={"speeds": sched.estimator.speeds.tolist()},
+            )
+    print(f"done: {args.steps - start} steps, simulated wall time {wall:.2f} "
+          f"(speed-aware USEC assignment) on {bundle.device}")
+    return float(metrics["loss"]) if metrics is not None else None
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""Model zoo substrate, serving path: every ported architecture is a config
-over one stack (see transformer.py). Twin of :mod:`repro.models`."""
+"""Model zoo substrate: every architecture is a config over one stack (see
+transformer.py), served (prefill, decode) and trained (``loss_fn``). Twin of
+:mod:`repro.models`."""
 
 from .model import ModelBundle, build_model, make_cache, param_count, params_from_reference
 

@@ -9,7 +9,10 @@ kernels/ref.attention_ref):
     tensor ``chunked_attention``, the reference's online-softmax scan over
     KV blocks in plain PyTorch. The two compute the same function: the
     kernel's causal offset ``skv - sq`` is the scan's ``q_offset = 0`` when
-    ``sq == skv``.
+    ``sq == skv``. Training differentiates the kernel route through
+    :class:`FlashAttentionFn`: the kernel forward, and a backward that
+    recomputes ``chunked_attention`` and backpropagates through it (the
+    reference's ``jax.checkpoint`` of the scan).
   * plain quadratic attention with fp32 accumulation (``full_attention``) —
     decode (sq == 1) and short sequences, on any device, as the reference
     computes it outside any kernel.
@@ -139,13 +142,55 @@ def _flash(q, k, v, causal: bool, window: Optional[int]):
     return o.transpose(1, 2)
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """The flash kernel with a gradient. Forward: :func:`_flash` (no graph).
+    Backward: :func:`chunked_attention` recomputed from the saved q, k, v
+    under grad and backpropagated, one query chunk of ``chunk`` rows at a
+    time (the scan treats its query chunks independently, so each chunk's
+    graph, at most ``chunk`` x ``skv`` scores per head, is all that lives at
+    once). This is the reference's scheme for ``s > attn_chunk``: it
+    wraps the scan in ``jax.checkpoint``; the JAX package has no backward
+    kernel. (B, S, H, hd) in and out."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int],
+                chunk: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window, ctx.chunk = causal, window, chunk
+        return _flash(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        sq, skv = q.shape[1], k.shape[1]
+        off = skv - sq  # the kernel's causal alignment
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        dq = torch.empty_like(q)
+        dk = torch.zeros_like(k, dtype=torch.float32)
+        dv = torch.zeros_like(v, dtype=torch.float32)
+        with torch.enable_grad():
+            for q0 in range(0, sq, ctx.chunk):
+                q_i = q[:, q0:q0 + ctx.chunk]
+                o_i = chunked_attention(q_i, k, v, causal=ctx.causal,
+                                        window=ctx.window, chunk=ctx.chunk,
+                                        q_offset=off + q0)
+                g_q, g_k, g_v = torch.autograd.grad(
+                    o_i, (q_i, k, v), grad[:, q0:q0 + ctx.chunk])
+                dq[:, q0:q0 + ctx.chunk] = g_q
+                dk += g_k
+                dv += g_v
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
 def long_attention(q, k, v, causal: bool, window: Optional[int], chunk: int):
-    """The ``s > attn_chunk`` branch: the flash kernel for CUDA tensors,
-    :func:`chunked_attention` for host tensors. (B, S, H, hd) in and out."""
+    """The ``s > attn_chunk`` branch: the flash kernel for CUDA tensors
+    (through :class:`FlashAttentionFn`, which gives it a gradient when one
+    is needed), :func:`chunked_attention` for host tensors. (B, S, H, hd)
+    in and out."""
     if not q.is_cuda:
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  chunk=chunk)
-    return _flash(q, k, v, causal, window)
+    return FlashAttentionFn.apply(q, k, v, causal, window, chunk)
 
 
 def full_attention(
@@ -192,12 +237,14 @@ def attention_train(
     window: Optional[int] = None, causal: bool = True,
     attn_impl: str = "chunked",
 ) -> torch.Tensor:
-    """Self-attention over a full sequence (forward only).
+    """Self-attention over a full sequence (training and prefill).
 
     ``attn_impl="pallas"`` is the reference's kernel route: here
     ``kernels.ops.flash_attention`` at every length (the kernel on CUDA, its
-    plain version on the host). ``"chunked"`` takes :func:`long_attention`
-    above ``cfg.attn_chunk`` and :func:`full_attention` otherwise.
+    plain version on the host; like the reference's, the kernel route has
+    no gradient, and on CUDA it raises under grad). ``"chunked"`` takes
+    :func:`long_attention` above ``cfg.attn_chunk`` (differentiable on
+    either device) and :func:`full_attention` otherwise.
     """
     b, s, _ = x.shape
     q, k, v = qkv(p, x, cfg, positions)

@@ -1,20 +1,28 @@
-"""build_model(cfg) -> ModelBundle: init / prefill / decode.
+"""build_model(cfg) -> ModelBundle: init / loss / prefill / decode.
 
-Twin of :mod:`repro.models.model` for the serving path of decoder-only LM
-families (batch ``{"tokens": (B, S) int}``): attention, MoE, RG-LRU and
-Mamba-2 SSD stacks. Parameters are the reference's nested dicts of arrays
-as dicts of tensors, in the same layout and dtypes (the leaves the
-reference keeps in fp32 in a bf16 model too: the MoE router, the ssm
-``A_log``/``D``/``dt_bias``, the rglru ``b_a``/``b_i``/``lam``);
-:func:`params_from_reference` carries a reference tree (as numpy) across.
-Training (``loss_fn``), the audio-encoder and VLM frontends raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Twin of :mod:`repro.models.model`. Batch schemas (``configs.shapes``):
+
+  LM families (dense/moe/ssm/hybrid):
+      {"tokens": (B, S) int}
+  audio encoder (hubert; the conv frontend a stub):
+      {"frames": (B, S, F) f32} (+ "labels": (B, S) int to train);
+      "prefill" is one encoder forward (no decode)
+  vlm (internvl2; the ViT a stub):
+      {"patches": (B, P, F) f32, "tokens": (B, S-P) int}; the patch
+      embeddings prefix the text, the loss counts text targets only
+
+Parameters are the reference's nested dicts of arrays as dicts of tensors,
+in the same layout and dtypes (the leaves the reference keeps in fp32 in a
+bf16 model too: the MoE router, the ssm ``A_log``/``D``/``dt_bias``, the
+rglru ``b_a``/``b_i``/``lam``); :func:`params_from_reference` carries a
+reference tree (as numpy) across. ``loss_fn`` is differentiable with
+autograd; the serving entry points take parameters that require no grad.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,14 +30,14 @@ import torch
 from repro_torch.device import resolve_device
 
 from .layers import apply_norm, dense_init, dtype_of, init_norm, normal_
+from .losses import chunked_cross_entropy, lm_loss
 from .transformer import (
     init_cache,
     init_stack,
-    not_ported,
-    require_ported,
     stack_decode,
     stack_layout,
     stack_prefill,
+    stack_train,
     tree_leaves,
 )
 
@@ -43,18 +51,16 @@ _FP32_LEAVES = {"ssm": ("A_log", "D", "dt_bias"),
 class ModelBundle:
     cfg: Any
     init: Callable         # (generator) -> params, on ``device``
-    loss_fn: Callable      # raises: training is not ported
+    loss_fn: Callable      # (params, batch) -> (total, metrics dict)
     prefill: Callable      # (params, batch) -> (cache, last_logits)
     decode_step: Callable  # (params, cache, token, cache_pos) -> (cache, logits)
     device: torch.device
+    embed_batch: Callable  # (params, batch) -> (x, loss_mask or None)
 
 
 def build_model(cfg, device=None) -> ModelBundle:
     """The bundle for ``cfg`` on ``device`` (CUDA unless named; raises
     without a GPU and no explicit device)."""
-    if cfg.frontend or not cfg.decoder:
-        raise not_ported("frontend")
-    require_ported(cfg)
     device = resolve_device(device)
     dt = dtype_of(cfg.param_dtype)
 
@@ -72,6 +78,9 @@ def build_model(cfg, device=None) -> ModelBundle:
         if not cfg.tie_embeddings:
             p["unembed"] = dense_init(generator, cfg.d_model, cfg.vocab_size,
                                       dt, scale=0.02, device=device)
+        if cfg.frontend:
+            p["frontend_proj"] = dense_init(generator, cfg.frontend_dim,
+                                            cfg.d_model, dt, device=device)
         return p
 
     def unembed_of(params):
@@ -83,11 +92,54 @@ def build_model(cfg, device=None) -> ModelBundle:
         tokens = torch.as_tensor(tokens, device=device).long()
         return params["embed"][tokens]
 
+    def features(a) -> torch.Tensor:
+        return torch.as_tensor(a, device=device).to(dt)
+
+    def embed_batch(params, batch) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """-> (x (B, S, D), the loss mask (B, S) or None)."""
+        if cfg.frontend == "audio_frames":
+            return features(batch["frames"]) @ params["frontend_proj"], None
+        if cfg.frontend == "vision_patches":
+            xt = embed(params, batch["tokens"])
+            xv = features(batch["patches"]) @ params["frontend_proj"]
+            mask = torch.cat([
+                torch.zeros(xv.shape[:2], dtype=torch.float32, device=device),
+                torch.ones(xt.shape[:2], dtype=torch.float32, device=device)],
+                dim=1)
+            return torch.cat([xv, xt], dim=1), mask
+        return embed(params, batch["tokens"]), None
+
     def loss_fn(params, batch):
-        raise not_ported("train")
+        """(total, metrics): the summed token NLL plus ``0.01 · aux`` (the
+        MoE load-balance loss; 0 without experts) where any token counts;
+        metrics ``n_tokens`` and ``aux_loss``."""
+        x, loss_mask = embed_batch(params, batch)
+        positions = torch.arange(x.shape[1], device=device)
+        h, aux = stack_train(params["stack"], x, cfg, positions)
+        h = apply_norm(params["final_norm"], h, cfg.norm)
+        if cfg.decoder:
+            tokens = torch.as_tensor(batch["tokens"], device=device).long()
+            if cfg.frontend == "vision_patches":
+                # Zero tokens under the patches; the mask drops them.
+                tokens = torch.cat([tokens.new_zeros(
+                    batch["patches"].shape[:2]), tokens], dim=1)
+            nll, m = lm_loss(h, unembed_of(params), tokens,
+                             chunk=cfg.loss_chunk, loss_mask=loss_mask)
+        else:
+            labels = torch.as_tensor(batch["labels"], device=device).long()
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=device)
+            nll, ntok = chunked_cross_entropy(h, unembed_of(params), labels,
+                                              mask, chunk=cfg.loss_chunk)
+            m = {"n_tokens": ntok}
+        m = dict(m, aux_loss=aux)
+        n = m["n_tokens"]
+        total = nll + 0.01 * aux * n / torch.clamp(n, min=1.0)
+        return total, m
 
     def prefill(params, batch):
-        x = embed(params, batch["tokens"])
+        """(cache, last_logits) of any of the three schemas; for an encoder
+        the one forward (its caches as the reference builds them)."""
+        x, _ = embed_batch(params, batch)
         positions = torch.arange(x.shape[1], device=device)
         h, cache = stack_prefill(params["stack"], x, cfg, positions)
         h = apply_norm(params["final_norm"], h, cfg.norm)
@@ -103,7 +155,8 @@ def build_model(cfg, device=None) -> ModelBundle:
         logits = (h[:, 0] @ unembed_of(params)).to(torch.float32)
         return cache, logits
 
-    return ModelBundle(cfg, init, loss_fn, prefill, decode_step, device)
+    return ModelBundle(cfg, init, loss_fn, prefill, decode_step, device,
+                       embed_batch)
 
 
 def make_cache(cfg, batch: int, max_len: int, device=None):

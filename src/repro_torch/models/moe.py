@@ -1,6 +1,6 @@
 """Mixture-of-experts FFN: GShard-style capacity routing.
 
-Twin of :mod:`repro.models.moe` for the serving path. Covers both MoE archs:
+Twin of :mod:`repro.models.moe` (serving and training). Covers both MoE archs:
 
   * llama4-scout-17b-a16e : 16 experts, top-1, 1 shared expert
   * deepseek-moe-16b      : 64 fine-grained experts, top-6, 2 shared experts

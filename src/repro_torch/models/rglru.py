@@ -1,6 +1,6 @@
 """RG-LRU recurrent block (Griffin / RecurrentGemma, arXiv:2402.19427).
 
-Twin of :mod:`repro.models.rglru` for the serving path. The recurrence
+Twin of :mod:`repro.models.rglru` (serving and training). The recurrence
 
   h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)  with
   r_t = sigmoid(W_a x_t + b_a)        (recurrence gate)

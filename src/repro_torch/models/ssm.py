@@ -1,6 +1,6 @@
 """Mamba-2 block (SSD — state-space duality, arXiv:2405.21060).
 
-Twin of :mod:`repro.models.ssm` for the serving path. Prefill runs the
+Twin of :mod:`repro.models.ssm` (serving and training). Prefill runs the
 chunked SSD algorithm (chunk length ``cfg.ssm_chunk``): the intra-chunk
 quadratic term, each chunk's state and its decays for all chunks at once
 in batched einsums, then a loop over chunks for the (B, H, P, N) state

@@ -1,14 +1,15 @@
-"""The layer stack: pattern blocks, a loop over layers, prefill/decode.
+"""The layer stack: pattern blocks, a loop over layers, train/prefill/decode.
 
-Twin of :mod:`repro.models.transformer` for the serving path. Every
-architecture is an instance of one stack schema:
+Twin of :mod:`repro.models.transformer`. Every architecture is an instance
+of one stack schema:
 
-  embed -> [pattern block] * n_repeats  (+ unrolled remainder layers)
+  embed (tokens and/or the stubbed modality frontend)
+  -> [pattern block] * n_repeats  (+ unrolled remainder layers)
   -> final norm -> unembed
 
 A *pattern block* is ``cfg.layer_pattern`` applied in order; entries:
   "attn"   — global GQA attention + FFN (dense, or the MoE of :mod:`.moe`
-             when ``cfg.is_moe``)
+             when ``cfg.is_moe``); bidirectional in an encoder
   "lattn"  — sliding-window attention + FFN
   "rglru"  — RG-LRU recurrent block + FFN        (RecurrentGemma)
   "ssm"    — Mamba-2 SSD block, no separate FFN  (mamba2)
@@ -16,9 +17,12 @@ A *pattern block* is ``cfg.layer_pattern`` applied in order; entries:
 Homogeneous-layer params and caches are stacked on a leading ``n_repeats``
 axis, the reference's ``lax.scan`` layout, and the stack runs as a Python
 loop over that axis; the remainder layers (depth % pattern) have their own
-params and caches. Decode hands each layer views of the stacked cache and
-every layer kind updates them in place. Training raises
-``NotImplementedError`` naming its ROADMAP.md item.
+params and caches. Training checkpoints each pattern block when
+``cfg.remat`` (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``); the reference's ``remat_sqrt`` and
+``remat_save_outs`` policies trade memory against time and change no
+value, and are not ported. Decode hands each layer views of the stacked
+cache and every layer kind updates them in place.
 """
 
 from __future__ import annotations
@@ -26,34 +30,13 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import apply_mlp, apply_norm, dtype_of, init_mlp, init_norm
-
-PORTED_KINDS = ("attn", "lattn", "rglru", "ssm")
-_ROADMAP = {
-    "frontend": "modality frontends and encoder-only models: "
-                "ROADMAP.md Queue 1 item 12d",
-    "train": "training (losses.py, stack_train, optim): "
-             "ROADMAP.md Queue 1 item 13",
-}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    """The error for a part of the reference model stack not ported yet."""
-    return NotImplementedError(
-        f"{_ROADMAP[what]} (not ported to repro_torch yet)")
-
-
-def require_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is of a
-    ported kind."""
-    for kind in cfg.layer_pattern:
-        if kind not in PORTED_KINDS:
-            raise not_ported(kind) if kind in _ROADMAP else ValueError(kind)
 
 
 # ---------------------------------------------------------------------- #
@@ -75,6 +58,13 @@ def tree_leaves(tree) -> List[Any]:
     out: List[Any] = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` holding ``leaves`` in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def _layer(tree, i: int):
@@ -127,6 +117,29 @@ def _ffn_residual(kind: str, p: Dict, x, cfg):
     h2 = apply_norm(p["norm2"], x, cfg.norm)
     f, _ = _apply_ffn(p["ffn"], h2, cfg)
     return x + f.to(x.dtype)
+
+
+def _layer_train(kind: str, p: Dict, x, cfg, positions):
+    """One layer over a full sequence with its MoE aux (0 for a dense or
+    ssm layer); attention is causal in a decoder, bidirectional in an
+    encoder. The reference's ``_seq_shard`` is a sharding constraint, a
+    no-op on one card."""
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    if kind in ("attn", "lattn"):
+        t = attn_mod.attention_train(p["temporal"], h, cfg, positions,
+                                     window=_window(kind, cfg),
+                                     causal=cfg.decoder)
+    elif kind == "rglru":
+        t = rglru_mod.apply_rglru_train(p["temporal"], h, cfg)
+    else:
+        t = ssm_mod.apply_ssm_train(p["temporal"], h, cfg)
+    x = x + t.to(x.dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind != "ssm":
+        h2 = apply_norm(p["norm2"], x, cfg.norm)
+        f, aux = _apply_ffn(p["ffn"], h2, cfg)
+        x = x + f.to(x.dtype)
+    return x, aux
 
 
 def _layer_prefill(kind: str, p: Dict, x, cfg, positions):
@@ -190,7 +203,6 @@ def stack_layout(cfg) -> Tuple[int, List[str]]:
 
 
 def init_stack(generator, cfg, device=None) -> Dict:
-    require_ported(cfg)
     n_rep, extra_kinds = stack_layout(cfg)
     blocks = [_init_layer(generator, kind, cfg, device, (n_rep,))
               if n_rep > 0 else None for kind in cfg.layer_pattern]
@@ -200,8 +212,8 @@ def init_stack(generator, cfg, device=None) -> Dict:
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> Dict:
-    """Stacked decode caches matching the stacked-layer layout."""
-    require_ported(cfg)
+    """Stacked decode caches matching the stacked-layer layout (an
+    encoder's too: the reference builds them for every arch)."""
     n_rep, extra_kinds = stack_layout(cfg)
 
     def one(kind, lead=()):
@@ -209,6 +221,8 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> Dict:
             return rglru_mod.init_rglru_cache(cfg, batch, device, lead)
         if kind == "ssm":
             return ssm_mod.init_ssm_cache(cfg, batch, device, lead)
+        if kind not in ("attn", "lattn"):
+            raise ValueError(kind)
         return attn_mod.init_kv_cache(cfg, batch, max_len,
                                       window=_window(kind, cfg),
                                       device=device, lead=lead)
@@ -221,6 +235,32 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> Dict:
 # ---------------------------------------------------------------------- #
 # Stack apply
 # ---------------------------------------------------------------------- #
+def stack_train(params: Dict, x: torch.Tensor, cfg, positions) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stack over a full sequence: (h, aux), the MoE aux summed over
+    layers in the reference's order. With ``cfg.remat`` and grad enabled
+    each pattern block is checkpointed: autograd keeps its input and runs
+    its forward again in the backward."""
+    pattern = cfg.layer_pattern
+    n_rep, extra_kinds = stack_layout(cfg)
+
+    def block(h, aux, blk):
+        for kind, p in zip(pattern, blk):
+            h, a = _layer_train(kind, p, h, cfg, positions)
+            aux = aux + a
+        return h, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_rep):
+        blk = [_layer(params["blocks"][pos], i) for pos in range(len(pattern))]
+        x, aux = (checkpoint(block, x, aux, blk, use_reentrant=False)
+                  if remat else block(x, aux, blk))
+    for p_extra, kind in zip(params["extras"], extra_kinds):
+        x, a = _layer_train(kind, p_extra, x, cfg, positions)
+        aux = aux + a
+    return x, aux
+
+
 def stack_prefill(params: Dict, x: torch.Tensor, cfg, positions) -> Tuple[torch.Tensor, Dict]:
     pattern = cfg.layer_pattern
     n_rep, extra_kinds = stack_layout(cfg)

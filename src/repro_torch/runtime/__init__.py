@@ -7,7 +7,9 @@ runner, wall-clock simulation and the batched scenario engine.
   steps run on the card through the hand-written kernels, with EWMA speed
   re-estimation from measured step times;
 - **checkpointing** (:mod:`.checkpoint`) — atomic ``.npz`` + manifest
-  checkpoints in the JAX package's format.
+  checkpoints in the JAX package's format;
+- **training** (:mod:`.trainstep`, :mod:`.compression`) — the usec and fsdp
+  train steps on one card, int8 gradient compression with error feedback.
 
 The simulation layer and the runner's host-side classes are pure NumPy and
 import eagerly; the executor needs torch and resolves lazily (PEP 562), so
@@ -55,6 +57,10 @@ from .simulate import (
 )
 
 _TORCH_EXPORTS = {
+    "CompressedSum": "compression",
+    "compress_decompress": "compression",
+    "make_fsdp_train_step": "trainstep",
+    "make_usec_train_step": "trainstep",
     "BlockPlan": "executor",
     "DevicePlan": "executor",
     "StagedMatrix": "executor",
@@ -84,6 +90,7 @@ __all__ = [
     "CheckpointCorruptError",
     "ChurnStep",
     "ChurnSweepResult",
+    "CompressedSum",
     "DevicePlan",
     "ElasticRunner",
     "HostSharedClock",
@@ -100,13 +107,16 @@ __all__ = [
     "SyntheticSpeedClock",
     "block_plan",
     "build_plan_stack",
+    "compress_decompress",
     "device_plan",
     "draw_scenarios",
     "exponential_speeds",
     "from_reference",
     "latest_checkpoint",
     "make_exact_matrix",
+    "make_fsdp_train_step",
     "make_matvec_executor",
+    "make_usec_train_step",
     "quantize_unit",
     "refresh_include",
     "restore_checkpoint",

@@ -1,0 +1,177 @@
+"""Train-step factories: the paper's technique as a training mode, on one card.
+
+Twin of :mod:`repro.runtime.trainstep` without the mesh: the workers are a
+Python loop on one device, and the reference's ``psum`` over the worker
+axis is a sum over the workers' gradients.
+
+usec mode (:func:`make_usec_train_step`)
+    every worker runs ITS OWN number of micro-steps (its plan entry) over
+    its staged (uncoded, J-replicated) tiles, weighting each tile's
+    gradient by the plan's inclusion mask (straggler-redundancy dedup).
+    As in the reference, each worker accumulates in ``cfg.grad_accum_dtype``
+    and the workers' sums meet in fp32 (bf16 accumulation per worker, an
+    fp32 reduce); one per-worker buffer is reused, so a bf16 model holds
+    one bf16 accumulator and one fp32 total whatever the worker count.
+    Optional int8 + error-feedback compression replaces the fp32 sum
+    (:mod:`.compression`). Then the sum is divided by the token count and
+    AdamW updates the parameters.
+
+fsdp mode (:func:`make_fsdp_train_step`)
+    the reference's GSPMD step on one device: fp32 gradient accumulation
+    over global microbatches, USEC ownership entering as per-sample weights.
+
+The reference's ``grad_shardings``, ``reduced_grad_shardings``,
+``worker_axes`` and ``static_trips`` (the dry-run's cost-analysis variant)
+place or count work across devices and belong to the multi-card port.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.transformer import tree_leaves, tree_unflatten
+from repro_torch.optim import adamw
+
+from .compression import CompressedSum
+
+
+def value_and_grad(loss_fn: Callable, params: Any, batch: Dict
+                   ) -> Tuple[torch.Tensor, Dict, list]:
+    """``jax.value_and_grad(loss_fn, has_aux=True)`` with autograd:
+    (loss, metrics, gradient leaves in :func:`tree_leaves` order). The
+    caller's tensors are not touched: the graph starts at detached aliases
+    of them. A parameter the loss does not use gets a zero gradient, as in
+    JAX."""
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, leaves)]
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_usec_train_step(bundle, t_stage: int, b_max: int,
+                         compress_grads: bool = False):
+    """USEC (uneven-loop) train step on the bundle's device. The caller
+    passes each step's ``lr`` (the reference's unused ``peak_lr`` is gone).
+
+    step(params, opt_state, comp_state, staged, mb_slot, mb_inc, n_mb, lr)
+      staged:  schema dict, each (N, T_stage, mb, ...)
+      mb_slot: (N, B_max) int   — staged slot per micro-step
+      mb_inc:  (N, B_max) float — inclusion weight (0 = redundant copy)
+      n_mb:    (N, 1) int       — per-worker trip count
+    returns (new_params, new_opt_state, new_comp_state, metrics) with
+    metrics ``loss`` (the included tokens' mean NLL + aux term),
+    ``n_tokens`` and ``grad_norm``. ``t_stage`` and ``b_max`` are the
+    staged and padded list widths the arrays must have.
+    """
+    cfg, device = bundle.cfg, bundle.device
+    acc_dtype = dtype_of(getattr(cfg, "grad_accum_dtype", "float32"))
+    loss_fn = bundle.loss_fn
+
+    def step(params, opt_state, comp_state, staged, mb_slot, mb_inc, n_mb,
+             lr):
+        staged = {k: torch.as_tensor(v, device=device) for k, v in staged.items()}
+        mb_slot = np.asarray(mb_slot)
+        inc = torch.as_tensor(mb_inc, device=device).to(torch.float32)
+        n_mb = np.asarray(n_mb).reshape(-1)
+        widths = {a.shape[1] for a in staged.values()}
+        if widths != {t_stage} or mb_slot.shape[1] != b_max:
+            raise ValueError(f"staged widths {widths} and list width "
+                             f"{mb_slot.shape[1]}; the step was built for "
+                             f"{t_stage} and {b_max}")
+        plist = tree_leaves(params)
+        acc = [torch.empty(p.shape, dtype=acc_dtype, device=device)
+               for p in plist]
+        total = None if compress_grads else [
+            torch.zeros(p.shape, dtype=torch.float32, device=device)
+            for p in plist]
+        summed = CompressedSum(comp_state) if compress_grads else None
+        nll = torch.zeros((), dtype=torch.float32, device=device)
+        ntok = torch.zeros((), dtype=torch.float32, device=device)
+        for w in range(len(n_mb)):
+            for a in acc:
+                a.zero_()
+            nll_w = torch.zeros((), dtype=torch.float32, device=device)
+            ntok_w = torch.zeros((), dtype=torch.float32, device=device)
+            for i in range(int(n_mb[w])):
+                slot = int(mb_slot[w, i])
+                batch = {k: v[w, slot] for k, v in staged.items()}
+                loss_i, metrics, grads = value_and_grad(loss_fn, params, batch)
+                wt = inc[w, i]
+                for a, g in zip(acc, grads):
+                    a += (wt * g.to(torch.float32)).to(acc_dtype)
+                del grads
+                nll_w = nll_w + wt * loss_i
+                ntok_w = ntok_w + wt * metrics["n_tokens"]
+            # The single synchronization point: the paper's master combine.
+            nll, ntok = nll + nll_w, ntok + ntok_w
+            if compress_grads:
+                summed.add(w, tree_unflatten(params, acc))
+            else:
+                for t, a in zip(total, acc):
+                    t += a.to(torch.float32)
+        del acc
+        if compress_grads:
+            grads, comp_state = summed.result()
+            total = tree_leaves(grads)
+        denom = torch.clamp(ntok, min=1.0)
+        for t in total:
+            t /= denom
+        new_params, new_opt, om = adamw.update(
+            tree_unflatten(params, total), opt_state, params, lr)
+        metrics = {"loss": nll / denom, "n_tokens": ntok, **om}
+        return new_params, new_opt, comp_state, metrics
+
+    return step
+
+
+def make_fsdp_train_step(bundle, n_micro: int):
+    """The reference's GSPMD train step on the bundle's device: fp32 gradient
+    accumulation over ``n_micro`` microbatches with per-sample USEC
+    inclusion weights.
+
+    step(params, opt_state, batch, weights, lr)
+      batch:   schema dict, leading dim = global batch B
+      weights: (B,) float — USEC inclusion weight per sample
+    returns (new_params, new_opt_state, metrics). Each microbatch's loss and
+    metrics are scaled by the mean of its weights (samples are tile-aligned,
+    so the weights are 0/1 blocks).
+    """
+    device, loss_fn = bundle.device, bundle.loss_fn
+
+    def weighted_loss(params, batch, w):
+        nll, metrics = loss_fn(params, batch)
+        scale = torch.mean(w)
+        return nll * scale, {k: v * scale for k, v in metrics.items()}
+
+    def step(params, opt_state, batch, weights, lr):
+        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        weights = torch.as_tensor(weights, device=device).to(torch.float32)
+        mb = weights.shape[0] // n_micro
+        total = [torch.zeros(p.shape, dtype=torch.float32, device=device)
+                 for p in tree_leaves(params)]
+        nll = torch.zeros((), dtype=torch.float32, device=device)
+        ntok = torch.zeros((), dtype=torch.float32, device=device)
+        for i in range(n_micro):
+            part = slice(i * mb, (i + 1) * mb)
+            loss_i, metrics, grads = value_and_grad(
+                lambda p, b: weighted_loss(p, b, weights[part]), params,
+                {k: v[part] for k, v in batch.items()})
+            for t, g in zip(total, grads):
+                t += g.to(torch.float32)
+            nll, ntok = nll + loss_i, ntok + metrics["n_tokens"]
+        denom = torch.clamp(ntok, min=1.0)
+        for t in total:
+            t /= denom
+        new_params, new_opt, om = adamw.update(
+            tree_unflatten(params, total), opt_state, params, lr)
+        return new_params, new_opt, {"loss": nll / denom, "n_tokens": ntok,
+                                     **om}
+
+    return step

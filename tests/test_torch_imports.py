@@ -43,7 +43,13 @@ def test_port_imports_no_jax_and_no_reference_package():
             "repro_torch.launch.serve_cli",
             "repro_torch.runtime.checkpoint",
             "repro_torch.kernels.tile_checksum",
-            "repro_torch.configs.usec_paper"} <= set(mods)
+            "repro_torch.configs.usec_paper",
+            "repro_torch.models.losses",
+            "repro_torch.optim.adamw",
+            "repro_torch.data.pipeline",
+            "repro_torch.runtime.compression",
+            "repro_torch.runtime.trainstep",
+            "repro_torch.launch.train"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -93,6 +99,16 @@ def test_device_engine_without_cuda_raises(monkeypatch):
     assert eng.device == torch.device("cpu")
     # The simulate backend needs no device at all.
     ElasticEngine(MatVecPowerIteration(), backend="simulate", n_machines=4)
+
+
+def test_train_main_without_cuda_raises(monkeypatch):
+    """The trainer runs on the card unless ``--device`` names another:
+    without a GPU it raises before any step."""
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "stablelm-1.6b", "--reduced", "--steps", "1"])
 
 
 @pytest.mark.parametrize("kwargs", [
