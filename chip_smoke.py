@@ -38,8 +38,14 @@ dropped a step, 8192 positions a tile, so the flash kernel runs under
 autograd: exact launch counts, the last step profiled),
 ``train_drop_exact`` holds the step's loss to 1e-5 with each worker
 dropped, ``train_flash_grad`` holds the kernel route's gradients to the
-plain scan's at one layer's shape, and ``train_parity`` holds one usec
-step on the card to the host's for three reduced archs. Then
+plain scan's at one layer's shape, ``train_parity`` holds one usec
+step on the card to the host's for three reduced archs, ``train_remat``
+holds the reference's three remat policies bitwise to each other (time
+and peak memory each), and ``train_dist`` runs 4 ranks of the usec step
+(with four cards: NCCL, the trainer at full depth under
+torch.distributed.run, held to train_path's losses; with one card: 4 gloo
+ranks sharing it at DIST_DEPTH layers, fp32 and compressed, held to the
+one-process step; a one-rank NCCL group issues every collective). Then
 ``checkpoint`` cuts Sec. V runs after step 5 and resumes them bitwise in
 fresh engines (and a card checkpoint on the host), and
 ``serve_path`` drives serve_cli's seeded request trace through both serving
@@ -2722,7 +2728,7 @@ def phase_train_path(dev, counters, smi):
           "profiled_top_device": busy["top_device"], "nvidia_smi": smi})
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, metrics
 
 
 def phase_train_drop_exact(dev, smi):
@@ -2931,6 +2937,577 @@ def phase_train_parity(dev):
               "loss": float(mh["loss"])})
 
 
+# ---------------------------------------------------------------------- #
+# Training across processes, and the remat policies
+# ---------------------------------------------------------------------- #
+# train_dist: W = 4 ranks of the usec step for the train cell (internvl2-2b
+# at full width; 4 workers, J = 2, S = 1, one worker dropped a step, 8192
+# positions a tile, 3 steps). With 4 or more cards: NCCL, one card a rank,
+# the trainer at full depth under python -m torch.distributed.run. With one
+# card: NCCL refuses two ranks on one GPU, so 4 spawned ranks share cuda:0
+# over gloo (which stages CUDA tensors through host memory), at DIST_DEPTH
+# layers: each rank holds the replicated bf16 weights (the 92553 x 2048
+# embedding and unembedding are 379M of them), fp32 AdamW moments, the fp32
+# total and the attention backward's recompute, and the four ranks' peaks
+# must sum to at most DIST_BUDGET_GB.
+DIST_RANKS, DIST_DEPTH, DIST_BUDGET_GB = 4, 1, 70.0
+DIST_DROP = (1, 2, 3)  # step s drops this worker and trains data step s
+DIST_LR = 1e-3
+DIST_MODES = ("fp32", "compressed")
+# (share of a leaf's largest |value|) of the fp32-sum mode's parameters
+# after 3 steps against the one-process step's: the ranks sum the same four
+# fp32 totals in another order (1e-7 relative), which can move a bf16
+# parameter across a rounding boundary (2^-8 of its value) and, where a
+# gradient is near AdamW's eps, its update by up to 2 x DIST_LR; two bf16
+# ulps of the leaf's top plus that.
+DIST_PARAM_TOL = 2 ** -7
+# train_remat: one training step (loss and gradients of one 8192-position
+# tile) under each of the reference's remat policies. REMAT_DEPTH = 4 so
+# that remat_sqrt forms groups (_inner_factor(4) = 2 blocks a group; at 1-3
+# blocks it is plain per-block remat).
+REMAT_DEPTH = 4
+REMAT_POLICIES = {"remat": {"remat_save_outs": False, "remat_sqrt": False},
+                  "remat_save_outs": {"remat_save_outs": True,
+                                      "remat_sqrt": False},
+                  "remat_sqrt": {"remat_save_outs": False,
+                                 "remat_sqrt": True}}
+
+
+def tensor_digest(t, chunk: int = 1 << 24) -> int:
+    """An exact digest of a 4-byte tensor's bits: a position-weighted sum
+    of its words, ``chunk`` elements at a time (equal tensors, equal
+    digests)."""
+    x = t.contiguous().view(torch.int32).reshape(-1)
+    total = 0
+    for i in range(0, x.numel(), chunk):
+        part = x[i:i + chunk].to(torch.int64)
+        w = torch.arange(i + 1, i + 1 + part.numel(), dtype=torch.int64,
+                         device=x.device)
+        total += int((part * (w * 2654435761)).sum())
+    return total
+
+
+def _dist_cell(dev, depth):
+    """The train cell at ``depth`` layers: (bundle, a function that makes
+    the seed-0 weights, t_stage, b_max, each step's arguments, the
+    attention layers). The weights are made anew for each run, not held
+    beside it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import compile_plan, cyclic_placement, solve_assignment
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.runtime.executor import block_plan
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=depth)
+    bundle = build_model(cfg, device=dev)
+    place = cyclic_placement(DIST_RANKS, DIST_RANKS, 2)
+    pipe = TokenPipeline(cfg, place, seq_len=TRAIN_SEQ, tile_samples=1,
+                         seed=0)
+    plan = compile_plan(place, solve_assignment(place, np.ones(DIST_RANKS),
+                                                stragglers=1),
+                        rows_per_tile=1, stragglers=1)
+    b_max = int(plan.n_valid.max()) + 1
+    args = []
+    for s, bad in enumerate(DIST_DROP):
+        sb = pipe.staged_for_step(s)
+        bp = block_plan(plan, sb.slot_of, 1, stragglers=(bad,), b_max=b_max)
+        args.append((sb.arrays, bp.blk_slot, bp.blk_include,
+                     bp.n_blocks[:, None], DIST_LR))
+    return (bundle, lambda: bundle.init(torch.Generator(device=dev)
+                                        .manual_seed(0)),
+            pipe.t_stage, b_max, args, attention_layer_count(cfg))
+
+
+def _run_steps(step, params, comp, args, dev, group=None):
+    """The steps of ``args`` from ``params``: (params, comp state, losses,
+    grad norms, walls). With a group every step starts at a barrier."""
+    from repro_torch.optim import adamw
+
+    opt = adamw.init(params)
+    out = {"loss": [], "grad_norm": [], "step_s": []}
+    for a in args:
+        if group is not None:
+            torch.distributed.barrier(group)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt, comp, m = step(params, opt, comp, *a)
+        torch.cuda.synchronize(dev)
+        out["step_s"].append(time.perf_counter() - t0)
+        if group is not None:
+            # The old state is dropped now: ranks sharing the card get its
+            # memory back.
+            torch.cuda.empty_cache()
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    return params, comp, out
+
+
+def _hold_to_one_process(mode, dist_run, digests, cell, dev):
+    """On rank 0: the one-process step (all four workers in a loop, no
+    group) from the same weights over the same steps, against ``mode``'s
+    distributed result ``dist_run`` = (params, comp state, metrics). fp32:
+    losses and gradient norms within 1e-6, parameters within
+    DIST_PARAM_TOL; compressed: parameters and scales bitwise, every
+    worker's error feedback by exact digest, losses within 1e-6 (the NLL
+    sums ride an fp32 all-reduce)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.runtime.compression import init_state
+    from repro_torch.runtime.trainstep import make_usec_train_step
+
+    bundle, init, t_stage, b_max, args, _ = cell
+    params0 = init()
+    comp = init_state(params0, DIST_RANKS) if mode == "compressed" else None
+    step = make_usec_train_step(bundle, t_stage, b_max,
+                                compress_grads=comp is not None)
+    before = flash_attention_cuda.launches
+    p1, c1, out1 = _run_steps(step, params0, comp, args, dev)
+    del params0, comp
+    launches = flash_attention_cuda.launches - before
+    p_dist, c_dist, out_dist = dist_run
+    errs = {k: max(abs(a - b) / abs(b) for a, b in zip(out_dist[k], out1[k]))
+            for k in ("loss", "grad_norm")}
+    errs["params"] = max(
+        float((a.float() - b.float()).abs().max())
+        / max(float(b.float().abs().max()), 1e-30)
+        for a, b in zip(tree_leaves(p_dist), tree_leaves(p1)))
+    ok = errs["loss"] <= 1e-6
+    if mode == "fp32":
+        ok &= errs["grad_norm"] <= 1e-6 and errs["params"] <= DIST_PARAM_TOL
+    else:
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(p_dist) + tree_leaves(c_dist["scale"]),
+            tree_leaves(p1) + tree_leaves(c1["scale"])))
+        ef = tree_leaves(c1["ef"])
+        seen = {w: d for part in digests for w, d in part.items()}
+        ef_same = seen == {w: [tensor_digest(e[w]) for e in ef]
+                           for w in range(DIST_RANKS)}
+        errs.update(params_and_scales_bitwise=same,
+                    each_worker_ef_bitwise=ef_same)
+        ok &= same and ef_same and errs["grad_norm"] == 0.0
+    return {"ok": bool(ok), "err": errs, "one_process": out1,
+            "one_process_launches": launches}
+
+
+def _dist_rank(rank, world, store, out_dir, depth, card_lock):
+    """One gloo rank of train_dist on cuda:0 (spawned): both modes over
+    the mesh, each then held to the one-process step by rank 0; writes
+    ``rank{rank}.json``."""
+    import datetime
+
+    # Four processes share one card: no allocator slack left in segments.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _take_turns(card_lock)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=600))
+    try:
+        res = _dist_rank_body(rank, world, dev, depth)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _dist_rank_body(rank, world, dev, depth):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.mesh import make_worker_mesh, workers_of
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.runtime.compression import init_state
+    from repro_torch.runtime.trainstep import (
+        make_usec_train_step,
+        value_and_grad,
+    )
+
+    mesh = make_worker_mesh(DIST_RANKS, device_type="cuda")
+    group = mesh.get_group()
+    cell = _dist_cell(dev, depth)
+    bundle, init, t_stage, b_max, args, n_attn = cell
+    mine = workers_of(rank, world, DIST_RANKS)
+    micro = sum(int(a[3][mine.start:mine.stop].sum()) for a in args)
+    res = {"rank": rank, "workers": list(mine), "micro_steps": micro,
+           "attention_layers": n_attn, "modes": {}, "held": {}}
+    # A fresh process's first forward and backward pays its one-time costs
+    # (~10 s); the ranks pay them together, outside the timed steps and
+    # the turns, on their first worker's first tile.
+    marks = res["marks"] = {"warmup": time.time()}
+    t0 = time.perf_counter()
+    staged, slot = args[0][0], int(args[0][1][mine.start, 0])
+    params0 = init()
+    value_and_grad(bundle.loss_fn, params0, {
+        k: torch.as_tensor(v[mine.start, slot], device=dev)
+        for k, v in staged.items()})
+    torch.cuda.synchronize(dev)
+    res["warmup_s"] = time.perf_counter() - t0
+    del params0
+    gc.collect()
+    torch.cuda.empty_cache()
+    for mode in DIST_MODES:
+        marks[mode] = time.time()
+        params0 = init()
+        comp = init_state(params0, len(mine)) if mode == "compressed" \
+            else None
+        step = make_usec_train_step(bundle, t_stage, b_max,
+                                    compress_grads=comp is not None,
+                                    group=group)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = flash_attention_cuda.launches
+        params, comp, out = _run_steps(step, params0, comp, args, dev, group)
+        del params0
+        out.update(
+            flash_launches=flash_attention_cuda.launches - before,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+            max_memory_reserved_gb=torch.cuda.max_memory_reserved(dev) / 1e9,
+            reduced_bytes_per_step=step.stats["bytes"] / len(args),
+            collectives_per_step=step.stats["collectives"] / len(args))
+        res["modes"][mode] = out
+        del step
+        mine_digests = {} if comp is None else {
+            w: [tensor_digest(e[i]) for e in tree_leaves(comp["ef"])]
+            for i, w in enumerate(mine)}
+        digests = [None] * world
+        torch.distributed.all_gather_object(digests, mine_digests,
+                                            group=group)
+        dist_run = (params, comp, out)
+        del params, comp
+        if rank != 0:
+            dist_run = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        # Every rank has handed its free memory back before rank 0 runs
+        # the one-process step.
+        torch.distributed.barrier(group)
+        marks[f"held_{mode}"] = time.time()
+        if rank == 0:
+            res["held"][mode] = _hold_to_one_process(mode, dist_run,
+                                                     digests, cell, dev)
+            dist_run = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier(group)
+    return res
+
+
+def _take_turns(lock) -> None:
+    """Ranks sharing one card take turns with its memory: each holds
+    ``lock`` through its usec step's local work (the micro-steps, the
+    quantization, AdamW) and lets it go across the step's all-reduces,
+    handing its free cached memory back first. So one rank at a time holds
+    those transients, beside the others' resident state. (The card runs
+    one process's kernels at a time anyway; the all-reduces are what the
+    ranks do together.)"""
+    from repro_torch.runtime import trainstep
+
+    dist, make = torch.distributed, trainstep.make_usec_train_step
+    all_reduce = dist.all_reduce
+
+    def hand_back():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def released_all_reduce(*args, **kwargs):
+        hand_back()
+        lock.release()
+        try:
+            return all_reduce(*args, **kwargs)
+        finally:
+            lock.acquire()
+
+    def make_taking_turns(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def turn(*step_args):
+            with lock:
+                out = step(*step_args)
+                hand_back()
+            return out
+
+        turn.stats = step.stats
+        return turn
+
+    dist.all_reduce = released_all_reduce
+    trainstep.make_usec_train_step = make_taking_turns
+
+
+def _one_rank_nccl(dev):
+    """One NCCL group of one rank issues every collective of the usec step,
+    both modes, on the card (reduced internvl2-2b in fp32, 4 workers,
+    160 positions a tile): its results bitwise the step without a group
+    (an all-reduce over one rank is a copy), and each collective's dtype
+    and op recorded."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import compile_plan, cyclic_placement, solve_assignment
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.runtime.compression import init_state
+    from repro_torch.runtime.executor import block_plan
+    from repro_torch.runtime.trainstep import make_usec_train_step
+
+    dist = torch.distributed
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH).reduced(),
+                              param_dtype="float32")
+    bundle = build_model(cfg, device=dev)
+    params0 = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    place = cyclic_placement(4, 8, 2)
+    pipe = TokenPipeline(cfg, place, seq_len=160, tile_samples=1, seed=1)
+    plan = compile_plan(place, solve_assignment(place, np.ones(4),
+                                                stragglers=1),
+                        rows_per_tile=1, stragglers=1)
+    b_max = int(plan.n_valid.max()) + 1
+    sb = pipe.staged_for_step(0)
+    bp = block_plan(plan, sb.slot_of, 1, stragglers=(1,), b_max=b_max)
+    args = [(sb.arrays, bp.blk_slot, bp.blk_include, bp.n_blocks[:, None],
+             DIST_LR)]
+    seen = []
+    real = dist.all_reduce
+
+    def spy(tensor, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        seen.append((str(tensor.dtype).replace("torch.", ""), str(op)))
+        return real(tensor, op=op, group=group, async_op=async_op)
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                rank=0, world_size=1, device_id=dev)
+        dist.all_reduce = spy
+        try:
+            out = {}
+            for mode in DIST_MODES:
+                comp = (lambda: init_state(params0, 4)) \
+                    if mode == "compressed" else (lambda: None)
+                got = []
+                for group in (dist.group.WORLD, None):
+                    step = make_usec_train_step(
+                        bundle, pipe.t_stage, b_max,
+                        compress_grads=mode == "compressed", group=group)
+                    p, c, m = _run_steps(step, params0, comp(), args, dev)
+                    got.append(tree_leaves(p) + ([] if c is None else
+                                                 tree_leaves(c)) + [m])
+                same = all(torch.equal(a, b) for a, b in zip(got[0][:-1],
+                                                             got[1][:-1]))
+                metrics = [{k: m[k] for k in ("loss", "grad_norm")}
+                           for m in (got[0][-1], got[1][-1])]
+                out[mode] = {"bitwise": same and metrics[0] == metrics[1],
+                             "collectives": sorted(set(seen))}
+                seen.clear()
+        finally:
+            dist.all_reduce = real
+            dist.destroy_process_group()
+    return out
+
+
+def phase_train_dist(dev, smi, train_metrics):
+    """W = 4 ranks of the usec step (see DIST_RANKS). With 4 or more cards:
+    NCCL, the trainer at full depth under torch.distributed.run, each
+    step's loss and gradient norm held to ``train_metrics`` (train_path's
+    one-process run). With one card: 4 spawned gloo ranks on cuda:0 at
+    DIST_DEPTH layers, fp32 and compressed, held to the one-process step.
+    In both cases one NCCL group of one rank issues every collective the
+    step uses. Returns the ranks' flash launches (summed)."""
+    cards = torch.cuda.device_count()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if cards >= DIST_RANKS:
+        record = _train_dist_nccl(train_metrics)
+    else:
+        record = _train_dist_gloo()
+    record["one_rank_nccl"] = _one_rank_nccl(dev)
+    record.update(cards=cards, ranks=DIST_RANKS, phase_s=time.perf_counter()
+                  - t0, nvidia_smi=smi)
+    emit({"phase": "train_dist", **record})
+    bad = [m for m, r in record["one_rank_nccl"].items() if not r["bitwise"]]
+    if bad or not record.pop("ok"):
+        raise AssertionError(f"train_dist failed (one-rank NCCL {bad})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record["flash_launches"]
+
+
+def _train_dist_gloo():
+    """4 spawned gloo ranks on one card, taking turns with the card's
+    memory (:func:`_take_turns`); the card's memory in use (every process,
+    CUDA contexts included) sampled every 50 ms from this process."""
+    import multiprocessing
+    import shutil
+    import threading
+
+    out_dir = os.path.join(ROOT, "build", "train_dist")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ctx = multiprocessing.get_context("spawn")
+    lock = ctx.Lock()
+    procs = [ctx.Process(target=_dist_rank, args=(
+        r, DIST_RANKS, os.path.join(out_dir, "store"), out_dir, DIST_DEPTH,
+        lock)) for r in range(DIST_RANKS)]
+    used, stop = [], threading.Event()
+
+    def sample():
+        while not stop.wait(0.05):
+            free, total = torch.cuda.mem_get_info(0)
+            used.append((total - free, time.time()))
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=900)
+    finally:
+        stop.set()
+        sampler.join()
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * DIST_RANKS:
+        raise AssertionError(f"train_dist ranks exited {codes}")
+    ranks = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    held = ranks[0].pop("held")
+    for rank in ranks[1:]:
+        rank.pop("held")
+    launches_ok = all(
+        rank["modes"][m]["flash_launches"]
+        == 2 * rank["attention_layers"] * rank["micro_steps"]
+        for rank in ranks for m in DIST_MODES)
+    card_peak, peak_at = max(used)
+    card_peak /= 1e9
+    # The stage of the peak: the last stage rank 0 had begun by then.
+    peak_stage = max((t, stage) for stage, t in ranks[0]["marks"].items()
+                     if t <= peak_at)[1]
+    ok = (launches_ok and all(h["ok"] for h in held.values())
+          and card_peak <= DIST_BUDGET_GB
+          and all(len({rank["modes"][m]["loss"][s] for rank in ranks}) == 1
+                  for m in DIST_MODES for s in range(len(DIST_DROP))))
+    return {"backend": "gloo", "depth": DIST_DEPTH,
+            "reduced": {"n_layers": [24, DIST_DEPTH]},
+            "why_gloo": "NCCL refuses two ranks on one GPU",
+            "ranks_detail": ranks, "held": held, "ranks_wall_s": wall,
+            "card_peak_used_gb": card_peak, "card_peak_stage": peak_stage,
+            "budget_gb": DIST_BUDGET_GB,
+            "sum_of_rank_peaks_gb": {
+                m: sum(rank["modes"][m]["max_memory_allocated_gb"]
+                       for rank in ranks) for m in DIST_MODES},
+            "flash_launches": sum(rank["modes"][m]["flash_launches"]
+                                  for rank in ranks for m in DIST_MODES),
+            "ok": bool(ok)}
+
+
+def _train_dist_nccl(train_metrics):
+    """The trainer at full depth on 4 cards under torch.distributed.run
+    (NCCL, one card a rank): rank 0's losses and gradient norms against
+    train_path's one-process run, and each rank's report."""
+    import re
+
+    from repro_torch.configs import get_config
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(DIST_RANKS), "-m", "repro_torch.launch.train"]
+        + TRAIN_ARGS, capture_output=True, text=True, timeout=900, env=env,
+        cwd=ROOT)
+    if proc.returncode != 0:
+        raise AssertionError(f"torch.distributed.run exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    steps = [(float(a), float(b)) for a, b in re.findall(
+        r"^step +\d+ loss=([0-9.]+) gnorm=([0-9.]+)", proc.stdout, re.M)]
+    reports = [json.loads(x) for x in re.findall(
+        r"^rank \d+ of \d+: (\{.*\})$", proc.stdout, re.M)]
+    want = [(m["loss"], m["grad_norm"]) for m in train_metrics]
+    # The log prints 4 decimals of the loss and 3 of the norm; the ranks
+    # sum the fp32 totals in another order (1e-7 relative).
+    errs = [(abs(a - c), abs(b - d)) for (a, b), (c, d) in zip(steps, want)]
+    n_attn = attention_layer_count(get_config(TRAIN_ARCH))
+    launches_ok = len(reports) == DIST_RANKS and all(
+        r["attention_kernel_launches"] == 2 * n_attn * r["micro_steps"]
+        for r in reports)
+    ok = (len(steps) == len(want) == TRAIN_STEPS and launches_ok
+          and all(e1 <= 1.5e-4 and e2 <= 1.5e-3 for e1, e2 in errs))
+    return {"backend": "nccl", "depth": "full", "args": TRAIN_ARGS,
+            "losses_grad_norms": steps, "one_process": want,
+            "abs_err": errs, "ranks_detail": reports,
+            "flash_launches": sum(r["attention_kernel_launches"]
+                                  for r in reports),
+            "ok": bool(ok)}
+
+
+def phase_train_remat(dev, smi):
+    """One internvl2-2b training step at full width and REMAT_DEPTH layers
+    (loss and gradients of one 8192-position tile of the train cell) under
+    plain per-block remat, remat_save_outs and remat_sqrt: losses and
+    every gradient bitwise equal; each policy's step time (the second of
+    two calls) and peak memory; 2 x layers flash launches each."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import cyclic_placement
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import build_model
+    from repro_torch.runtime.trainstep import value_and_grad
+
+    base = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=REMAT_DEPTH)
+    params = build_model(base, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    pipe = TokenPipeline(base, cyclic_placement(4, 4, 2), seq_len=TRAIN_SEQ,
+                         tile_samples=1, seed=0)
+    batch = {k: torch.as_tensor(v[0, 0], device=dev)
+             for k, v in pipe.staged_for_step(0).arrays.items()}
+    want, out = None, {}
+    for name, policy in REMAT_POLICIES.items():
+        bundle = build_model(dataclasses.replace(base, **policy), device=dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls = []
+        before = flash_attention_cuda.launches
+        for _ in range(2):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            loss, _, grads = value_and_grad(bundle.loss_fn, params, batch)
+            torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+        launches = flash_attention_cuda.launches - before
+        if want is None:
+            want = (loss, grads)
+        same = bool(torch.equal(loss, want[0])) and all(
+            torch.equal(a, b) for a, b in zip(grads, want[1]))
+        out[name] = {"step_s": walls[1], "first_call_s": walls[0],
+                     "max_memory_allocated_gb":
+                         torch.cuda.max_memory_allocated(dev) / 1e9,
+                     "bitwise_equal_to_remat": same,
+                     "flash_launches": launches, "loss": float(loss)}
+        del grads
+    emit({"phase": "train_remat", "arch": TRAIN_ARCH, "depth": REMAT_DEPTH,
+          "reduced": {"n_layers": [24, REMAT_DEPTH]}, "seq_len": TRAIN_SEQ,
+          "policies": out, "nvidia_smi": smi})
+    n_attn = attention_layer_count(base)
+    if not all(r["bitwise_equal_to_remat"] and r["flash_launches"]
+               == 2 * 2 * n_attn for r in out.values()):
+        raise AssertionError(f"train_remat: {out}")
+    del want, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3024,11 +3601,15 @@ def main() -> int:
 
     # ---- 5b. main path: training (internvl2-2b at full width through
     # launch.train.main), then its checks ----
-    trained = phase_train_path(dev, counters, smi)
+    trained, train_metrics = phase_train_path(dev, counters, smi)
     totals["flash_attention"] += trained["flash_attention"]
     phase_train_drop_exact(dev, smi)
     phase_train_flash_grad(dev)
     phase_train_parity(dev)
+    phase_train_remat(dev, smi)
+    # ---- 5c. main path: training across 4 ranks ----
+    reset_launches(counters)
+    totals["flash_attention"] += phase_train_dist(dev, smi, train_metrics)
 
     # ---- 6. checkpoint / resume and the serving path at Sec. V ----
     phase_checkpoint(smi)

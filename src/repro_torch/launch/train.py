@@ -1,4 +1,4 @@
-"""End-to-end elastic trainer on one card.
+"""End-to-end elastic trainer, on one process or one process a rank.
 
 Twin of :mod:`repro.launch.train`, with the same flags and loop:
 
@@ -10,9 +10,20 @@ Twin of :mod:`repro.launch.train`, with the same flags and loop:
 
 with per-step preemption/straggler simulation driven by --churn and
 --drop-stragglers; the simulated wall time comes from ``simulate_step``.
-The N workers run as a loop on one device (``--device``, CUDA unless
-named). Several model shards per worker (``--model-shards > 1``) need the
-multi-card port and raise.
+
+On one process the N workers run as a loop on one device (``--device``,
+CUDA unless named). Under ``python -m torch.distributed.run`` (``WORLD_SIZE``
+set) each rank joins one process group (NCCL on ``cuda:LOCAL_RANK``, gloo
+with ``--device cpu``) and runs its contiguous run of the workers
+(:func:`repro_torch.launch.mesh.workers_of`); the workers meet at one
+all-reduce a step. Every rank draws the same seeded scheduler, churn, speed
+and straggler numbers, and each step the ranks compare a digest of their
+plans and raise if they differ. Rank 0 prints the log and writes the
+checkpoints; a checkpoint resumes at any rank count. At the end rank 0
+prints what each rank ran: its workers, micro-steps, attention kernel
+launches, step times, bytes all-reduced and peak device memory. Several
+model shards per worker (``--model-shards > 1``) are ROADMAP.md Queue 1
+item 13c and raise.
 
 Run (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain
 PyTorch versions on the host):
@@ -21,13 +32,64 @@ PyTorch versions on the host):
       --tiles-per-worker 1 --tile-samples 1 --seq-len 8192 --steps 3
   python -m repro_torch.launch.train --arch stablelm-1.6b --reduced \\
       --workers 4 --steps 50 --straggler-tolerance 1 --device cpu
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch stablelm-1.6b --reduced \\
+      --workers 4 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
+import os
+import time
 
 import numpy as np
+
+
+def plan_digest(*arrays) -> int:
+    """A 64-bit digest of arrays' dtypes, shapes and bytes."""
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return int.from_bytes(h.digest()[:8], "little", signed=True)
+
+
+def check_plans_agree(group, device, step: int, digest: int) -> None:
+    """All-gather every rank's plan digest; raise unless they are equal."""
+    import torch
+    import torch.distributed as dist
+
+    mine = torch.tensor([digest], dtype=torch.int64, device=device)
+    got = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(got, mine, group=group)
+    seen = [int(t) for t in got]
+    if len(set(seen)) != 1:
+        raise RuntimeError(
+            f"step {step}: the ranks' plans differ (digests {seen}); every "
+            "rank must draw the same scheduler, churn, speed and straggler "
+            "numbers")
+
+
+def join_process_group(device):
+    """(owned, device): under ``torch.distributed.run`` (``WORLD_SIZE`` set
+    and no group yet) initialize the default group, NCCL on
+    ``cuda:LOCAL_RANK`` or gloo for a CPU ``device``; ``owned`` says this
+    call did, so the caller destroys it."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return False, device
+    cuda = device is None or torch.device(device).type == "cuda"
+    if cuda:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if cuda else "gloo")
+    return True, device
 
 
 def main(argv=None):
@@ -63,14 +125,30 @@ def main(argv=None):
     if args.model_shards > 1:
         raise NotImplementedError(
             "--model-shards > 1 shards each worker's model over several "
-            "cards: ROADMAP.md Queue 1 item 13b (not ported to repro_torch "
+            "cards: ROADMAP.md Queue 1 item 13c (not ported to repro_torch "
             "yet)")
 
+    import torch.distributed as dist
+
+    owned, device = join_process_group(args.device)
+    try:
+        return _train(args, device)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _train(args, device):
+    """The loop of :func:`main` on ``device``, over the default process
+    group when there is one."""
     import torch
+    import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.core import MarkovChurnTrace, USECScheduler, cyclic_placement
     from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.mesh import make_worker_mesh, workers_of
     from repro_torch.models import build_model
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.runtime import checkpoint as ckpt
@@ -86,9 +164,18 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    bundle = build_model(cfg, device=args.device)
+    bundle = build_model(cfg, device=device)
 
     n = args.workers
+    group, rank, world = None, 0, 1
+    if dist.is_initialized():
+        group = make_worker_mesh(n, device_type=bundle.device.type).get_group()
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
+        # NCCL gathers on the card, gloo on the host.
+        comm_device = (bundle.device if dist.get_backend(group) == "nccl"
+                       else torch.device("cpu"))
+    mine = workers_of(rank, world, n)
+    log = print if rank == 0 else (lambda *a, **k: None)
     g_tiles = args.tiles_per_worker * n
     placement = cyclic_placement(n, g_tiles, args.replication)
     pipe = TokenPipeline(cfg, placement, seq_len=args.seq_len,
@@ -116,11 +203,12 @@ def main(argv=None):
     params = bundle.init(
         torch.Generator(device=bundle.device).manual_seed(args.seed))
     opt = adamw.init(params)
-    comp = comp_init(params, n) if args.compress_grads else None
+    comp = comp_init(params, len(mine)) if args.compress_grads else None
     t_stage = max(len(z) for z in placement.storage_sets())
     b_max = sched.t_max
     step_fn = make_usec_train_step(bundle, t_stage, b_max,
-                                   compress_grads=args.compress_grads)
+                                   compress_grads=args.compress_grads,
+                                   group=group)
 
     start = 0
     if args.resume and args.ckpt_dir:
@@ -131,10 +219,12 @@ def main(argv=None):
             params, opt = tree["params"], tree["opt"]
             if "speeds" in extra:
                 sched.estimator._s = np.asarray(extra["speeds"])
-            print(f"resumed from {latest} at step {start}")
+            log(f"resumed from {latest} at step {start}")
 
     wall = 0.0
     metrics = None
+    step_s, micro_steps = [], 0
+    launches0 = flash_attention_cuda.launches
     for step in range(start, args.steps):
         avail = churn.available
         splan = sched.plan_step(avail)
@@ -147,9 +237,19 @@ def main(argv=None):
         bp = block_plan(splan.plan, staged.slot_of, block_rows=1,
                         stragglers=dropped, b_max=b_max)
         lr = warmup_cosine(step, args.lr, 10, args.steps)
+        if group is not None:
+            check_plans_agree(group, comm_device, step, plan_digest(
+                np.asarray(sorted(avail)), np.asarray(sorted(dropped)),
+                staged.slot_of, bp.blk_slot, bp.blk_include, bp.n_blocks,
+                np.float64(float(lr))))
+        micro_steps += int(bp.n_blocks[mine.start:mine.stop].sum())
+        t0 = time.perf_counter()
         params, opt, comp, metrics = step_fn(
             params, opt, comp, staged.arrays, bp.blk_slot, bp.blk_include,
             bp.n_blocks[:, None], lr)
+        if bundle.device.type == "cuda":
+            torch.cuda.synchronize(bundle.device)
+        step_s.append(time.perf_counter() - t0)
         # Workers report measured speeds (Algorithm 1 lines 14-15).
         loads = {w: float(splan.plan.loads()[w]) for w in avail}
         durations = {w: float(loads[w] / speeds_now[w]) for w in avail
@@ -158,20 +258,35 @@ def main(argv=None):
         churn.step()
 
         if args.log_every and step % args.log_every == 0:
-            print(
+            log(
                 f"step {step:4d} loss={float(metrics['loss']):.4f} "
                 f"gnorm={float(metrics['grad_norm']):.3f} "
                 f"c*={splan.c_star:.3f} sim_t={timing.completion_time:.3f} "
                 f"avail={len(avail)} dropped={list(dropped)}",
                 flush=True,
             )
-        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+        if rank == 0 and args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             ckpt.save_checkpoint(
                 args.ckpt_dir, step + 1, {"params": params, "opt": opt},
                 extra={"speeds": sched.estimator.speeds.tolist()},
             )
-    print(f"done: {args.steps - start} steps, simulated wall time {wall:.2f} "
-          f"(speed-aware USEC assignment) on {bundle.device}")
+    log(f"done: {args.steps - start} steps, simulated wall time {wall:.2f} "
+        f"(speed-aware USEC assignment) on {bundle.device}", flush=True)
+    if group is not None:
+        report = {
+            "workers": list(mine), "backend": dist.get_backend(group),
+            "device": str(bundle.device), "micro_steps": micro_steps,
+            "attention_kernel_launches":
+                flash_attention_cuda.launches - launches0,
+            "step_s": step_s, "reduced_bytes": step_fn.stats["bytes"],
+            "collectives": step_fn.stats["collectives"],
+            "max_memory_allocated": (
+                torch.cuda.max_memory_allocated(bundle.device)
+                if bundle.device.type == "cuda" else None)}
+        reports = [None] * world
+        dist.all_gather_object(reports, report, group=group)
+        for r, rep in enumerate(reports):
+            log(f"rank {r} of {world}: {json.dumps(rep)}", flush=True)
     return float(metrics["loss"]) if metrics is not None else None
 
 

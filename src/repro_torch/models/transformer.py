@@ -17,12 +17,12 @@ A *pattern block* is ``cfg.layer_pattern`` applied in order; entries:
 Homogeneous-layer params and caches are stacked on a leading ``n_repeats``
 axis, the reference's ``lax.scan`` layout, and the stack runs as a Python
 loop over that axis; the remainder layers (depth % pattern) have their own
-params and caches. Training checkpoints each pattern block when
-``cfg.remat`` (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint``); the reference's ``remat_sqrt`` and
-``remat_save_outs`` policies trade memory against time and change no
-value, and are not ported. Decode hands each layer views of the stacked
-cache and every layer kind updates them in place.
+params and caches. Training under ``cfg.remat`` recomputes activations
+in the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``) by one of the reference's three policies, which trade
+memory against time and change no value (:func:`stack_train`). Decode hands
+each layer views of the stacked cache and every layer kind updates them in
+place.
 """
 
 from __future__ import annotations
@@ -119,25 +119,43 @@ def _ffn_residual(kind: str, p: Dict, x, cfg):
     return x + f.to(x.dtype)
 
 
-def _layer_train(kind: str, p: Dict, x, cfg, positions):
+def _temporal_train(kind: str, norm1: Dict, p: Dict, x, cfg, positions):
+    """A layer's pre-norm temporal mixer: its sublayer output."""
+    h = apply_norm(norm1, x, cfg.norm)
+    if kind in ("attn", "lattn"):
+        return attn_mod.attention_train(p, h, cfg, positions,
+                                        window=_window(kind, cfg),
+                                        causal=cfg.decoder)
+    if kind == "rglru":
+        return rglru_mod.apply_rglru_train(p, h, cfg)
+    return ssm_mod.apply_ssm_train(p, h, cfg)
+
+
+def _ffn_train(norm2: Dict, p: Dict, x, cfg):
+    """A layer's pre-norm FFN: (its sublayer output, the MoE aux)."""
+    return _apply_ffn(p, apply_norm(norm2, x, cfg.norm), cfg)
+
+
+def _layer_train(kind: str, p: Dict, x, cfg, positions,
+                 save_outs: bool = False):
     """One layer over a full sequence with its MoE aux (0 for a dense or
     ssm layer); attention is causal in a decoder, bidirectional in an
     encoder. The reference's ``_seq_shard`` is a sharding constraint, a
-    no-op on one card."""
-    h = apply_norm(p["norm1"], x, cfg.norm)
-    if kind in ("attn", "lattn"):
-        t = attn_mod.attention_train(p["temporal"], h, cfg, positions,
-                                     window=_window(kind, cfg),
-                                     causal=cfg.decoder)
-    elif kind == "rglru":
-        t = rglru_mod.apply_rglru_train(p["temporal"], h, cfg)
-    else:
-        t = ssm_mod.apply_ssm_train(p["temporal"], h, cfg)
+    no-op on one card. ``save_outs``: checkpoint each sublayer on its own,
+    so autograd keeps the residual stream at the sublayer boundaries (the
+    reference's saved ``temporal_out`` and ``ffn_out``) and recomputes
+    only the sublayers' insides."""
+    def run(fn, *args):
+        if save_outs:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    t = run(_temporal_train, kind, p["norm1"], p["temporal"], x, cfg,
+            positions)
     x = x + t.to(x.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind != "ssm":
-        h2 = apply_norm(p["norm2"], x, cfg.norm)
-        f, aux = _apply_ffn(p["ffn"], h2, cfg)
+        f, aux = run(_ffn_train, p["norm2"], p["ffn"], x, cfg)
         x = x + f.to(x.dtype)
     return x, aux
 
@@ -235,26 +253,56 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> Dict:
 # ---------------------------------------------------------------------- #
 # Stack apply
 # ---------------------------------------------------------------------- #
+def _inner_factor(n: int) -> int:
+    """Largest divisor of n not exceeding sqrt(n) (sqrt-remat grouping)."""
+    best = 1
+    d = 1
+    while d * d <= n:
+        if n % d == 0:
+            best = d
+        d += 1
+    return best
+
+
 def stack_train(params: Dict, x: torch.Tensor, cfg, positions) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stack over a full sequence: (h, aux), the MoE aux summed over
-    layers in the reference's order. With ``cfg.remat`` and grad enabled
-    each pattern block is checkpointed: autograd keeps its input and runs
-    its forward again in the backward."""
+    layers in the reference's order. With ``cfg.remat`` and grad enabled,
+    the pattern blocks recompute in the backward by the reference's
+    policies, in its order of precedence:
+
+    - ``cfg.remat_sqrt`` with ``_inner_factor(n_repeats) > 1``: two-level
+      remat. Each group of that many blocks is one checkpoint, so autograd
+      keeps only the groups' inputs and, in the backward, runs one group's
+      forward again with everything it needs kept.
+    - ``cfg.remat_save_outs``: each sublayer is a checkpoint of its own
+      (:func:`_layer_train`); the residual stream at the sublayer
+      boundaries is kept.
+    - otherwise each pattern block is one checkpoint: autograd keeps its
+      input and runs its forward again in the backward.
+
+    Each runs every layer's forward twice (once again in the backward); the
+    remainder layers are never checkpointed."""
     pattern = cfg.layer_pattern
     n_rep, extra_kinds = stack_layout(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    n_inner = _inner_factor(n_rep) if remat and cfg.remat_sqrt else 1
+    save_outs = remat and n_inner == 1 and cfg.remat_save_outs
 
-    def block(h, aux, blk):
-        for kind, p in zip(pattern, blk):
-            h, a = _layer_train(kind, p, h, cfg, positions)
-            aux = aux + a
+    def blocks(h, aux, first, last):
+        for i in range(first, last):
+            for pos, kind in enumerate(pattern):
+                h, a = _layer_train(kind, _layer(params["blocks"][pos], i), h,
+                                    cfg, positions, save_outs)
+                aux = aux + a
         return h, aux
 
-    remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n_rep):
-        blk = [_layer(params["blocks"][pos], i) for pos in range(len(pattern))]
-        x, aux = (checkpoint(block, x, aux, blk, use_reentrant=False)
-                  if remat else block(x, aux, blk))
+    if remat and not save_outs:  # a checkpoint per block or per group
+        for first in range(0, n_rep, n_inner):
+            x, aux = checkpoint(blocks, x, aux, first, first + n_inner,
+                                use_reentrant=False)
+    else:
+        x, aux = blocks(x, aux, 0, n_rep)
     for p_extra, kind in zip(params["extras"], extra_kinds):
         x, a = _layer_train(kind, p_extra, x, cfg, positions)
         aux = aux + a

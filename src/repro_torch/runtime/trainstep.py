@@ -1,8 +1,10 @@
-"""Train-step factories: the paper's technique as a training mode, on one card.
+"""Train-step factories: the paper's technique as a training mode.
 
-Twin of :mod:`repro.runtime.trainstep` without the mesh: the workers are a
-Python loop on one device, and the reference's ``psum`` over the worker
-axis is a sum over the workers' gradients.
+Twin of :mod:`repro.runtime.trainstep`. The reference runs its workers as
+one SPMD program, ``shard_map`` manual over the mesh's data axis; here they
+run on one process, or over the ranks of a ``torch.distributed`` group
+(:func:`repro_torch.launch.mesh.make_worker_mesh`), each rank a contiguous
+run of them (:func:`repro_torch.launch.mesh.workers_of`).
 
 usec mode (:func:`make_usec_train_step`)
     every worker runs ITS OWN number of micro-steps (its plan entry) over
@@ -11,32 +13,36 @@ usec mode (:func:`make_usec_train_step`)
     As in the reference, each worker accumulates in ``cfg.grad_accum_dtype``
     and the workers' sums meet in fp32 (bf16 accumulation per worker, an
     fp32 reduce); one per-worker buffer is reused, so a bf16 model holds
-    one bf16 accumulator and one fp32 total whatever the worker count.
-    Optional int8 + error-feedback compression replaces the fp32 sum
-    (:mod:`.compression`). Then the sum is divided by the token count and
-    AdamW updates the parameters.
+    one bf16 accumulator and one fp32 total whatever the worker count. The
+    single synchronization point, the paper's "master combine", is one
+    all-reduce of the fp32 totals with the NLL and token sums, packed into
+    a few flat buffers (the reference's ``psum``). Optional int8 +
+    error-feedback compression replaces the fp32 sum (:mod:`.compression`).
+    Then the sum is divided by the token count and AdamW updates the
+    parameters, identically on every rank, so they stay replicated.
 
 fsdp mode (:func:`make_fsdp_train_step`)
     the reference's GSPMD step on one device: fp32 gradient accumulation
     over global microbatches, USEC ownership entering as per-sample weights.
 
-The reference's ``grad_shardings``, ``reduced_grad_shardings``,
-``worker_axes`` and ``static_trips`` (the dry-run's cost-analysis variant)
-place or count work across devices and belong to the multi-card port.
+The reference's ``grad_shardings``, ``reduced_grad_shardings`` and
+``worker_axes`` place work on a mesh with a model axis: ROADMAP.md Queue 1
+item 13c.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.launch.mesh import workers_of
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.transformer import tree_leaves, tree_unflatten
 from repro_torch.optim import adamw
 
-from .compression import CompressedSum
+from .compression import CompressedSum, flat_buckets
 
 
 def value_and_grad(loss_fn: Callable, params: Any, batch: Dict
@@ -56,7 +62,8 @@ def value_and_grad(loss_fn: Callable, params: Any, batch: Dict
 
 
 def make_usec_train_step(bundle, t_stage: int, b_max: int,
-                         compress_grads: bool = False):
+                         compress_grads: bool = False, group=None,
+                         static_trips: Optional[int] = None):
     """USEC (uneven-loop) train step on the bundle's device. The caller
     passes each step's ``lr`` (the reference's unused ``peak_lr`` is gone).
 
@@ -69,17 +76,51 @@ def make_usec_train_step(bundle, t_stage: int, b_max: int,
     metrics ``loss`` (the included tokens' mean NLL + aux term),
     ``n_tokens`` and ``grad_norm``. ``t_stage`` and ``b_max`` are the
     staged and padded list widths the arrays must have.
+
+    ``group``: a ``torch.distributed`` process group (every rank passes the
+    same N-worker arrays, and runs only its own rows, ``workers_of(rank)``),
+    or None for all N on this process. With compression, ``comp_state``'s
+    ``ef`` rows are this process's workers. Every rank returns the same
+    parameters and metrics.
+
+    ``static_trips``: run exactly that many micro-steps per worker, ignoring
+    ``n_mb`` (the reference's cost-analysis variant; padded entries carry
+    weight 0).
+
+    ``step.stats`` counts the collectives the step issued and the bytes
+    they reduced, over all calls.
     """
     cfg, device = bundle.cfg, bundle.device
     acc_dtype = dtype_of(getattr(cfg, "grad_accum_dtype", "float32"))
     loss_fn = bundle.loss_fn
+    rank, world = 0, 1
+    if group is not None:
+        import torch.distributed as dist
+
+        rank, world = dist.get_rank(group), dist.get_world_size(group)
+    if static_trips is not None and not 0 <= static_trips <= b_max:
+        raise ValueError(f"static_trips {static_trips} outside [0, {b_max}]")
+    stats = {"collectives": 0, "bytes": 0}
+
+    def all_reduce(bufs):
+        import torch.distributed as dist
+
+        for buf in bufs:
+            dist.all_reduce(buf, group=group)
+        stats["collectives"] += len(bufs)
+        stats["bytes"] += sum(b.numel() * b.element_size() for b in bufs)
 
     def step(params, opt_state, comp_state, staged, mb_slot, mb_inc, n_mb,
              lr):
-        staged = {k: torch.as_tensor(v, device=device) for k, v in staged.items()}
         mb_slot = np.asarray(mb_slot)
-        inc = torch.as_tensor(mb_inc, device=device).to(torch.float32)
-        n_mb = np.asarray(n_mb).reshape(-1)
+        n_workers = mb_slot.shape[0]
+        mine = workers_of(rank, world, n_workers)
+        rows = slice(mine.start, mine.stop)
+        staged = {k: torch.as_tensor(v[rows], device=device)
+                  for k, v in staged.items()}
+        mb_slot = mb_slot[rows]
+        inc = torch.as_tensor(mb_inc[rows], device=device).to(torch.float32)
+        n_mb = np.asarray(n_mb).reshape(-1)[rows]
         widths = {a.shape[1] for a in staged.values()}
         if widths != {t_stage} or mb_slot.shape[1] != b_max:
             raise ValueError(f"staged widths {widths} and list width "
@@ -88,38 +129,56 @@ def make_usec_train_step(bundle, t_stage: int, b_max: int,
         plist = tree_leaves(params)
         acc = [torch.empty(p.shape, dtype=acc_dtype, device=device)
                for p in plist]
-        total = None if compress_grads else [
-            torch.zeros(p.shape, dtype=torch.float32, device=device)
-            for p in plist]
-        summed = CompressedSum(comp_state) if compress_grads else None
-        nll = torch.zeros((), dtype=torch.float32, device=device)
-        ntok = torch.zeros((), dtype=torch.float32, device=device)
-        for w in range(len(n_mb)):
+        # This process's NLL and token sums. The fp32 totals (or the
+        # compressed sum) are allocated after the first worker's micro-steps,
+        # not beside their activations.
+        sums = torch.zeros(2, dtype=torch.float32, device=device)
+        bufs = total = summed = None
+        for i in range(len(mine)):
             for a in acc:
                 a.zero_()
             nll_w = torch.zeros((), dtype=torch.float32, device=device)
             ntok_w = torch.zeros((), dtype=torch.float32, device=device)
-            for i in range(int(n_mb[w])):
-                slot = int(mb_slot[w, i])
-                batch = {k: v[w, slot] for k, v in staged.items()}
-                loss_i, metrics, grads = value_and_grad(loss_fn, params, batch)
-                wt = inc[w, i]
+            trips = static_trips if static_trips is not None else int(n_mb[i])
+            for j in range(trips):
+                slot = int(mb_slot[i, j])
+                batch = {k: v[i, slot] for k, v in staged.items()}
+                loss_j, metrics, grads = value_and_grad(loss_fn, params, batch)
+                wt = inc[i, j]
                 for a, g in zip(acc, grads):
                     a += (wt * g.to(torch.float32)).to(acc_dtype)
                 del grads
-                nll_w = nll_w + wt * loss_i
+                nll_w = nll_w + wt * loss_j
                 ntok_w = ntok_w + wt * metrics["n_tokens"]
-            # The single synchronization point: the paper's master combine.
-            nll, ntok = nll + nll_w, ntok + ntok_w
+            sums[0] += nll_w
+            sums[1] += ntok_w
             if compress_grads:
-                summed.add(w, tree_unflatten(params, acc))
-            else:
-                for t, a in zip(total, acc):
-                    t += a.to(torch.float32)
+                if summed is None:
+                    summed = CompressedSum(comp_state, n_workers, group)
+                summed.add(i, tree_unflatten(params, acc))
+                continue
+            if total is None:
+                # The sums ride in the last buffer's tail: one all-reduce of
+                # these buffers is the master combine.
+                bufs, total = flat_buckets([tuple(p.shape) for p in plist],
+                                           torch.float32, device, tail=2)
+            for t, a in zip(total, acc):
+                t += a.to(torch.float32)
         del acc
+        if compress_grads:
+            bufs = [sums]
+        else:
+            bufs[-1][-2:] = sums
+            sums = bufs[-1][-2:]
+        if group is not None:
+            all_reduce(bufs)
         if compress_grads:
             grads, comp_state = summed.result()
             total = tree_leaves(grads)
+            stats["collectives"] += summed.collectives
+            stats["bytes"] += summed.wire_bytes
+            del summed  # its wire buffers
+        nll, ntok = sums.clone().unbind()  # no view keeps the buffers alive
         denom = torch.clamp(ntok, min=1.0)
         for t in total:
             t /= denom
@@ -128,6 +187,7 @@ def make_usec_train_step(bundle, t_stage: int, b_max: int,
         metrics = {"loss": nll / denom, "n_tokens": ntok, **om}
         return new_params, new_opt, comp_state, metrics
 
+    step.stats = stats
     return step
 
 

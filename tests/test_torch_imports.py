@@ -49,7 +49,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "repro_torch.data.pipeline",
             "repro_torch.runtime.compression",
             "repro_torch.runtime.trainstep",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:

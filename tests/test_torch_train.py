@@ -561,7 +561,7 @@ def test_train_main_resumes_a_reference_checkpoint(reference, monkeypatch,
 
 
 def test_train_main_refuses_model_shards():
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(NotImplementedError, match="item 13c"):
         port_train.main(["--arch", "stablelm-1.6b", "--reduced",
                          "--model-shards", "2", "--device", "cpu"])
 
