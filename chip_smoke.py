@@ -1855,8 +1855,9 @@ PROFILE_DECODE_STEPS = 8
 # another order (cuBLAS picks its own sum order per shape), so outputs may
 # differ by a few bf16 ulps of the largest value: 1e-2 is about 2.5 ulps.
 MOE_TOL = (1e-2, 1e-2)
-# tests/test_kernels.py's seven cases: (b, h, hk, sq, skv, d, causal,
-# window, dtype).
+# tests/test_kernels.py's seven cases, then the local heads of one glm4-9b
+# layer at the prompt length over 2 and over 4 model shards (train_tp, the
+# four-card trainer): (b, h, hk, sq, skv, d, causal, window, dtype).
 FLASH_CASES = [
     (1, 2, 2, 128, 128, 64, True, None, torch.float32),
     (2, 4, 2, 100, 260, 64, True, None, torch.float32),
@@ -1865,6 +1866,8 @@ FLASH_CASES = [
     (1, 4, 4, 1, 384, 64, True, None, torch.float32),
     (1, 2, 2, 200, 200, 128, True, 64, torch.float32),
     (1, 2, 2, 128, 128, 64, True, None, torch.bfloat16),
+    (1, 16, 1, PROMPT_LEN, PROMPT_LEN, 128, True, None, torch.bfloat16),
+    (1, 8, 1, PROMPT_LEN, PROMPT_LEN, 128, True, None, torch.bfloat16),
 ]
 # Every head_dim with a kernel instance, in both types; recurrentgemma's
 # d = 256 with a window; queries with no live key (sq > skv, causal).
@@ -1901,6 +1904,10 @@ FLASH_LAYER_HUBERT = (1, 16, 16, PROMPT_LEN, PROMPT_LEN, 80, False, None,
                       torch.bfloat16)
 FLASH_LAYER_INTERNVL2 = (1, 16, 8, PROMPT_LEN, PROMPT_LEN, 128, True, None,
                          torch.bfloat16)
+# One glm4-9b layer's local heads over 4 model shards: 32 / 4 query heads,
+# and the one KV head they read (2 x 128 KV columns over 4 is half a head
+# a shard, gathered whole).
+FLASH_LAYER_TP4 = FLASH_CASES[-1]
 # (rtol, atol) of the flash kernel against an fp32 version of the same
 # function. Both sides read the inputs exactly, compute in fp32 and round
 # once to the output type, so they differ by the fp32 sum order and, in
@@ -2042,7 +2049,8 @@ def phase_flash(dev, paths):
     kernel), one full-width glm4-9b layer (GQA 16), one deepseek-moe-16b
     layer (MHA), one recurrentgemma-2b local-attention layer (d 256, GQA
     10, window 2048), one hubert-xlarge encoder layer (bidirectional, MHA,
-    d 80) and one internvl2-2b layer (GQA 2, d 128); each layer's times:
+    d 80), one internvl2-2b layer (GQA 2, d 128) and a glm4-9b layer's
+    local heads over 4 model shards (GQA 8:1); each layer's times:
     kernel, plain version, and one library
     call (SDPA) as a yardstick; and both kernels' ptxas registers and
     spills. The kernels line takes the glm4-9b layer's numbers."""
@@ -2059,10 +2067,11 @@ def phase_flash(dev, paths):
     windowed = flash_layer(FLASH_LAYER_WINDOW, dev, 97)
     hubert = flash_layer(FLASH_LAYER_HUBERT, dev, 96)
     internvl2 = flash_layer(FLASH_LAYER_INTERNVL2, dev, 95)
+    tp4 = flash_layer(FLASH_LAYER_TP4, dev, 94)
     routes = {"launches_tc": flash_attention_cuda.launches_tc - routes0[0],
               "launches_ffma": flash_attention_cuda.launches_ffma - routes0[1]}
     emit({"phase": "kernel", "name": "flash_attention",
-          "cases": len(cases) + 5, "max_abs_err_cases": errs,
+          "cases": len(cases) + 6, "max_abs_err_cases": errs,
           "rtol_atol": {str(dt).replace("torch.", ""): tol
                         for dt, tol in ATTN_TOL.items()},
           "bitwise_run_to_run": True, "dtype": "bfloat16",
@@ -2070,6 +2079,7 @@ def phase_flash(dev, paths):
           "layer_recurrentgemma_2b_lattn": windowed,
           "layer_hubert_xlarge_bidirectional": hubert,
           "layer_internvl2_2b": internvl2,
+          "layer_glm4_9b_over_4_model_shards": tp4,
           "check_launches": routes,
           "ptxas": {stem: ptxas_report(paths[stem])
                     for stem in ("flash_attention_tc", "flash_attention")}})
@@ -2987,11 +2997,13 @@ def tensor_digest(t, chunk: int = 1 << 24) -> int:
     return total
 
 
-def _dist_cell(dev, depth):
-    """The train cell at ``depth`` layers: (bundle, a function that makes
-    the seed-0 weights, t_stage, b_max, each step's arguments, the
-    attention layers). The weights are made anew for each run, not held
-    beside it."""
+def _dist_cell(dev, depth, arch=TRAIN_ARCH, n_workers=DIST_RANKS,
+               drops=DIST_DROP, shards=None):
+    """The train cell of ``arch`` at ``depth`` layers over ``n_workers``
+    workers (one tile each; worker ``drops[s]`` dropped at step s): (bundle,
+    a function that makes the seed-0 weights, t_stage, b_max, each step's
+    arguments, the attention layers). ``shards``: this rank's model group.
+    The weights are made anew for each run, not held beside it."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3000,17 +3012,17 @@ def _dist_cell(dev, depth):
     from repro_torch.models import build_model
     from repro_torch.runtime.executor import block_plan
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=depth)
-    bundle = build_model(cfg, device=dev)
-    place = cyclic_placement(DIST_RANKS, DIST_RANKS, 2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    bundle = build_model(cfg, device=dev, shards=shards)
+    place = cyclic_placement(n_workers, n_workers, 2)
     pipe = TokenPipeline(cfg, place, seq_len=TRAIN_SEQ, tile_samples=1,
                          seed=0)
-    plan = compile_plan(place, solve_assignment(place, np.ones(DIST_RANKS),
+    plan = compile_plan(place, solve_assignment(place, np.ones(n_workers),
                                                 stragglers=1),
                         rows_per_tile=1, stragglers=1)
     b_max = int(plan.n_valid.max()) + 1
     args = []
-    for s, bad in enumerate(DIST_DROP):
+    for s, bad in enumerate(drops):
         sb = pipe.staged_for_step(s)
         bp = block_plan(plan, sb.slot_of, 1, stragglers=(bad,), b_max=b_max)
         args.append((sb.arrays, bp.blk_slot, bp.blk_include,
@@ -3449,6 +3461,221 @@ def _train_dist_nccl(train_metrics):
             "ok": bool(ok)}
 
 
+# ---------------------------------------------------------------------- #
+# Training over model shards
+# ---------------------------------------------------------------------- #
+# train_tp: glm4-9b at full width, TP_DEPTH layer, each worker's model split
+# over TP_SHARDS ranks (D = 1 x M = 2), TP_WORKERS workers (cyclic J = 2
+# over 2 tiles of one 8192-position sample, S = 1, worker TP_DROP[s]
+# dropped at step s), 2 steps. NCCL refuses two ranks on one GPU, so 2
+# spawned gloo ranks share cuda:0, both at once (every layer has a
+# collective, so they cannot take turns). Reckoning at 1 layer: 1.446 B
+# parameters (the 151552 x 4096 embedding and unembedding are 1.24 B of
+# them), 0.72 B a rank: 1.45 GB of bf16 weights, 5.8 GB of fp32 moments,
+# 2.9 + 2.9 GB of fp32 accumulator and total, 7.2 GB more inside the AdamW
+# update, about 20 GB a rank; the whole draw (2.9 GB) before the cut. Then
+# rank 0 runs the one-process step alone (about 41 GB).
+TP_DEPTH, TP_SHARDS, TP_WORKERS, TP_DROP = 1, 2, 2, (1, 0)
+# Tolerances of the sharded bf16 step against the one-process step. Each
+# rank's partial product is rounded to bf16 before the fp32 sum of the
+# reduction (the one-process product rounds once), so an activation may
+# differ by one bf16 ulp (2^-8 relative) here and there; the loss, a mean
+# over 8192 positions a tile, moves far less: 1e-3 relative. A gradient
+# norm sums bf16 gradients that each may differ by a few ulps: 1e-2. A
+# parameter: AdamW's first updates are about lr x sign(g) (g / (|g| +
+# eps)), so where g is near 0 the two runs may step apart by 2 lr a step;
+# at most TP_PARAM_SHARE of a leaf's elements may differ by more than two
+# bf16 ulps of the leaf's largest value, and none by more than
+# 3 x lr x steps plus that.
+TP_LOSS_TOL, TP_GNORM_TOL, TP_PARAM_SHARE = 1e-3, 1e-2, 1e-2
+
+
+def _tp_rank(rank, world, store, out_dir):
+    """One gloo rank of train_tp on cuda:0 (spawned): the steps over the
+    2 x 1 mesh; rank 0 then holds them to the one-process step. Writes
+    ``rank{rank}.json``."""
+    import datetime
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=600))
+    try:
+        res = _tp_rank_body(rank, dev)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _tp_rank_body(rank, dev):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.mesh import (
+        coordinates,
+        data_group,
+        make_worker_mesh,
+        model_group,
+    )
+    from repro_torch.models import attention
+    from repro_torch.models.parallel import ModelShards, unshard_params
+    from repro_torch.runtime.trainstep import make_usec_train_step
+
+    dist = torch.distributed
+    mesh = make_worker_mesh(TP_WORKERS, TP_SHARDS, device_type="cuda")
+    _, m = coordinates(mesh)
+    shards = ModelShards(model_group(mesh), TP_SHARDS, m)
+    cell = _dist_cell(dev, TP_DEPTH, MODEL_ARCH, TP_WORKERS, TP_DROP, shards)
+    bundle, init, t_stage, b_max, args, n_attn = cell
+    shapes = set()
+    flash = attention._flash
+
+    def spy(q, k, v, causal, window):
+        shapes.add((tuple(q.transpose(1, 2).shape), k.shape[2]))
+        return flash(q, k, v, causal, window)
+
+    attention._flash = spy
+    step = make_usec_train_step(bundle, t_stage, b_max,
+                                group=data_group(mesh))
+    params = init()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = flash_attention_cuda.launches
+    params, _, out = _run_steps(step, params, None, args, dev,
+                                dist.group.WORLD)
+    attention._flash = flash
+    micro = sum(int(a[3].sum()) for a in args)
+    res = {"rank": rank, "model_index": m, "micro_steps": micro,
+           "attention_layers": n_attn, **out,
+           "flash_launches": flash_attention_cuda.launches - before,
+           "flash_shapes": sorted([list(q), hk] for q, hk in shapes),
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated(dev) / 1e9,
+           "tp_bytes_per_step": shards.stats["bytes"] / len(args),
+           "tp_collectives_per_step": shards.stats["collectives"] / len(args),
+           "reduced_bytes_per_step": step.stats["bytes"] / len(args)}
+    whole = unshard_params(params, bundle.cfg, shards, device="cpu")
+    del params, step, bundle, init, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        res["held"] = _hold_tp(whole, out, dev)
+    dist.barrier()
+    return res
+
+
+def _hold_tp(whole, out_tp, dev):
+    """The one-process step from the same weights over the same steps,
+    against the sharded run (its losses, gradient norms and gathered
+    parameters) within the TP_* tolerances."""
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.runtime.trainstep import make_usec_train_step
+
+    bundle, init, t_stage, b_max, args, _ = _dist_cell(
+        dev, TP_DEPTH, MODEL_ARCH, TP_WORKERS, TP_DROP)
+    step = make_usec_train_step(bundle, t_stage, b_max)
+    torch.cuda.reset_peak_memory_stats(dev)
+    p1, _, out1 = _run_steps(step, init(), None, args, dev)
+    errs = {k: max(abs(a - b) / abs(b) for a, b in zip(out_tp[k], out1[k]))
+            for k in ("loss", "grad_norm")}
+    ulps2, share, worst = 2 ** -7, 0.0, 0.0
+    for a, b in zip(tree_leaves(whole), tree_leaves(p1)):
+        a, b = a.to(dev).float(), b.float()
+        top = float(b.abs().max())
+        diff = (a - b).abs()
+        share = max(share, float((diff > ulps2 * top).float().mean()))
+        worst = max(worst, float(diff.max()) - ulps2 * top)
+    step_bound = 3 * DIST_LR * len(args)
+    ok = (errs["loss"] <= TP_LOSS_TOL and errs["grad_norm"] <= TP_GNORM_TOL
+          and share <= TP_PARAM_SHARE and worst <= step_bound)
+    return {"ok": bool(ok), "err": errs, "param_share_off": share,
+            "param_excess_over_2ulps": worst, "param_step_bound": step_bound,
+            "one_process": out1,
+            "one_process_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def phase_train_tp(dev, smi):
+    """TP_SHARDS gloo ranks on cuda:0 train glm4-9b at full width over a
+    1 x 2 mesh (see TP_DEPTH), held to the one-process step; the card's
+    memory in use sampled from this process. Returns the ranks' flash
+    launches (summed)."""
+    import multiprocessing
+    import shutil
+    import threading
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(ROOT, "build", "train_tp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_tp_rank, args=(
+        r, TP_SHARDS, os.path.join(out_dir, "store"), out_dir))
+        for r in range(TP_SHARDS)]
+    used, stop = [], threading.Event()
+
+    def sample():
+        while not stop.wait(0.05):
+            free, total = torch.cuda.mem_get_info(0)
+            used.append(total - free)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=900)
+    finally:
+        stop.set()
+        sampler.join()
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * TP_SHARDS:
+        raise AssertionError(f"train_tp ranks exited {codes}")
+    ranks = []
+    for r in range(TP_SHARDS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    held = ranks[0].pop("held")
+    local_heads = [[1, 32 // TP_SHARDS, TRAIN_SEQ, 128], 1]
+    launches_ok = all(
+        rank["flash_launches"] == 2 * rank["attention_layers"]
+        * rank["micro_steps"] and rank["flash_shapes"] == [local_heads]
+        for rank in ranks)
+    same = all(rank["loss"] == ranks[0]["loss"]
+               and rank["grad_norm"] == ranks[0]["grad_norm"]
+               for rank in ranks)
+    record = {"phase": "train_tp", "arch": MODEL_ARCH, "depth": TP_DEPTH,
+              "reduced": {"n_layers": [40, TP_DEPTH]}, "seq_len": TRAIN_SEQ,
+              "mesh": [1, TP_SHARDS], "workers": TP_WORKERS,
+              "backend": "gloo",
+              "why_gloo": "NCCL refuses two ranks on one GPU",
+              "ranks_detail": ranks, "held": held, "ranks_wall_s": wall,
+              "card_peak_used_gb": max(used) / 1e9,
+              "tolerances": {"loss": TP_LOSS_TOL, "grad_norm": TP_GNORM_TOL,
+                             "param_share": TP_PARAM_SHARE},
+              "flash_launches": sum(r["flash_launches"] for r in ranks),
+              "nvidia_smi": smi}
+    emit(record)
+    if not (held["ok"] and launches_ok and same):
+        raise AssertionError(f"train_tp failed: held {held['ok']}, launches "
+                             f"{launches_ok}, ranks agree {same}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record["flash_launches"]
+
+
 def phase_train_remat(dev, smi):
     """One internvl2-2b training step at full width and REMAT_DEPTH layers
     (loss and gradients of one 8192-position tile of the train cell) under
@@ -3610,6 +3837,9 @@ def main() -> int:
     # ---- 5c. main path: training across 4 ranks ----
     reset_launches(counters)
     totals["flash_attention"] += phase_train_dist(dev, smi, train_metrics)
+    # ---- 5d. main path: training over model shards ----
+    reset_launches(counters)
+    totals["flash_attention"] += phase_train_tp(dev, smi)
 
     # ---- 6. checkpoint / resume and the serving path at Sec. V ----
     phase_checkpoint(smi)

@@ -3,13 +3,15 @@
 Twin of :mod:`repro.launch.mesh` over ``torch.distributed``. The reference
 lays its USEC workers on the ``"data"`` axis of a device mesh and runs them
 as one SPMD program; here each rank of an initialized process group is one
-process, and the mesh's one dim ``"data"`` spans all of them. A rank owns a
-contiguous run of the workers (:func:`workers_of`): one worker a rank when
-there are as many ranks as workers, several when there are fewer.
-
-Model shards (the reference's ``"model"`` axis) are ROADMAP.md Queue 1 item
-13c and raise. :func:`make_production_mesh` keeps the reference's production
-shapes as plain data for the dry-run (item 13d); it builds no process group.
+process. With one model shard a worker the mesh's one dim ``"data"`` spans
+all of them; with M it is ``("data", "model")`` of D x M ranks, rank
+``d * M + m`` (the reference's device order for ``make_mesh((D, M), ("data",
+"model"))``): the M ranks of a data index hold one worker's model between
+them, and the D ranks of a model index meet at the master combine. A data
+index owns a contiguous run of the workers (:func:`workers_of`): one worker
+when there are as many data indices as workers, several when there are
+fewer. :func:`make_production_mesh` keeps the reference's production shapes
+as plain data for the dry-run (item 13d); it builds no process group.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 class MeshSpec(NamedTuple):
@@ -30,8 +33,8 @@ def make_production_mesh(multi_pod: bool = False) -> MeshSpec:
     """(16, 16) data x model single pod; (2, 16, 16) pod x data x model for
     the reference's 512-chip two-pod dry-run."""
     if multi_pod:
-        return MeshSpec((2, 16, 16), ("pod", DATA_AXIS, "model"))
-    return MeshSpec((16, 16), (DATA_AXIS, "model"))
+        return MeshSpec((2, 16, 16), ("pod", DATA_AXIS, MODEL_AXIS))
+    return MeshSpec((16, 16), (DATA_AXIS, MODEL_AXIS))
 
 
 def workers_of(rank: int, world: int, n_workers: int) -> range:
@@ -48,25 +51,51 @@ def workers_of(rank: int, world: int, n_workers: int) -> range:
 
 def make_worker_mesh(n_workers: int, n_model: int = 1,
                      device_type: Optional[str] = None):
-    """A one-dim ``DeviceMesh`` named ``"data"`` over every rank of the
-    initialized default process group, for ``n_workers`` USEC workers.
+    """A ``DeviceMesh`` over every rank of the initialized default process
+    group, for ``n_workers`` USEC workers of ``n_model`` model shards each:
+    one dim ``"data"`` when ``n_model`` is 1, else ``("data", "model")`` of
+    shape ``(world // n_model, n_model)``, rank ``d * n_model + m``.
 
     ``device_type`` defaults to ``"cuda"`` under NCCL and ``"cpu"``
     otherwise; a CUDA rank sets its device before calling this. Raises when
-    the ranks do not split the workers evenly, and for ``n_model > 1``."""
+    ``n_model`` does not divide the world or the data indices do not split
+    the workers evenly."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    if n_model > 1:
-        raise NotImplementedError(
-            "model shards within a worker (n_model > 1) are ROADMAP.md "
-            "Queue 1 item 13c, not ported to repro_torch yet")
     if not dist.is_initialized():
         raise RuntimeError("make_worker_mesh needs an initialized default "
                            "process group")
     world = dist.get_world_size()
-    workers_of(0, world, n_workers)
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"{n_model} model shards do not divide a world of "
+                         f"{world} ranks")
+    workers_of(0, world // n_model, n_workers)
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (world,),
-                            mesh_dim_names=(DATA_AXIS,))
+    if n_model == 1:
+        return init_device_mesh(device_type, (world,),
+                                mesh_dim_names=(DATA_AXIS,))
+    return init_device_mesh(device_type, (world // n_model, n_model),
+                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+
+
+def coordinates(mesh) -> Tuple[int, int]:
+    """(data index, model index) of this rank in ``mesh``; the model index
+    is 0 on a one-dim mesh."""
+    names = mesh.mesh_dim_names
+    m = mesh.get_local_rank(MODEL_AXIS) if MODEL_AXIS in names else 0
+    return mesh.get_local_rank(DATA_AXIS), m
+
+
+def data_group(mesh):
+    """The ranks of this rank's model index: the master combine's group."""
+    return mesh.get_group(DATA_AXIS)
+
+
+def model_group(mesh):
+    """The ranks holding this rank's worker's model, or None on a one-dim
+    mesh."""
+    if MODEL_AXIS not in mesh.mesh_dim_names:
+        return None
+    return mesh.get_group(MODEL_AXIS)

@@ -14,16 +14,24 @@ with per-step preemption/straggler simulation driven by --churn and
 On one process the N workers run as a loop on one device (``--device``,
 CUDA unless named). Under ``python -m torch.distributed.run`` (``WORLD_SIZE``
 set) each rank joins one process group (NCCL on ``cuda:LOCAL_RANK``, gloo
-with ``--device cpu``) and runs its contiguous run of the workers
+with ``--device cpu``). With ``--model-shards M`` the world is a ("data",
+"model") mesh of D x M ranks (rank d * M + m): the M ranks of a data index
+hold one worker's model between them, cut by the sharding rules
+(:mod:`repro_torch.launch.sharding`), and run its micro-steps tensor-
+parallel. Each data index runs its contiguous run of the workers
 (:func:`repro_torch.launch.mesh.workers_of`); the workers meet at one
-all-reduce a step. Every rank draws the same seeded scheduler, churn, speed
-and straggler numbers, and each step the ranks compare a digest of their
-plans and raise if they differ. Rank 0 prints the log and writes the
-checkpoints; a checkpoint resumes at any rank count. At the end rank 0
-prints what each rank ran: its workers, micro-steps, attention kernel
-launches, step times, bytes all-reduced and peak device memory. Several
-model shards per worker (``--model-shards > 1``) are ROADMAP.md Queue 1
-item 13c and raise.
+all-reduce a step over the data group. Every rank draws the same seeded
+scheduler, churn, speed and straggler numbers, and each step all ranks
+compare a digest of their plans and raise if they differ. Rank 0 prints
+the log and writes the checkpoints (gathered whole over its model group);
+a checkpoint resumes at any data x model layout. At the end rank 0 prints
+what each rank ran: its workers and model index, micro-steps, attention
+kernel launches, step times, the step losses and gradient norms, bytes
+all-reduced by the master combine and by the model group, and peak device
+memory. In ``dp`` mode (``train_mode``) every leaf is replicated, so model
+ranks compute the same step on whole weights, as in the reference; in
+``fsdp`` mode the rules' data-axis entries are kept whole (a copy per data
+index) and only the ``"model"`` dims are cut.
 
 Run (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain
 PyTorch versions on the host):
@@ -35,6 +43,9 @@ PyTorch versions on the host):
   python -m torch.distributed.run --standalone --nproc-per-node 4 \\
       -m repro_torch.launch.train --arch stablelm-1.6b --reduced \\
       --workers 4 --device cpu
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch glm4-9b --reduced --workers 2 \\
+      --model-shards 2 --device cpu
 """
 
 from __future__ import annotations
@@ -122,14 +133,15 @@ def main(argv=None):
                     help="torch device (default: the current CUDA device; "
                          "raises without one)")
     args = ap.parse_args(argv)
-    if args.model_shards > 1:
-        raise NotImplementedError(
-            "--model-shards > 1 shards each worker's model over several "
-            "cards: ROADMAP.md Queue 1 item 13c (not ported to repro_torch "
-            "yet)")
 
     import torch.distributed as dist
 
+    if args.model_shards > 1 and not (dist.is_initialized()
+                                      or "WORLD_SIZE" in os.environ):
+        raise ValueError(
+            f"--model-shards {args.model_shards} splits each worker's model "
+            "over that many ranks: run under python -m "
+            "torch.distributed.run with a world of D x model shards")
     owned, device = join_process_group(args.device)
     try:
         return _train(args, device)
@@ -148,8 +160,15 @@ def _train(args, device):
     from repro_torch.core import MarkovChurnTrace, USECScheduler, cyclic_placement
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.launch.mesh import make_worker_mesh, workers_of
+    from repro_torch.launch.mesh import (
+        coordinates,
+        data_group,
+        make_worker_mesh,
+        model_group,
+        workers_of,
+    )
     from repro_torch.models import build_model
+    from repro_torch.models.parallel import ModelShards
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.runtime import checkpoint as ckpt
     from repro_torch.runtime.compression import init_state as comp_init
@@ -164,17 +183,26 @@ def _train(args, device):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    bundle = build_model(cfg, device=device)
+    device = torch.device(device) if device is not None else None
 
-    n = args.workers
-    group, rank, world = None, 0, 1
+    n, n_model = args.workers, args.model_shards
+    group, shards, rank, world = None, None, 0, 1
+    data_index, n_data, model_index = 0, 1, 0
     if dist.is_initialized():
-        group = make_worker_mesh(n, device_type=bundle.device.type).get_group()
-        rank, world = dist.get_rank(group), dist.get_world_size(group)
+        dev_type = (device.type if device is not None else "cuda")
+        mesh = make_worker_mesh(n, n_model, device_type=dev_type)
+        group = data_group(mesh)
+        rank, world = dist.get_rank(), dist.get_world_size()
+        data_index, model_index = coordinates(mesh)
+        n_data = world // n_model
+        if n_model > 1:
+            shards = ModelShards(model_group(mesh), n_model, model_index)
         # NCCL gathers on the card, gloo on the host.
-        comm_device = (bundle.device if dist.get_backend(group) == "nccl"
+        comm_device = (torch.device("cuda", torch.cuda.current_device())
+                       if dist.get_backend() == "nccl"
                        else torch.device("cpu"))
-    mine = workers_of(rank, world, n)
+    bundle = build_model(cfg, device=device, shards=shards)
+    mine = workers_of(data_index, n_data, n)
     log = print if rank == 0 else (lambda *a, **k: None)
     g_tiles = args.tiles_per_worker * n
     placement = cyclic_placement(n, g_tiles, args.replication)
@@ -214,16 +242,15 @@ def _train(args, device):
     if args.resume and args.ckpt_dir:
         latest = ckpt.latest_checkpoint(args.ckpt_dir)
         if latest:
-            start, tree, extra = ckpt.restore_checkpoint(
-                latest, {"params": params, "opt": opt})
-            params, opt = tree["params"], tree["opt"]
+            start, params, opt, extra = ckpt.restore_train_state(
+                latest, params, opt, cfg, shards)
             if "speeds" in extra:
                 sched.estimator._s = np.asarray(extra["speeds"])
             log(f"resumed from {latest} at step {start}")
 
     wall = 0.0
     metrics = None
-    step_s, micro_steps = [], 0
+    step_s, micro_steps, losses, grad_norms = [], 0, [], []
     launches0 = flash_attention_cuda.launches
     for step in range(start, args.steps):
         avail = churn.available
@@ -238,7 +265,7 @@ def _train(args, device):
                         stragglers=dropped, b_max=b_max)
         lr = warmup_cosine(step, args.lr, 10, args.steps)
         if group is not None:
-            check_plans_agree(group, comm_device, step, plan_digest(
+            check_plans_agree(None, comm_device, step, plan_digest(
                 np.asarray(sorted(avail)), np.asarray(sorted(dropped)),
                 staged.slot_of, bp.blk_slot, bp.blk_include, bp.n_blocks,
                 np.float64(float(lr))))
@@ -250,6 +277,8 @@ def _train(args, device):
         if bundle.device.type == "cuda":
             torch.cuda.synchronize(bundle.device)
         step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        grad_norms.append(float(metrics["grad_norm"]))
         # Workers report measured speeds (Algorithm 1 lines 14-15).
         loads = {w: float(splan.plan.loads()[w]) for w in avail}
         durations = {w: float(loads[w] / speeds_now[w]) for w in avail
@@ -265,26 +294,32 @@ def _train(args, device):
                 f"avail={len(avail)} dropped={list(dropped)}",
                 flush=True,
             )
-        if rank == 0 and args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            ckpt.save_checkpoint(
-                args.ckpt_dir, step + 1, {"params": params, "opt": opt},
+        if (data_index == 0 and args.ckpt_dir
+                and (step + 1) % args.ckpt_every == 0):
+            ckpt.save_train_state(
+                args.ckpt_dir, step + 1, params, opt, cfg, shards,
                 extra={"speeds": sched.estimator.speeds.tolist()},
-            )
+                write=rank == 0)
     log(f"done: {args.steps - start} steps, simulated wall time {wall:.2f} "
         f"(speed-aware USEC assignment) on {bundle.device}", flush=True)
     if group is not None:
+        tp = shards.stats if shards is not None else {"collectives": 0,
+                                                      "bytes": 0}
         report = {
-            "workers": list(mine), "backend": dist.get_backend(group),
+            "workers": list(mine), "model_index": model_index,
+            "backend": dist.get_backend(group),
             "device": str(bundle.device), "micro_steps": micro_steps,
             "attention_kernel_launches":
                 flash_attention_cuda.launches - launches0,
-            "step_s": step_s, "reduced_bytes": step_fn.stats["bytes"],
+            "step_s": step_s, "losses": losses, "grad_norms": grad_norms,
+            "reduced_bytes": step_fn.stats["bytes"],
             "collectives": step_fn.stats["collectives"],
+            "tp_bytes": tp["bytes"], "tp_collectives": tp["collectives"],
             "max_memory_allocated": (
                 torch.cuda.max_memory_allocated(bundle.device)
                 if bundle.device.type == "cuda" else None)}
         reports = [None] * world
-        dist.all_gather_object(reports, report, group=group)
+        dist.all_gather_object(reports, report)
         for r, rep in enumerate(reports):
             log(f"rank {r} of {world}: {json.dumps(rep)}", flush=True)
     return float(metrics["loss"]) if metrics is not None else None

@@ -244,17 +244,103 @@ def attention_train(
     plain version on the host; like the reference's, the kernel route has
     no gradient, and on CUDA it raises under grad). ``"chunked"`` takes
     :func:`long_attention` above ``cfg.attn_chunk`` (differentiable on
-    either device) and :func:`full_attention` otherwise.
+    either device) and :func:`full_attention` otherwise. (Over model
+    shards: :func:`attention_parts`.)
     """
-    b, s, _ = x.shape
-    q, k, v = qkv(p, x, cfg, positions)
+    return attention_parts(p, x, cfg, positions, window, causal,
+                           attn_impl)[1]
+
+
+def _attend(q, k, v, cfg, window, causal, attn_impl):
+    b, s = q.shape[:2]
     if attn_impl == "pallas":
         o = _flash(q, k, v, causal, window)
     elif attn_impl == "chunked" and s > cfg.attn_chunk:
         o = long_attention(q, k, v, causal, window, cfg.attn_chunk)
     else:
-        o = full_attention(q, k, v, _square_mask(s, causal, window, x.device)[None])
-    return o.reshape(b, s, -1) @ p["wo"]
+        o = full_attention(q, k, v, _square_mask(s, causal, window,
+                                                 q.device)[None])
+    return o.reshape(b, s, -1)
+
+
+def _kv_for_heads(k, v, heads, grp):
+    """K and V for the query heads ``heads`` (kv head ``h // grp`` each):
+    the kv heads they read, each once, when the heads fall into equal runs
+    per kv head (so attention's GQA grouping holds); else one per query
+    head."""
+    kv = [h // grp for h in heads]
+    uniq = sorted(set(kv))
+    run = len(heads) // len(uniq)
+    if kv == [u for u in uniq for _ in range(run)]:
+        return k[:, :, uniq[0]:uniq[-1] + 1], v[:, :, uniq[0]:uniq[-1] + 1]
+    idx = torch.tensor(kv, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def attention_parts(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+                    window: Optional[int] = None, causal: bool = True,
+                    attn_impl: str = "chunked", tp=None):
+    """(partial, whole) of :func:`attention_train`.
+
+    With ``tp`` (a :class:`repro_torch.models.parallel.ModelShards`) each
+    projection whose columns the sharding rules split (``wq``/``wk``/``wv``
+    and their biases by column, ``wo`` by row) holds this rank's slice:
+      * query heads aligned (``n_heads % M == 0``): this rank attends over
+        its H/M query heads and its ``wo`` rows give a partial sum. K and V
+        are this rank's own heads when ``n_kv_heads % M == 0``; otherwise
+        (a split through a head, as glm4-9b's 2 x 128 over 4) they are
+        gathered whole and each local query head reads kv head
+        ``h // (H / Hk)``.
+      * query heads not aligned (the ``wq`` split crosses a head, as
+        recurrentgemma-2b's 10 heads over 4): q, k and v are gathered
+        whole, every rank attends over all heads, and takes its columns of
+        the output before its ``wo`` rows.
+    RoPE runs on whole heads, after any gather.
+    """
+    from .parallel import (
+        copy_to_model,
+        gather_from_model,
+        over,
+        slice_to_model,
+    )
+
+    b, s, _ = x.shape
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qtp = over(tp, p["wq"].shape[-1], h * hd)
+    ktp = over(tp, p["wk"].shape[-1], hk * hd)
+    if qtp is None and ktp is None:
+        q, k, v = qkv(p, x, cfg, positions)
+        return None, _attend(q, k, v, cfg, window, causal, attn_impl) @ p["wo"]
+    x_tp = copy_to_model(x, tp)
+
+    def proj(w, bias, split):
+        y = (x_tp if split else x) @ p[w]
+        return y + p[bias] if cfg.qkv_bias else y
+
+    q = proj("wq", "bq", qtp is not None)
+    k = proj("wk", "bk", ktp is not None)
+    v = proj("wv", "bv", ktp is not None)
+    aligned = qtp is not None and h % tp.size == 0
+    own_kv = aligned and ktp is not None and hk % tp.size == 0
+    if not own_kv:
+        k, v = (gather_from_model(t, ktp) for t in (k, v))
+        if aligned:  # local heads read the whole K, V: partial gradients
+            k, v = copy_to_model(k, tp), copy_to_model(v, tp)
+    if not aligned:
+        q = gather_from_model(q, qtp)
+    q = rope(q.reshape(b, s, -1, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(b, s, -1, hd), positions, cfg.rope_theta)
+    v = v.reshape(b, s, -1, hd)
+    if aligned and not own_kv:
+        hl = h // tp.size
+        k, v = _kv_for_heads(k, v, range(tp.rank * hl, (tp.rank + 1) * hl),
+                             h // hk)
+    o = _attend(q, k, v, cfg, window, causal, attn_impl)
+    if qtp is None:
+        return None, o @ p["wo"]
+    if not aligned:
+        o = slice_to_model(o, tp)
+    return o @ p["wo"], None
 
 
 def attention_prefill(

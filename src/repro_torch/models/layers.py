@@ -16,6 +16,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .parallel import copy_to_model
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 _INIT_CHUNK = 1 << 24  # fp32 elements drawn at once (64 MB)
@@ -115,18 +117,29 @@ def init_mlp(generator: torch.Generator, d: int, f: int, act: str, dtype,
 
 
 def apply_mlp(p: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    return mlp_parts(p, x, act)[1]
+
+
+def mlp_parts(p: Dict, x: torch.Tensor, act: str, tp=None):
+    """(partial, whole) of :func:`apply_mlp`. Split (``tp``): ``w_gate`` and
+    ``w_up`` by column, ``w_down`` by row; the activation runs on the local
+    columns, and each rank's product is a partial sum (reduced by
+    :func:`repro_torch.models.parallel.finish`)."""
+    x = copy_to_model(x, tp)
     if act in GATED_ACTS:
         gate_fn = F.silu if act == "swiglu" else _gelu
         g = gate_fn(x @ p["w_gate"])
-        return (g * (x @ p["w_up"])) @ p["w_down"]
-    h = x @ p["w_up"]
-    if act == "gelu":
-        h = _gelu(h)
-    elif act == "squared_relu":
-        h = torch.square(F.relu(h))
+        out = (g * (x @ p["w_up"])) @ p["w_down"]
     else:
-        raise ValueError(act)
-    return h @ p["w_down"]
+        h = x @ p["w_up"]
+        if act == "gelu":
+            h = _gelu(h)
+        elif act == "squared_relu":
+            h = torch.square(F.relu(h))
+        else:
+            raise ValueError(act)
+        out = h @ p["w_down"]
+    return (out, None) if tp is not None else (None, out)
 
 
 def causal_depthwise_conv(

@@ -17,6 +17,13 @@ bf16 model too: the MoE router, the ssm ``A_log``/``D``/``dt_bias``, the
 rglru ``b_a``/``b_i``/``lam``); :func:`params_from_reference` carries a
 reference tree (as numpy) across. ``loss_fn`` is differentiable with
 autograd; the serving entry points take parameters that require no grad.
+
+Model shards (``build_model(cfg, shards=ModelShards(...))``): ``init``
+draws the whole tree from the generator, as one shard does, and keeps this
+rank's cut (:func:`repro_torch.models.parallel.shard_params`), so every
+shard count trains the same weights; ``loss_fn`` runs the layers tensor-
+parallel over the model group (the embedding and the loss vocabulary-
+parallel). ``prefill`` and ``decode_step`` take whole weights.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from repro_torch.device import resolve_device
 
 from .layers import apply_norm, dense_init, dtype_of, init_norm, normal_
 from .losses import chunked_cross_entropy, lm_loss
+from .parallel import ModelShards, over, reduce_from_model, shard_params
 from .transformer import (
     init_cache,
     init_stack,
@@ -56,18 +64,27 @@ class ModelBundle:
     decode_step: Callable  # (params, cache, token, cache_pos) -> (cache, logits)
     device: torch.device
     embed_batch: Callable  # (params, batch) -> (x, loss_mask or None)
+    shards: Optional[ModelShards] = None  # this rank's model group
 
 
-def build_model(cfg, device=None) -> ModelBundle:
+def build_model(cfg, device=None, shards: Optional[ModelShards] = None
+                ) -> ModelBundle:
     """The bundle for ``cfg`` on ``device`` (CUDA unless named; raises
-    without a GPU and no explicit device)."""
+    without a GPU and no explicit device); ``shards``: this rank's model
+    group, or None for the whole model on this process."""
     device = resolve_device(device)
     dt = dtype_of(cfg.param_dtype)
 
     def init(generator: torch.Generator) -> Dict:
         """Random weights from ``generator`` (on ``device``), every leaf
         allocated on the device in ``cfg.param_dtype`` (the reference's fp32
-        leaves in fp32)."""
+        leaves in fp32); with ``shards``, this rank's cut of them."""
+        p = init_whole(generator)
+        if shards is None:
+            return p
+        return shard_params(p, cfg, shards.size, shards.rank)
+
+    def init_whole(generator: torch.Generator) -> Dict:
         embed = torch.empty((cfg.vocab_size, cfg.d_model), dtype=dt,
                             device=device)
         p: Dict[str, Any] = {
@@ -89,8 +106,19 @@ def build_model(cfg, device=None) -> ModelBundle:
         return params["unembed"]
 
     def embed(params, tokens) -> torch.Tensor:
+        """The embedding rows of ``tokens``; vocabulary-parallel when the
+        table is this rank's slice: ids outside it give zero rows, and the
+        ranks' rows are summed (exactly: one is nonzero)."""
         tokens = torch.as_tensor(tokens, device=device).long()
-        return params["embed"][tokens]
+        table = params["embed"]
+        vtp = over(shards, table.shape[0], cfg.vocab_size)
+        if vtp is None:
+            return table[tokens]
+        n = table.shape[0]
+        local = tokens - vtp.rank * n
+        mine = (local >= 0) & (local < n)
+        rows = table[torch.clamp(local, 0, n - 1)]
+        return reduce_from_model(torch.where(mine[..., None], rows, 0), vtp)
 
     def features(a) -> torch.Tensor:
         return torch.as_tensor(a, device=device).to(dt)
@@ -115,21 +143,23 @@ def build_model(cfg, device=None) -> ModelBundle:
         metrics ``n_tokens`` and ``aux_loss``."""
         x, loss_mask = embed_batch(params, batch)
         positions = torch.arange(x.shape[1], device=device)
-        h, aux = stack_train(params["stack"], x, cfg, positions)
+        h, aux = stack_train(params["stack"], x, cfg, positions, shards)
         h = apply_norm(params["final_norm"], h, cfg.norm)
+        unembed = unembed_of(params)
+        vtp = over(shards, unembed.shape[-1], cfg.vocab_size)
         if cfg.decoder:
             tokens = torch.as_tensor(batch["tokens"], device=device).long()
             if cfg.frontend == "vision_patches":
                 # Zero tokens under the patches; the mask drops them.
                 tokens = torch.cat([tokens.new_zeros(
                     batch["patches"].shape[:2]), tokens], dim=1)
-            nll, m = lm_loss(h, unembed_of(params), tokens,
-                             chunk=cfg.loss_chunk, loss_mask=loss_mask)
+            nll, m = lm_loss(h, unembed, tokens, chunk=cfg.loss_chunk,
+                             loss_mask=loss_mask, tp=vtp)
         else:
             labels = torch.as_tensor(batch["labels"], device=device).long()
             mask = torch.ones(labels.shape, dtype=torch.float32, device=device)
-            nll, ntok = chunked_cross_entropy(h, unembed_of(params), labels,
-                                              mask, chunk=cfg.loss_chunk)
+            nll, ntok = chunked_cross_entropy(h, unembed, labels, mask,
+                                              chunk=cfg.loss_chunk, tp=vtp)
             m = {"n_tokens": ntok}
         m = dict(m, aux_loss=aux)
         n = m["n_tokens"]
@@ -156,7 +186,7 @@ def build_model(cfg, device=None) -> ModelBundle:
         return cache, logits
 
     return ModelBundle(cfg, init, loss_fn, prefill, decode_step, device,
-                       embed_batch)
+                       embed_batch, shards)
 
 
 def make_cache(cfg, batch: int, max_len: int, device=None):
@@ -175,9 +205,11 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_reference(tree, cfg, device=None) -> Dict:
+def params_from_reference(tree, cfg, device=None,
+                          shards: Optional[ModelShards] = None) -> Dict:
     """The reference's params (``jax.tree.map(np.asarray, params)``) as the
-    port's tree on ``device``, leaf for leaf with the same dtypes. Raises if
+    port's tree on ``device``, leaf for leaf with the same dtypes (with
+    ``shards``, this rank's cut, as ``init`` gives it). Raises if
     a leaf is not in ``cfg.param_dtype``, except the leaves the reference
     keeps in fp32: an MoE ``router``, and the fp32 leaves of an ssm or
     rglru layer's temporal block (:data:`_FP32_LEAVES`)."""
@@ -210,4 +242,7 @@ def params_from_reference(tree, cfg, device=None) -> Dict:
                              f"{t.dtype}, want {want(path)}")
         return t.to(device)
 
-    return carry(tree)
+    params = carry(tree)
+    if shards is None:
+        return params
+    return shard_params(params, cfg, shards.size, shards.rank)

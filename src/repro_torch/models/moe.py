@@ -25,7 +25,8 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import _gelu, apply_mlp, dense_init, dtype_of, init_mlp
+from .layers import _gelu, dense_init, dtype_of, init_mlp, mlp_parts
+from .parallel import copy_to_model, over
 
 
 def init_moe(generator: torch.Generator, cfg, device=None, lead=()) -> Dict:
@@ -58,24 +59,48 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor
     A stream longer than ``cfg.moe_chunk`` tokens is padded with zero rows
     to whole chunks and routed chunk by chunk (each chunk has its own
     capacity; the padded rows take slots after every real token of the last
-    chunk); ``aux`` is the mean over chunks."""
+    chunk); ``aux`` is the mean over chunks. (Over model shards:
+    :func:`moe_parts`.)"""
+    parts, aux = moe_parts(p, x, cfg)
+    return parts[1], aux
+
+
+def moe_parts(p: Dict, x: torch.Tensor, cfg, tp=None):
+    """((partial, whole), aux) of :func:`apply_moe`. With ``tp`` the experts
+    are split over the model group (E/M a rank, expert parallelism): the
+    router and the routing run whole on every rank (the same capacity and
+    drops), each rank runs its own experts on the tokens routed to them,
+    and its combine is a partial sum; the shared experts are split by
+    column and row, as the MLP. The tokens and the combine weights enter
+    the sharded region through ``copy_to_model``, so the router's gradient
+    sums every rank's experts."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
+    etp = over(tp, p["w_up"].shape[0], cfg.n_experts)
     chunk = min(cfg.moe_chunk, t)
     if t > chunk:
         nchunks = -(-t // chunk)
         xp = F.pad(xt, (0, 0, 0, nchunks * chunk - t))
-        outs, auxs = zip(*(moe_chunk(p, xc, cfg)
+        outs, auxs = zip(*(moe_chunk(p, xc, cfg, etp)
                            for xc in xp.split(chunk)))
         out = torch.cat(outs)[:t].reshape(b, s, d)
         aux = torch.stack(auxs).mean()
     else:
-        out_t, aux = moe_chunk(p, xt, cfg)
+        out_t, aux = moe_chunk(p, xt, cfg, etp)
         out = out_t.reshape(b, s, d)
+    parts = [None, None]
+    parts[etp is None] = out
     if cfg.n_shared_experts:
-        out = out + apply_mlp(p["shared"], x, cfg.act).reshape(b, s, d)
-    return out, aux
+        shared = p["shared"]
+        stp = over(tp, shared["w_up"].shape[-1],
+                   cfg.moe_d_ff * cfg.n_shared_experts)
+        sp, sw = mlp_parts(shared, x, cfg.act, stp)
+        for i, y in ((0, sp), (1, sw)):
+            if y is not None:
+                y = y.reshape(b, s, d)
+                parts[i] = y if parts[i] is None else parts[i] + y
+    return tuple(parts), aux
 
 
 class Routing(NamedTuple):
@@ -169,10 +194,23 @@ def aux_loss(r: Routing) -> torch.Tensor:
     return e * torch.sum(me * pe)
 
 
-def moe_chunk(p: Dict, xt: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Route one chunk of tokens. xt: (T, D) -> ((T, D), aux)."""
+def moe_chunk(p: Dict, xt: torch.Tensor, cfg, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route one chunk of tokens. xt: (T, D) -> ((T, D), aux). With ``tp``
+    the experts held here are this rank's E/M and the output is their
+    partial sum (:func:`moe_parts`)."""
     r = route(p["router"], xt, cfg)
-    return combine(experts(p, dispatch(xt, r), cfg.act), r), aux_loss(r)
+    if tp is None:
+        return combine(experts(p, dispatch(xt, r), cfg.act), r), aux_loss(r)
+    n_local = p["w_up"].shape[0]
+    lo = tp.rank * n_local
+    mine = (r.idx >= lo) & (r.idx < lo + n_local)
+    # This rank's buffers: its experts' slots only (the others' choices go
+    # to the spare row, as a dropped choice does).
+    local = r._replace(idx=r.idx - lo, keep=r.keep & mine,
+                       gates=copy_to_model(r.gates, tp) * mine,
+                       probs=r.probs[:, lo:lo + n_local])
+    xin = dispatch(copy_to_model(xt, tp), local)
+    return combine(experts(p, xin, cfg.act), local), aux_loss(r)
 
 
 def moe_chunk_plain(p: Dict, xt: torch.Tensor, cfg):

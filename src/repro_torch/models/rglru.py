@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import _gelu, causal_depthwise_conv, dense_init, dtype_of, normal_
+from .parallel import copy_to_model, gather_from_model, over
 
 F32 = torch.float32
 _C = 8.0
@@ -109,6 +110,33 @@ def rglru_prefill(p: Dict, u: torch.Tensor, cfg):
 def apply_rglru_train(p: Dict, u: torch.Tensor, cfg) -> torch.Tensor:
     """u: (B, S, D) -> (B, S, D), forward only (the prefill's output)."""
     return rglru_prefill(p, u, cfg)[0]
+
+
+def rglru_parts(p: Dict, u: torch.Tensor, cfg, tp=None):
+    """(partial, whole) of :func:`apply_rglru_train`. Split over the model
+    group, each rank holds its channels of ``w_x``, ``w_gate``, ``conv_w``,
+    ``lam``, ``b_a``, ``b_i``, the columns of ``w_a`` and ``w_i`` and the
+    rows of ``w_out``. The conv is per channel, so it runs on the local
+    channels; the gates read every channel of the conv output, which is
+    gathered whole (``w_a @`` and ``w_i @`` are products over all of them)
+    and give this rank's channels; the scan is per channel again, and the
+    local rows of ``w_out`` give a partial sum."""
+    dr = cfg.rglru_expand * cfg.d_model
+    tp = over(tp, p["w_x"].shape[-1], dr)
+    if tp is None:
+        return None, rglru_prefill(p, u, cfg)[0]
+    u = copy_to_model(u, tp)
+    x = u @ p["w_x"]
+    gate = _gelu((u @ p["w_gate"]).to(F32))
+    xc, _ = causal_depthwise_conv(x, p["conv_w"])
+    xf_all = copy_to_model(gather_from_model(xc, tp), tp).to(F32)
+    r = torch.sigmoid(xf_all @ p["w_a"].to(F32) + p["b_a"])
+    i = torch.sigmoid(xf_all @ p["w_i"].to(F32) + p["b_i"])
+    log_a = -_C * F.softplus(p["lam"]) * r
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) \
+        * (i * xc.to(F32))
+    h = linear_scan(torch.exp(log_a), b)
+    return _out(p, h, gate, u.dtype), None
 
 
 def init_rglru_cache(cfg, batch: int, device=None, lead=()) -> Dict:

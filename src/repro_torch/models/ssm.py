@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import causal_depthwise_conv, dense_init, dtype_of, normal_
+from .parallel import copy_to_model, gather_from_model, over, slice_to_model
 
 F32 = torch.float32
 
@@ -127,12 +128,14 @@ def ssd_chunked(x, a, b, c, chunk):
     return y[:, :s].to(x.dtype)
 
 
-def _in_proj(params: Dict, u: torch.Tensor, cfg, conv_state=None):
+def _in_proj(params: Dict, u: torch.Tensor, cfg, conv_state=None, proj=None):
     """The block's input side: (z, xbc before the conv, x, B, C, dt, the
     conv's new state). x, B, C are the conv's SiLU output in ``u``'s dtype;
-    dt = softplus(dt_raw + dt_bias) in fp32."""
+    dt = softplus(dt_raw + dt_bias) in fp32. ``proj``: ``u @ w_in`` when
+    the caller has it."""
     d_in, n, _ = _dims(cfg)
-    proj = u @ params["w_in"]
+    if proj is None:
+        proj = u @ params["w_in"]
     z, xbc, dt_raw = _split_proj(proj, cfg)
     xbc_c, conv_state = causal_depthwise_conv(xbc, params["conv_w"],
                                               conv_state)
@@ -144,31 +147,53 @@ def _in_proj(params: Dict, u: torch.Tensor, cfg, conv_state=None):
     return z, xbc, x, b, c, dt, conv_state
 
 
-def _out(params: Dict, y, xh, z):
+def _out(params: Dict, y, xh, z, tp=None):
     """D skip, gated norm and out-projection of the heads' output ``y``
-    (B, S, H, P) with the heads' input ``xh``."""
+    (B, S, H, P) with the heads' input ``xh``; with ``tp`` (``w_out``'s rows
+    split) this rank's columns of the normed output times its rows: a
+    partial sum."""
     bsz, s = y.shape[:2]
     y = y + params["D"][None, None, :, None] * xh.to(F32)
     y = _gated_norm(y.reshape(bsz, s, -1), z, params["norm_scale"])
     # y is fp32 (the fp32 D made it so): JAX promotes y @ w_out to fp32.
-    return y @ params["w_out"].to(F32)
+    return slice_to_model(y, tp) @ params["w_out"].to(F32)
 
 
-def ssm_forward(params: Dict, z, x, b, c, dt, cfg) -> torch.Tensor:
+def ssm_forward(params: Dict, z, x, b, c, dt, cfg, tp=None) -> torch.Tensor:
     """The chunked SSD over the whole sequence from :func:`_in_proj`'s
-    pieces: (B, S, D)."""
+    pieces: (B, S, D) (a partial sum with ``tp``, see :func:`_out`)."""
     a = -torch.exp(params["A_log"])                            # (H,)
     bsz, s, _ = x.shape
     xh = x.reshape(bsz, s, -1, cfg.ssm_head_dim)
     y = ssd_chunked(xh * dt[..., None].to(xh.dtype), dt * a, b, c,
                     cfg.ssm_chunk)
-    return _out(params, y, xh, z)
+    return _out(params, y, xh, z, tp)
 
 
 def apply_ssm_train(params: Dict, u: torch.Tensor, cfg) -> torch.Tensor:
     """u: (B, S, D) -> (B, S, D), forward only (the prefill's output)."""
-    z, _, x, b, c, dt, _ = _in_proj(params, u, cfg)
-    return ssm_forward(params, z, x, b, c, dt, cfg)
+    return ssm_parts(params, u, cfg)[1]
+
+
+def ssm_parts(params: Dict, u: torch.Tensor, cfg, tp=None):
+    """(partial, whole) of :func:`apply_ssm_train`. Over a model group the
+    block takes the plain route: the split ``w_in`` output, ``conv_w`` and
+    ``norm_scale`` are gathered whole, the conv and the SSD scan run whole
+    on every rank, and a split ``w_out`` reads this rank's columns of the
+    normed output (a partial sum)."""
+    d_in, n, h = _dims(cfg)
+    in_tp = over(tp, params["w_in"].shape[-1], 2 * d_in + 2 * n + h)
+    out_tp = over(tp, params["w_out"].shape[-2], d_in)
+    params = dict(params)
+    for name, width in (("conv_w", d_in + 2 * n), ("norm_scale", d_in)):
+        params[name] = gather_from_model(
+            params[name], over(tp, params[name].shape[-1], width))
+    proj = None
+    if in_tp is not None:
+        proj = gather_from_model(copy_to_model(u, tp) @ params["w_in"], tp)
+    z, _, x, b, c, dt, _ = _in_proj(params, u, cfg, proj=proj)
+    y = ssm_forward(params, z, x, b, c, dt, cfg, out_tp)
+    return (y, None) if out_tp is not None else (None, y)
 
 
 # ---------------------------------------------------------------------- #

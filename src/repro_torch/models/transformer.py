@@ -36,7 +36,8 @@ from . import attention as attn_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
-from .layers import apply_mlp, apply_norm, dtype_of, init_mlp, init_norm
+from .layers import apply_mlp, apply_norm, dtype_of, init_mlp, init_norm, mlp_parts
+from .parallel import finish, over
 
 
 # ---------------------------------------------------------------------- #
@@ -119,44 +120,54 @@ def _ffn_residual(kind: str, p: Dict, x, cfg):
     return x + f.to(x.dtype)
 
 
-def _temporal_train(kind: str, norm1: Dict, p: Dict, x, cfg, positions):
-    """A layer's pre-norm temporal mixer: its sublayer output."""
+def _temporal_train(kind: str, norm1: Dict, p: Dict, x, cfg, positions,
+                    tp=None):
+    """A layer's pre-norm temporal mixer: its sublayer output's (partial,
+    whole) parts (:func:`repro_torch.models.parallel.finish`)."""
     h = apply_norm(norm1, x, cfg.norm)
     if kind in ("attn", "lattn"):
-        return attn_mod.attention_train(p, h, cfg, positions,
+        return attn_mod.attention_parts(p, h, cfg, positions,
                                         window=_window(kind, cfg),
-                                        causal=cfg.decoder)
+                                        causal=cfg.decoder, tp=tp)
     if kind == "rglru":
-        return rglru_mod.apply_rglru_train(p, h, cfg)
-    return ssm_mod.apply_ssm_train(p, h, cfg)
+        return rglru_mod.rglru_parts(p, h, cfg, tp)
+    return ssm_mod.ssm_parts(p, h, cfg, tp)
 
 
-def _ffn_train(norm2: Dict, p: Dict, x, cfg):
-    """A layer's pre-norm FFN: (its sublayer output, the MoE aux)."""
-    return _apply_ffn(p, apply_norm(norm2, x, cfg.norm), cfg)
+def _ffn_train(norm2: Dict, p: Dict, x, cfg, tp=None):
+    """A layer's pre-norm FFN: (its sublayer output's parts, the MoE aux)."""
+    h = apply_norm(norm2, x, cfg.norm)
+    if cfg.is_moe:
+        return moe_mod.moe_parts(p, h, cfg, tp)
+    ftp = over(tp, p["w_up"].shape[-1], cfg.d_ff)
+    return mlp_parts(p, h, cfg.act, ftp), torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 def _layer_train(kind: str, p: Dict, x, cfg, positions,
-                 save_outs: bool = False):
+                 save_outs: bool = False, tp=None):
     """One layer over a full sequence with its MoE aux (0 for a dense or
     ssm layer); attention is causal in a decoder, bidirectional in an
     encoder. The reference's ``_seq_shard`` is a sharding constraint, a
     no-op on one card. ``save_outs``: checkpoint each sublayer on its own,
     so autograd keeps the residual stream at the sublayer boundaries (the
     reference's saved ``temporal_out`` and ``ffn_out``) and recomputes
-    only the sublayers' insides."""
+    only the sublayers' insides. ``tp``: the model group; each sublayer's
+    partial sums are reduced outside its checkpoint, so the recompute
+    never runs that reduction again (the reference's reason for the
+    policy; a gather inside a sublayer does run again)."""
     def run(fn, *args):
         if save_outs:
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
-    t = run(_temporal_train, kind, p["norm1"], p["temporal"], x, cfg,
-            positions)
+    t = finish(run(_temporal_train, kind, p["norm1"], p["temporal"], x, cfg,
+                   positions, tp), tp)
     x = x + t.to(x.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind != "ssm":
-        f, aux = run(_ffn_train, p["norm2"], p["ffn"], x, cfg)
-        x = x + f.to(x.dtype)
+        parts, aux = run(_ffn_train, p["norm2"], p["ffn"], x, cfg, tp)
+        x = x + finish(parts, tp).to(x.dtype)
     return x, aux
 
 
@@ -264,7 +275,8 @@ def _inner_factor(n: int) -> int:
     return best
 
 
-def stack_train(params: Dict, x: torch.Tensor, cfg, positions) -> Tuple[torch.Tensor, torch.Tensor]:
+def stack_train(params: Dict, x: torch.Tensor, cfg, positions,
+                tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stack over a full sequence: (h, aux), the MoE aux summed over
     layers in the reference's order. With ``cfg.remat`` and grad enabled,
     the pattern blocks recompute in the backward by the reference's
@@ -281,7 +293,12 @@ def stack_train(params: Dict, x: torch.Tensor, cfg, positions) -> Tuple[torch.Te
       input and runs its forward again in the backward.
 
     Each runs every layer's forward twice (once again in the backward); the
-    remainder layers are never checkpointed."""
+    remainder layers are never checkpointed. ``tp``: the model group
+    (:mod:`repro_torch.models.parallel`). Under the first and third
+    policies a block's recompute runs its collectives again; that is right
+    only while every rank of the group recomputes its blocks in the same
+    order, which autograd does (the same graph on every rank).
+    ``remat_save_outs`` reduces each sublayer outside its checkpoint."""
     pattern = cfg.layer_pattern
     n_rep, extra_kinds = stack_layout(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -292,7 +309,7 @@ def stack_train(params: Dict, x: torch.Tensor, cfg, positions) -> Tuple[torch.Te
         for i in range(first, last):
             for pos, kind in enumerate(pattern):
                 h, a = _layer_train(kind, _layer(params["blocks"][pos], i), h,
-                                    cfg, positions, save_outs)
+                                    cfg, positions, save_outs, tp)
                 aux = aux + a
         return h, aux
 
@@ -304,7 +321,7 @@ def stack_train(params: Dict, x: torch.Tensor, cfg, positions) -> Tuple[torch.Te
     else:
         x, aux = blocks(x, aux, 0, n_rep)
     for p_extra, kind in zip(params["extras"], extra_kinds):
-        x, a = _layer_train(kind, p_extra, x, cfg, positions)
+        x, a = _layer_train(kind, p_extra, x, cfg, positions, tp=tp)
         aux = aux + a
     return x, aux
 

@@ -11,10 +11,11 @@ at once.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.models.parallel import reduce_from_model
 from repro_torch.models.transformer import tree_leaves, tree_map, tree_unflatten
 
 
@@ -29,12 +30,25 @@ def init(params: Any) -> Dict[str, Any]:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's fp32 sum of squares."""
-    total = None
-    for x in tree_leaves(tree):
+def global_norm(tree: Any, sharded: Optional[Sequence[bool]] = None,
+                shards=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's fp32 sum of squares. Over a model
+    group (``shards``, a :class:`repro_torch.models.parallel.ModelShards`;
+    ``sharded[i]``: leaf ``i`` is this rank's slice), the sliced leaves'
+    squares are summed over the group and the replicated leaves' counted
+    once: every rank gets the whole model's norm."""
+    if shards is None or shards.size == 1:
+        sharded = None
+    total = part = None
+    for i, x in enumerate(tree_leaves(tree)):
         sq = torch.sum(torch.square(x.to(torch.float32)))
-        total = sq if total is None else total + sq
+        if sharded is not None and sharded[i]:
+            part = sq if part is None else part + sq
+        else:
+            total = sq if total is None else total + sq
+    if part is not None:
+        part = reduce_from_model(part, shards)
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
@@ -48,10 +62,14 @@ def update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     clip_norm: Optional[float] = 1.0,
+    sharded: Optional[Sequence[bool]] = None,
+    shards=None,
 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """Returns (new_params, new_state, {"grad_norm": ...}). Decoupled weight
-    decay on matrices only (ndim >= 2)."""
-    gnorm = global_norm(grads)
+    decay on matrices only (ndim >= 2). ``sharded`` and ``shards``: the
+    model group the leaves are cut over (:func:`global_norm`); the update
+    itself is element-wise, so each rank updates its slices."""
+    gnorm = global_norm(grads, sharded, shards)
     scale = None
     if clip_norm is not None:
         scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)

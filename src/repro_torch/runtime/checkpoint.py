@@ -21,7 +21,11 @@ Integrity: every leaf file's bytes are CRC32-fingerprinted at save time and
 re-checked on restore; a truncated or bit-flipped shard raises
 :class:`CheckpointCorruptError` naming the file. Checkpoints without ``crc32``
 keys restore without the check. The reference's ``shardings=`` argument
-(re-placing leaves onto another JAX mesh) has no counterpart on one card.
+re-places leaves onto another JAX mesh; here a trainer's state cut over
+model shards is gathered whole to the host before it is written
+(:func:`save_train_state`) and cut again for this rank after a restore
+(:func:`restore_train_state`), so a checkpoint taken at any data x model
+layout resumes at any other.
 """
 
 from __future__ import annotations
@@ -39,7 +43,9 @@ __all__ = [
     "CheckpointCorruptError",
     "latest_checkpoint",
     "restore_checkpoint",
+    "restore_train_state",
     "save_checkpoint",
+    "save_train_state",
 ]
 
 # dtypes npz cannot hold: widened to float32 on disk, cast back on restore.
@@ -212,3 +218,75 @@ def restore_checkpoint(path: str, like: Any) -> Tuple[int, Any, Dict[str, Any]]:
         leaves[key] = _restore_leaf(arr, proto)
     return int(manifest["step"]), _unflatten(like, leaves), \
         manifest.get("extra", {})
+
+
+def save_train_state(directory: str, step: int, params: Any, opt: Any, cfg,
+                     shards=None, extra: Optional[Dict[str, Any]] = None,
+                     write: bool = True) -> Optional[str]:
+    """Checkpoint a trainer's ``{"params": ..., "opt": ...}``. With model
+    shards (``shards``, a :class:`repro_torch.models.parallel.ModelShards`;
+    every rank of the group calls this) the params and AdamW moments are
+    gathered whole over the group, one leaf at a time onto the host, and the
+    rank with ``write`` writes them in the reference's unsharded format.
+    Returns the checkpoint path (None where nothing was written)."""
+    if shards is not None and shards.size > 1:
+        from repro_torch.models.parallel import unshard_params
+
+        def whole(tree):
+            return unshard_params(tree, cfg, shards, device="cpu")
+
+        params = whole(params)
+        opt = {"m": whole(opt["m"]), "v": whole(opt["v"]),
+               "count": opt["count"]}
+    if not write:
+        return None
+    return save_checkpoint(directory, step, {"params": params, "opt": opt},
+                           extra=extra)
+
+
+def restore_train_state(path: str, params: Any, opt: Any, cfg, shards=None
+                        ) -> Tuple[int, Any, Any, Dict[str, Any]]:
+    """(step, params, opt, extra) from a checkpoint of whole leaves, shaped
+    and placed like ``params`` and ``opt``: with model shards, restored on
+    the host and cut to this rank's slices (whatever layout wrote it)."""
+    tree = {"params": params, "opt": opt}
+    if shards is None or shards.size == 1:
+        step, tree, extra = restore_checkpoint(path, tree)
+        return step, tree["params"], tree["opt"], extra
+    import torch
+
+    from repro_torch.models.parallel import model_dims, shard_params
+
+    dims = model_dims(cfg, shards.size)
+
+    def host_like(local):
+        it = iter(dims)
+
+        def one(t):
+            d = next(it)
+            shape = list(t.shape)
+            if d is not None:
+                shape[d] *= shards.size
+            return torch.empty(shape, dtype=t.dtype, device="cpu")
+
+        return _map(one, local)
+
+    def cut(whole, like):
+        got = iter(_flatten(shard_params(whole, cfg, shards.size,
+                                         shards.rank)))
+        return _map(lambda t: next(got)[1].to(t.device), like)
+
+    like = {"params": host_like(params),
+            "opt": {"m": host_like(opt["m"]), "v": host_like(opt["v"]),
+                    "count": opt["count"]}}
+    step, tree, extra = restore_checkpoint(path, like)
+    opt_out = {"m": cut(tree["opt"]["m"], opt["m"]),
+               "v": cut(tree["opt"]["v"], opt["v"]),
+               "count": tree["opt"]["count"]}
+    return step, cut(tree["params"], params), opt_out, extra
+
+
+def _map(fn, tree):
+    """``fn`` over a tree's leaves in :func:`_flatten`'s order."""
+    leaves = {k: fn(v) for k, v in _flatten(tree)}
+    return _unflatten(tree, leaves)

@@ -24,6 +24,14 @@ and the ranks meet at one all-reduce of those sums (bucketed,
 :func:`flat_buckets`) and one ``MAX`` all-reduce of the local maxima.
 Without a group the local sum is the whole sum.
 
+With model shards (``shards``, the rank's model group) each rank holds its
+slice of the sharded leaves: the int8 values of a slice are summed over the
+rank's data group (the ranks holding the same slice), its ``ef`` is the
+slice's, and the next scale covers the whole leaf: the ``MAX`` runs over
+the data group and then over the model group, as the reference's
+``jnp.max`` over a leaf GSPMD shards over ``"model"`` followed by its
+``pmax`` over the workers.
+
 The error feedback is per worker. The reference returns its new state from
 ``shard_map`` with ``out_specs=P()`` and ``check_vma=False``: the array is
 typed as replicated, but every device keeps its own worker's ``ef`` and
@@ -119,13 +127,16 @@ class CompressedSum:
 
     ``n_workers`` is the worker count over the whole group (default: this
     process's workers times the group's size); it picks the wire dtype.
-    ``group``: the ranks to sum over, or None for one process. After
+    ``group``: the ranks to sum over, or None for one process; ``shards``:
+    this rank's model group (the scales' ``MAX`` spans it too). After
     :meth:`result`, ``collectives`` and ``wire_bytes`` count the all-reduces
     it issued and the bytes they reduced (0 without a group)."""
 
     def __init__(self, state: Dict[str, Any], n_workers: Optional[int] = None,
-                 group=None):
+                 group=None, shards=None):
         self.state, self.group = state, group
+        self.shards = shards if shards is not None and shards.size > 1 \
+            else None
         self._ef = tree_leaves(state["ef"])
         self._scale = tree_leaves(state["scale"])
         world = 1
@@ -161,15 +172,20 @@ class CompressedSum:
 
     def result(self) -> Tuple[Any, Dict[str, Any]]:
         """(the dequantized sum, the new state)."""
-        if self.group is not None:
-            import torch.distributed as dist
+        import torch.distributed as dist
 
+        if self.group is not None:
             for buf in self._bufs:
                 dist.all_reduce(buf, group=self.group)
             dist.all_reduce(self._max, op=dist.ReduceOp.MAX, group=self.group)
             self.collectives = len(self._bufs) + 1
             self.wire_bytes = sum(b.numel() * b.element_size()
                                   for b in self._bufs + [self._max])
+        if self.shards is not None:
+            dist.all_reduce(self._max, op=dist.ReduceOp.MAX,
+                            group=self.shards.group)
+            self.collectives += 1
+            self.wire_bytes += self._max.numel() * self._max.element_size()
         like = self.state["scale"]
         reduced = [q.to(torch.float32) * s
                    for q, s in zip(self._q, self._scale)]

@@ -3,8 +3,12 @@
 Twin of :mod:`repro.runtime.trainstep`. The reference runs its workers as
 one SPMD program, ``shard_map`` manual over the mesh's data axis; here they
 run on one process, or over the ranks of a ``torch.distributed`` group
-(:func:`repro_torch.launch.mesh.make_worker_mesh`), each rank a contiguous
-run of them (:func:`repro_torch.launch.mesh.workers_of`).
+(:func:`repro_torch.launch.mesh.make_worker_mesh`), each data index a
+contiguous run of them (:func:`repro_torch.launch.mesh.workers_of`). With
+model shards (the mesh's ``"model"`` dim, the bundle's ``shards``) each
+worker's model is split over the M ranks of a data index, which run the
+same micro-steps tensor-parallel (:mod:`repro_torch.models.parallel`); the
+reference gets the same from GSPMD (its ``grad_shardings``).
 
 usec mode (:func:`make_usec_train_step`)
     every worker runs ITS OWN number of micro-steps (its plan entry) over
@@ -16,18 +20,21 @@ usec mode (:func:`make_usec_train_step`)
     one bf16 accumulator and one fp32 total whatever the worker count. The
     single synchronization point, the paper's "master combine", is one
     all-reduce of the fp32 totals with the NLL and token sums, packed into
-    a few flat buffers (the reference's ``psum``). Optional int8 +
-    error-feedback compression replaces the fp32 sum (:mod:`.compression`).
+    a few flat buffers (the reference's ``psum``), over the data group: a
+    model shard's gradients are already whole for its slice. Optional int8
+    + error-feedback compression replaces the fp32 sum (:mod:`.compression`).
     Then the sum is divided by the token count and AdamW updates the
-    parameters, identically on every rank, so they stay replicated.
+    parameters, identically on every rank of a data group, so each slice
+    stays replicated over its data group; the gradient norm spans the
+    model group.
 
 fsdp mode (:func:`make_fsdp_train_step`)
     the reference's GSPMD step on one device: fp32 gradient accumulation
     over global microbatches, USEC ownership entering as per-sample weights.
 
-The reference's ``grad_shardings``, ``reduced_grad_shardings`` and
-``worker_axes`` place work on a mesh with a model axis: ROADMAP.md Queue 1
-item 13c.
+The reference's ZeRO-1 ``reduced_grad_shardings`` and its ``worker_axes``
+(pure-DP meshes) are not ported (ROADMAP.md item 13c-ii); ``grad_shardings``
+is what the model shards do.
 """
 
 from __future__ import annotations
@@ -77,20 +84,32 @@ def make_usec_train_step(bundle, t_stage: int, b_max: int,
     ``n_tokens`` and ``grad_norm``. ``t_stage`` and ``b_max`` are the
     staged and padded list widths the arrays must have.
 
-    ``group``: a ``torch.distributed`` process group (every rank passes the
-    same N-worker arrays, and runs only its own rows, ``workers_of(rank)``),
-    or None for all N on this process. With compression, ``comp_state``'s
-    ``ef`` rows are this process's workers. Every rank returns the same
-    parameters and metrics.
+    ``group``: a ``torch.distributed`` process group over the data indices
+    (a worker mesh's ``"data"`` group,
+    :func:`repro_torch.launch.mesh.data_group`; every rank passes the same
+    N-worker arrays, and runs only its own rows, ``workers_of(rank)``), or
+    None for all N on this process. With model shards the
+    parameters and optimizer state are this rank's slices (the bundle's
+    ``init`` cut) and ``bundle.shards`` is its model group. With
+    compression, ``comp_state``'s ``ef`` rows are this process's workers
+    (their slices). Every rank returns the same metrics, and the ranks of a
+    data group the same parameters.
 
     ``static_trips``: run exactly that many micro-steps per worker, ignoring
     ``n_mb`` (the reference's cost-analysis variant; padded entries carry
     weight 0).
 
-    ``step.stats`` counts the collectives the step issued and the bytes
-    they reduced, over all calls.
+    ``step.stats`` counts the collectives the master combine issued and
+    the bytes they reduced, over all calls (the model group's are in
+    ``bundle.shards.stats``).
     """
     cfg, device = bundle.cfg, bundle.device
+    shards = bundle.shards
+    sharded = None
+    if shards is not None:
+        from repro_torch.models.parallel import sharded_leaves
+
+        sharded = sharded_leaves(cfg, shards)
     acc_dtype = dtype_of(getattr(cfg, "grad_accum_dtype", "float32"))
     loss_fn = bundle.loss_fn
     rank, world = 0, 1
@@ -154,7 +173,8 @@ def make_usec_train_step(bundle, t_stage: int, b_max: int,
             sums[1] += ntok_w
             if compress_grads:
                 if summed is None:
-                    summed = CompressedSum(comp_state, n_workers, group)
+                    summed = CompressedSum(comp_state, n_workers, group,
+                                           shards)
                 summed.add(i, tree_unflatten(params, acc))
                 continue
             if total is None:
@@ -183,7 +203,8 @@ def make_usec_train_step(bundle, t_stage: int, b_max: int,
         for t in total:
             t /= denom
         new_params, new_opt, om = adamw.update(
-            tree_unflatten(params, total), opt_state, params, lr)
+            tree_unflatten(params, total), opt_state, params, lr,
+            sharded=sharded, shards=shards)
         metrics = {"loss": nll / denom, "n_tokens": ntok, **om}
         return new_params, new_opt, comp_state, metrics
 

@@ -51,8 +51,11 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.data import TokenPipeline  # noqa: E402
 from repro_torch.launch import train as port_train  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
+    coordinates,
+    data_group,
     make_production_mesh,
     make_worker_mesh,
+    model_group,
     workers_of,
 )
 from repro_torch.models import build_model, params_from_reference  # noqa: E402
@@ -200,11 +203,18 @@ def _steps_job(rank, world, store, out_dir, ref_params):
         res = run_cells(ref_params, group)
         res["mesh"] = {"names": mesh.mesh_dim_names, "size": mesh.size(),
                        "workers": list(workers_of(rank, world, N))}
-        for call, args in (("uneven", (5,)), ("model", (N, 2))):
-            try:
-                make_worker_mesh(*args)
-            except (ValueError, NotImplementedError) as e:
-                res["mesh"][call] = f"{type(e).__name__}: {e}"
+        try:
+            make_worker_mesh(5)
+        except ValueError as e:
+            res["mesh"]["uneven"] = f"{type(e).__name__}: {e}"
+        two = make_worker_mesh(N, 2)
+        res["mesh"]["model"] = {
+            "names": two.mesh_dim_names, "shape": tuple(two.shape),
+            "coords": coordinates(two),
+            "data_ranks": torch.distributed.get_process_group_ranks(
+                data_group(two)),
+            "model_ranks": torch.distributed.get_process_group_ranks(
+                model_group(two))}
         if world == 4:
             res["wire"] = wire_sums(group)
         torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -479,8 +489,10 @@ def test_production_mesh_has_the_reference_shapes():
 @pytest.mark.parametrize("world", [4, 2])
 def test_worker_mesh_over_the_ranks(world, ranks4, ranks2):
     """A one-dim "data" mesh over every rank, each rank a contiguous run of
-    workers; uneven splits and model shards raise (the latter naming
-    ROADMAP item 13c)."""
+    workers; uneven splits raise. With 2 model shards a worker the mesh is
+    ("data", "model") of (world / 2, 2) in the reference's device order:
+    rank r is (r // 2, r % 2), its model group the ranks of its data index
+    and its data group the ranks of its model index."""
     res = {4: ranks4, 2: ranks2}[world]
     k = N // world
     for r, rank in enumerate(res):
@@ -488,8 +500,12 @@ def test_worker_mesh_over_the_ranks(world, ranks4, ranks2):
         assert mesh["names"] == ("data",) and mesh["size"] == world
         assert mesh["workers"] == list(range(r * k, (r + 1) * k))
         assert mesh["uneven"].startswith("ValueError")
-        assert mesh["model"].startswith("NotImplementedError")
-        assert "item 13c" in mesh["model"]
+        two = mesh["model"]
+        assert two["names"] == ("data", "model")
+        assert two["shape"] == (world // 2, 2)
+        assert tuple(two["coords"]) == (r // 2, r % 2)
+        assert two["model_ranks"] == [r - r % 2, r - r % 2 + 1]
+        assert two["data_ranks"] == list(range(r % 2, world, 2))
 
 
 # ---------------------------------------------------------------------- #

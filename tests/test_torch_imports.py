@@ -50,7 +50,9 @@ def test_port_imports_no_jax_and_no_reference_package():
             "repro_torch.runtime.compression",
             "repro_torch.runtime.trainstep",
             "repro_torch.launch.train",
-            "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.launch.mesh",
+            "repro_torch.launch.sharding",
+            "repro_torch.models.parallel"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:

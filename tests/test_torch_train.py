@@ -526,10 +526,10 @@ def _reference_weights(monkeypatch):
     monkeypatch.setattr(port_configs, "get_config", lambda name: (
         dataclasses.replace(real_get(name), param_dtype="float32")))
 
-    def build(cfg, device=None):
-        bundle = real_build(cfg, device=device)
+    def build(cfg, device=None, shards=None):
+        bundle = real_build(cfg, device=device, shards=shards)
         carried = params_from_reference(_ref_params("stablelm-1.6b"), cfg,
-                                        bundle.device)
+                                        bundle.device, shards)
         return dataclasses.replace(bundle, init=lambda gen: carried)
 
     monkeypatch.setattr(port_models, "build_model", build)
@@ -560,10 +560,61 @@ def test_train_main_resumes_a_reference_checkpoint(reference, monkeypatch,
     assert abs(loss - res["resumed4"]) / abs(res["resumed4"]) < TOL
 
 
-def test_train_main_refuses_model_shards():
-    with pytest.raises(NotImplementedError, match="item 13c"):
+_SHARD_ARGS = ["--arch", "glm4-9b", "--reduced", "--workers", "2",
+               "--seq-len", "32", "--tile-samples", "1", "--steps", "3",
+               "--straggler-tolerance", "1", "--log-every", "1",
+               "--device", "cpu"]
+
+
+def _model_shards_job(rank, world, store, out_dir):
+    """``main --model-shards 2`` on one of 2 gloo ranks (fp32 configs)."""
+    import contextlib
+    import io
+
+    torch.set_num_threads(1)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    real = port_configs.get_config
+    port_configs.get_config = lambda name: dataclasses.replace(
+        real(name), param_dtype="float32")
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            port_train.main(_SHARD_ARGS + ["--model-shards", "2"])
+        with open(os.path.join(out_dir, f"shards{rank}.txt"), "w") as fh:
+            fh.write(buf.getvalue())
+    finally:
+        port_configs.get_config = real
+        torch.distributed.destroy_process_group()
+
+
+def test_train_main_refuses_model_shards(tmp_path, monkeypatch, capsys):
+    """``--model-shards 2`` without the ranks to hold them (one process)
+    raises; under 2 gloo ranks it trains, rank 0 printing the one-process
+    run's losses (the model split over the ranks: 2 x 1 mesh, model
+    indices 0 and 1)."""
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         port_train.main(["--arch", "stablelm-1.6b", "--reduced",
                          "--model-shards", "2", "--device", "cpu"])
+    tmp = str(tmp_path)
+    torch.multiprocessing.start_processes(
+        _model_shards_job, args=(2, os.path.join(tmp, "store"), tmp),
+        nprocs=2, start_method="spawn")
+    with open(os.path.join(tmp, "shards0.txt")) as fh:
+        out = fh.read()
+    with open(os.path.join(tmp, "shards1.txt")) as fh:
+        assert fh.read() == ""
+    real = port_configs.get_config
+    monkeypatch.setattr(port_configs, "get_config", lambda name: (
+        dataclasses.replace(real(name), param_dtype="float32")))
+    port_train.main(_SHARD_ARGS)
+    one = capsys.readouterr().out
+    pick = lambda text: [ln.split(" c*=")[0] for ln in text.splitlines()
+                         if ln.startswith("step ")]
+    assert len(pick(out)) == 3 and pick(out) == pick(one)
+    for r in range(2):
+        assert f'rank {r} of 2: {{"workers": [0, 1], "model_index": {r}' \
+            in out
 
 
 # ---------------------------------------------------------------------- #
