@@ -45,8 +45,11 @@ and peak memory each), and ``train_dist`` runs 4 ranks of the usec step
 (with four cards: NCCL, the trainer at full depth under
 torch.distributed.run, held to train_path's losses; with one card: 4 gloo
 ranks sharing it at DIST_DEPTH layers, fp32 and compressed, held to the
-one-process step; a one-rank NCCL group issues every collective). Then
-``checkpoint`` cuts Sec. V runs after step 5 and resumes them bitwise in
+one-process step; a one-rank NCCL group issues every collective);
+``train_tp`` splits glm4-9b at 1 layer over 2 model shards and
+``train_fsdp`` cuts its parameters and moments over 2 data ranks (the
+sharded fsdp step) and the usec step's moments by ZeRO-1, each held to its
+unsharded step. Then ``checkpoint`` cuts Sec. V runs after step 5 and resumes them bitwise in
 fresh engines (and a card checkpoint on the host), and
 ``serve_path`` drives serve_cli's seeded request trace through both serving
 lanes at Sec. V width (every response exact, launches per window exact,
@@ -1908,6 +1911,13 @@ FLASH_LAYER_INTERNVL2 = (1, 16, 8, PROMPT_LEN, PROMPT_LEN, 128, True, None,
 # and the one KV head they read (2 x 128 KV columns over 4 is half a head
 # a shard, gathered whole).
 FLASH_LAYER_TP4 = FLASH_CASES[-1]
+# The local heads of one qwen1.5-110b layer (64 query and 8 KV heads) and
+# one llama4-scout-17b-a16e layer (40 and 8) over 2 model shards: the
+# four-card sharded fsdp step (train_dist_probe.py --fsdp-only).
+FLASH_LAYER_QWEN_M2 = (1, 32, 4, PROMPT_LEN, PROMPT_LEN, 128, True, None,
+                       torch.bfloat16)
+FLASH_LAYER_SCOUT_M2 = (1, 20, 4, PROMPT_LEN, PROMPT_LEN, 128, True, None,
+                        torch.bfloat16)
 # (rtol, atol) of the flash kernel against an fp32 version of the same
 # function. Both sides read the inputs exactly, compute in fp32 and round
 # once to the output type, so they differ by the fp32 sum order and, in
@@ -2049,8 +2059,10 @@ def phase_flash(dev, paths):
     kernel), one full-width glm4-9b layer (GQA 16), one deepseek-moe-16b
     layer (MHA), one recurrentgemma-2b local-attention layer (d 256, GQA
     10, window 2048), one hubert-xlarge encoder layer (bidirectional, MHA,
-    d 80), one internvl2-2b layer (GQA 2, d 128) and a glm4-9b layer's
-    local heads over 4 model shards (GQA 8:1); each layer's times:
+    d 80), one internvl2-2b layer (GQA 2, d 128), a glm4-9b layer's
+    local heads over 4 model shards (GQA 8:1) and a qwen1.5-110b and a
+    llama4-scout-17b-a16e layer's over 2 (GQA 8:1, 5:1); each layer's
+    times:
     kernel, plain version, and one library
     call (SDPA) as a yardstick; and both kernels' ptxas registers and
     spills. The kernels line takes the glm4-9b layer's numbers."""
@@ -2068,10 +2080,12 @@ def phase_flash(dev, paths):
     hubert = flash_layer(FLASH_LAYER_HUBERT, dev, 96)
     internvl2 = flash_layer(FLASH_LAYER_INTERNVL2, dev, 95)
     tp4 = flash_layer(FLASH_LAYER_TP4, dev, 94)
+    qwen_m2 = flash_layer(FLASH_LAYER_QWEN_M2, dev, 93)
+    scout_m2 = flash_layer(FLASH_LAYER_SCOUT_M2, dev, 92)
     routes = {"launches_tc": flash_attention_cuda.launches_tc - routes0[0],
               "launches_ffma": flash_attention_cuda.launches_ffma - routes0[1]}
     emit({"phase": "kernel", "name": "flash_attention",
-          "cases": len(cases) + 6, "max_abs_err_cases": errs,
+          "cases": len(cases) + 8, "max_abs_err_cases": errs,
           "rtol_atol": {str(dt).replace("torch.", ""): tol
                         for dt, tol in ATTN_TOL.items()},
           "bitwise_run_to_run": True, "dtype": "bfloat16",
@@ -2080,6 +2094,8 @@ def phase_flash(dev, paths):
           "layer_hubert_xlarge_bidirectional": hubert,
           "layer_internvl2_2b": internvl2,
           "layer_glm4_9b_over_4_model_shards": tp4,
+          "layer_qwen1_5_110b_over_2_model_shards": qwen_m2,
+          "layer_llama4_scout_over_2_model_shards": scout_m2,
           "check_launches": routes,
           "ptxas": {stem: ptxas_report(paths[stem])
                     for stem in ("flash_attention_tc", "flash_attention")}})
@@ -2998,12 +3014,14 @@ def tensor_digest(t, chunk: int = 1 << 24) -> int:
 
 
 def _dist_cell(dev, depth, arch=TRAIN_ARCH, n_workers=DIST_RANKS,
-               drops=DIST_DROP, shards=None):
+               drops=DIST_DROP, shards=None, cfg=None, seq=None):
     """The train cell of ``arch`` at ``depth`` layers over ``n_workers``
-    workers (one tile each; worker ``drops[s]`` dropped at step s): (bundle,
-    a function that makes the seed-0 weights, t_stage, b_max, each step's
-    arguments, the attention layers). ``shards``: this rank's model group.
-    The weights are made anew for each run, not held beside it."""
+    workers (one tile each of ``seq`` positions, TRAIN_SEQ by default;
+    worker ``drops[s]`` dropped at step s): (bundle, a function that makes
+    the seed-0 weights, t_stage, b_max, each step's arguments, the
+    attention layers). ``shards``: this rank's model group; ``cfg``: the
+    config to use in place of ``arch``'s. The weights are made anew for
+    each run, not held beside it."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3012,11 +3030,11 @@ def _dist_cell(dev, depth, arch=TRAIN_ARCH, n_workers=DIST_RANKS,
     from repro_torch.models import build_model
     from repro_torch.runtime.executor import block_plan
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    cfg = dataclasses.replace(cfg or get_config(arch), n_layers=depth)
     bundle = build_model(cfg, device=dev, shards=shards)
     place = cyclic_placement(n_workers, n_workers, 2)
-    pipe = TokenPipeline(cfg, place, seq_len=TRAIN_SEQ, tile_samples=1,
-                         seed=0)
+    pipe = TokenPipeline(cfg, place, seq_len=seq or TRAIN_SEQ,
+                         tile_samples=1, seed=0)
     plan = compile_plan(place, solve_assignment(place, np.ones(n_workers),
                                                 stragglers=1),
                         rows_per_tile=1, stragglers=1)
@@ -3032,12 +3050,13 @@ def _dist_cell(dev, depth, arch=TRAIN_ARCH, n_workers=DIST_RANKS,
             pipe.t_stage, b_max, args, attention_layer_count(cfg))
 
 
-def _run_steps(step, params, comp, args, dev, group=None):
-    """The steps of ``args`` from ``params``: (params, comp state, losses,
-    grad norms, walls). With a group every step starts at a barrier."""
+def _run_steps(step, params, comp, args, dev, group=None, opt=None):
+    """The steps of ``args`` from ``params`` (and ``opt``, by default fresh
+    AdamW state like ``params``): (params, comp state, losses, grad norms,
+    walls). With a group every step starts at a barrier."""
     from repro_torch.optim import adamw
 
-    opt = adamw.init(params)
+    opt = adamw.init(params) if opt is None else opt
     out = {"loss": [], "grad_norm": [], "step_s": []}
     for a in args:
         if group is not None:
@@ -3490,9 +3509,9 @@ TP_DEPTH, TP_SHARDS, TP_WORKERS, TP_DROP = 1, 2, 2, (1, 0)
 TP_LOSS_TOL, TP_GNORM_TOL, TP_PARAM_SHARE = 1e-3, 1e-2, 1e-2
 
 
-def _tp_rank(rank, world, store, out_dir):
-    """One gloo rank of train_tp on cuda:0 (spawned): the steps over the
-    2 x 1 mesh; rank 0 then holds them to the one-process step. Writes
+def _card_rank(body, rank, world, store, out_dir):
+    """One gloo rank on cuda:0 (spawned by :func:`_ranks_on_card`): joins
+    the group and writes ``body(rank, dev)``'s record to
     ``rank{rank}.json``."""
     import datetime
 
@@ -3506,7 +3525,7 @@ def _tp_rank(rank, world, store, out_dir):
         "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=600))
     try:
-        res = _tp_rank_body(rank, dev)
+        res = body(rank, dev)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(res, fh)
     finally:
@@ -3514,6 +3533,8 @@ def _tp_rank(rank, world, store, out_dir):
 
 
 def _tp_rank_body(rank, dev):
+    """train_tp's steps over the 1 x 2 mesh; rank 0 then holds them to the
+    one-process step."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.launch.mesh import (
         coordinates,
@@ -3582,42 +3603,106 @@ def _hold_tp(whole, out_tp, dev):
     step = make_usec_train_step(bundle, t_stage, b_max)
     torch.cuda.reset_peak_memory_stats(dev)
     p1, _, out1 = _run_steps(step, init(), None, args, dev)
-    errs = {k: max(abs(a - b) / abs(b) for a, b in zip(out_tp[k], out1[k]))
+    return _held_to_one_process(whole, out_tp, p1, out1, len(args), dev)
+
+
+def _held_to_one_process(whole, out, p1, out1, n_steps, dev):
+    """A sharded bf16 run (its losses and gradient norms ``out`` and its
+    gathered parameters ``whole``) against the one-process run's (``out1``,
+    ``p1``) within the TP_* tolerances."""
+    errs = {k: max(abs(a - b) / abs(b) for a, b in zip(out[k], out1[k]))
             for k in ("loss", "grad_norm")}
-    ulps2, share, worst = 2 ** -7, 0.0, 0.0
-    for a, b in zip(tree_leaves(whole), tree_leaves(p1)):
-        a, b = a.to(dev).float(), b.float()
-        top = float(b.abs().max())
-        diff = (a - b).abs()
-        share = max(share, float((diff > ulps2 * top).float().mean()))
-        worst = max(worst, float(diff.max()) - ulps2 * top)
-    step_bound = 3 * DIST_LR * len(args)
+    params = params_held(whole, p1, n_steps, dev)
     ok = (errs["loss"] <= TP_LOSS_TOL and errs["grad_norm"] <= TP_GNORM_TOL
-          and share <= TP_PARAM_SHARE and worst <= step_bound)
-    return {"ok": bool(ok), "err": errs, "param_share_off": share,
-            "param_excess_over_2ulps": worst, "param_step_bound": step_bound,
-            "one_process": out1,
+          and params.pop("ok"))
+    return {"ok": bool(ok), "err": errs, **params, "one_process": out1,
             "one_process_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
-def phase_train_tp(dev, smi):
-    """TP_SHARDS gloo ranks on cuda:0 train glm4-9b at full width over a
-    1 x 2 mesh (see TP_DEPTH), held to the one-process step; the card's
-    memory in use sampled from this process. Returns the ranks' flash
-    launches (summed)."""
+def params_held(whole, p1, n_steps, dev, m1=None, m2=None, floor=0.0,
+                tol=2 ** -7, share_tol=TP_PARAM_SHARE, m_tol=None):
+    """The TP_* rule for a sharded run's gathered parameters ``whole``
+    against the one-process run's ``p1`` after ``n_steps`` steps: at most
+    ``share_tol`` of a leaf's elements more than ``tol`` (two bf16 ulps) of
+    its largest value apart, and none by more than 3 x DIST_LR a step past
+    that.
+
+    With the runs' first moments (``m1``, the one-process run's, and
+    ``m2``), the share counts only a leaf's live elements, those with
+    ``|m1| >= floor`` (the CPU tests' rule: AdamW's update is about lr x
+    sign(g) wherever |g| is small, so where a gradient is zero to rounding
+    the two runs may move an element by up to 2 lr apart), and with
+    ``m_tol`` (a function of the leaf's key) each leaf's live moments are
+    held within ``m_tol(key)`` of the leaf's largest. Every leaf with an element off (or, with moments, a
+    moment off) is listed in ``leaves``: its key, size, share off, worst
+    excess over ``tol``, the largest |m1| of the leaf and of its off
+    elements, and ``m_err``, the largest |m2 - m1| over live elements
+    against the largest |m1|."""
+    from repro_torch.launch.sharding import keystr, map_with_path
+    from repro_torch.models.transformer import tree_leaves
+
+    keys = []
+    map_with_path(lambda path, _: keys.append(keystr(path)), p1)
+    moments = ([None] * len(keys) if m1 is None
+               else list(zip(tree_leaves(m1), tree_leaves(m2))))
+    share, worst, ok, rows = 0.0, 0.0, True, []
+    step_bound = 3 * DIST_LR * n_steps
+    for key, a, b, mm in zip(keys, tree_leaves(whole), tree_leaves(p1),
+                             moments):
+        a, b = a.to(dev).float(), b.to(dev).float()
+        top = float(b.abs().max())
+        diff = (a - b).abs()
+        off = diff > tol * top
+        excess = float(diff.max()) - tol * top
+        row = {"leaf": key, "n": b.numel(), "excess_over_tol": excess}
+        del a, b, diff
+        live = None
+        if mm is not None:
+            g1, g2 = (t.to(dev).float() for t in mm)
+            live = g1.abs() >= floor
+            g_top = float(g1.abs().max())
+            m_err = (float(((g2 - g1).abs() * live).max()) / g_top
+                     if g_top > 0 else 0.0)
+            row.update(max_abs_m1=g_top, live_share=float(
+                live.float().mean()), m_err=m_err,
+                max_abs_m1_off=float((g1.abs() * off).max()))
+            del g1, g2
+            if m_tol is not None and m_err > m_tol(key):
+                ok = False
+                row["m_over_tol"] = True
+        row["share_off"] = float(off.float().mean())
+        held_off = off if live is None else off & live
+        row["share_off_live"] = float(held_off.float().mean())
+        share = max(share, row["share_off_live"])
+        worst = max(worst, excess)
+        if row["share_off"] > 0 or row.get("m_over_tol"):
+            rows.append(row)
+        del off, live, held_off
+    ok &= share <= share_tol and worst <= step_bound
+    return {"ok": bool(ok), "param_share_off": share,
+            "param_excess_over_2ulps": worst, "param_step_bound": step_bound,
+            "leaves": rows}
+
+
+def _ranks_on_card(body, world, name):
+    """``world`` spawned gloo ranks sharing cuda:0, each running
+    ``body(rank, dev)`` (:func:`_card_rank`), the card's memory in use
+    (every process) sampled every 50 ms from this process: (each rank's
+    record, wall seconds, the sampled peak in GB)."""
+    import functools
     import multiprocessing
     import shutil
     import threading
 
     gc.collect()
     torch.cuda.empty_cache()
-    out_dir = os.path.join(ROOT, "build", "train_tp")
+    out_dir = os.path.join(ROOT, "build", name)
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_tp_rank, args=(
-        r, TP_SHARDS, os.path.join(out_dir, "store"), out_dir))
-        for r in range(TP_SHARDS)]
+    procs = [ctx.Process(target=functools.partial(_card_rank, body), args=(
+        r, world, os.path.join(out_dir, "store"), out_dir))
+        for r in range(world)]
     used, stop = [], threading.Event()
 
     def sample():
@@ -3641,12 +3726,22 @@ def phase_train_tp(dev, smi):
                 p.kill()
     wall = time.perf_counter() - t0
     codes = [p.exitcode for p in procs]
-    if codes != [0] * TP_SHARDS:
-        raise AssertionError(f"train_tp ranks exited {codes}")
+    if codes != [0] * world:
+        raise AssertionError(f"{name} ranks exited {codes}")
     ranks = []
-    for r in range(TP_SHARDS):
+    for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
             ranks.append(json.load(fh))
+    return ranks, wall, max(used) / 1e9
+
+
+def phase_train_tp(dev, smi):
+    """TP_SHARDS gloo ranks on cuda:0 train glm4-9b at full width over a
+    1 x 2 mesh (see TP_DEPTH), held to the one-process step; the card's
+    memory in use sampled from this process. Returns the ranks' flash
+    launches (summed)."""
+    ranks, wall, card_peak = _ranks_on_card(_tp_rank_body, TP_SHARDS,
+                                            "train_tp")
     held = ranks[0].pop("held")
     local_heads = [[1, 32 // TP_SHARDS, TRAIN_SEQ, 128], 1]
     launches_ok = all(
@@ -3662,7 +3757,7 @@ def phase_train_tp(dev, smi):
               "backend": "gloo",
               "why_gloo": "NCCL refuses two ranks on one GPU",
               "ranks_detail": ranks, "held": held, "ranks_wall_s": wall,
-              "card_peak_used_gb": max(used) / 1e9,
+              "card_peak_used_gb": card_peak,
               "tolerances": {"loss": TP_LOSS_TOL, "grad_norm": TP_GNORM_TOL,
                              "param_share": TP_PARAM_SHARE},
               "flash_launches": sum(r["flash_launches"] for r in ranks),
@@ -3674,6 +3769,242 @@ def phase_train_tp(dev, smi):
     gc.collect()
     torch.cuda.empty_cache()
     return record["flash_launches"]
+
+
+# ---------------------------------------------------------------------- #
+# Training with parameters and optimizer state cut over the data axis
+# ---------------------------------------------------------------------- #
+# train_fsdp: FSDP_RANKS gloo ranks share cuda:0 (D 2 x M 1), both at once
+# (every layer gathers over the data group). (i) The sharded fsdp step:
+# glm4-9b at full width and FSDP_DEPTH layer under the fsdp rules
+# (train_mode replaced, as the reference's dry-run does), FSDP_ROWS rows of
+# 8192 positions in FSDP_MICRO microbatches with weights FSDP_WEIGHTS,
+# FSDP_STEPS steps; every data cut runs: wq on its dim 0, wo on dim 1, the
+# embedding and unembedding. Held to the one-process fsdp step (rank 0,
+# after both ranks free the card) at the TP_* tolerances. qwen1.5-110b at
+# 1 layer (3.85 B parameters, ~54 GB of state at 14 B a parameter) leaves
+# too little room for two ranks' gathers on one card, hence glm4-9b
+# (1.446 B). (ii) ZeRO-1: the usec step on internvl2-2b at DIST_DEPTH, 2
+# workers (ZERO1_DROP), with reduced_grad_shardings against the same two
+# ranks without it: losses bitwise, gradient norms and parameters within
+# ZERO1_TOL (of a leaf's largest value). Both are bitwise in practice: the
+# two ranks' fp32 totals add in either order to the same sums, and the norm
+# accumulates in fp64, so it rounds to the same fp32 value from slices.
+FSDP_RANKS, FSDP_DEPTH, FSDP_ROWS, FSDP_MICRO, FSDP_STEPS = 2, 1, 4, 2, 2
+FSDP_WEIGHTS = (1.0, 0.0, 1.0, 1.0)
+# (a rank's slice, the dim gathered): wq on dim 0, wo on dim 1, the
+# embedding and the unembedding.
+FSDP_GATHERS = {((2048, 4096), 0), ((4096, 2048), 1), ((151552, 2048), 1),
+                ((2048, 151552), 0)}
+ZERO1_DROP, ZERO1_TOL = (1, 0), 1e-6
+
+
+def _zero1_moments(cfg, dev, n_data, d, shards=None):
+    """Fresh AdamW state cut as ZeRO-1 cuts it (data index ``d``; model
+    shard ``shards.rank``)."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.parallel import meta_params, shard_params
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.optim import adamw
+
+    m = (1, 0) if shards is None else (shards.size, shards.rank)
+    cut = shard_params(meta_params(cfg), cfg, *m, n_data, d, moments=True)
+    return adamw.init(tree_map(
+        lambda t: SimpleNamespace(shape=t.shape, device=dev), cut))
+
+
+def _fsdp_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MODEL_ARCH), n_layers=FSDP_DEPTH,
+                               train_mode="fsdp")
+
+
+def _fsdp_steps(step, params, opt, dev, group=None):
+    """FSDP_STEPS steps of the fsdp cell: (params, losses, norms, walls)."""
+    from repro_torch.configs.shapes import demo_batch
+
+    batch = demo_batch(_fsdp_cfg(), "train", FSDP_ROWS, TRAIN_SEQ)
+    weights = np.asarray(FSDP_WEIGHTS, np.float32)
+    out = {"loss": [], "grad_norm": [], "step_s": []}
+    for _ in range(FSDP_STEPS):
+        if group is not None:
+            torch.distributed.barrier(group)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch, weights, DIST_LR)
+        torch.cuda.synchronize(dev)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    return params, out
+
+
+def _fsdp_rank_body(rank, dev):
+    """train_fsdp's two parts on this rank (ZeRO-1 first, then the sharded
+    fsdp step); rank 0 then holds the latter to the one-process step."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.mesh import data_group, make_worker_mesh
+    from repro_torch.models import build_model, parallel
+    from repro_torch.models.parallel import DataShards, unshard_params
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.runtime.trainstep import (
+        make_fsdp_train_step,
+        make_usec_train_step,
+    )
+
+    dist = torch.distributed
+    group = data_group(make_worker_mesh(FSDP_RANKS, device_type="cuda"))
+    res = {"rank": rank, "zero1": {}}
+    # (ii) ZeRO-1 on the usec step, against the same ranks without it.
+    bundle, init, t_stage, b_max, args, n_attn = _dist_cell(
+        dev, DIST_DEPTH, TRAIN_ARCH, FSDP_RANKS, ZERO1_DROP)
+    specs = _zero1_specs(bundle.cfg, FSDP_RANKS)
+    micro = sum(int(a[3][rank]) for a in args)
+    for zero1 in (False, True):
+        step = make_usec_train_step(bundle, t_stage, b_max, group=group,
+                                    reduced_grad_shardings=specs if zero1
+                                    else None)
+        params0 = init()
+        opt = _zero1_moments(bundle.cfg, dev, FSDP_RANKS, rank) if zero1 \
+            else None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = flash_attention_cuda.launches
+        params, _, out = _run_steps(step, params0, None, args, dev, group,
+                                    opt)
+        del params0, opt
+        res["zero1"][str(zero1)] = dict(
+            out, flash_launches=flash_attention_cuda.launches - before,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev)
+            / 1e9, data_bytes_per_step=step.stats["bytes"] / len(args))
+        res["zero1"][str(zero1)]["params"] = params
+        del step, params
+    res["zero1_micro_steps"], res["zero1_attention_layers"] = micro, n_attn
+    a, b = res["zero1"]["True"], res["zero1"]["False"]
+    pa, pb = a.pop("params"), b.pop("params")
+    res["zero1_err"] = {
+        "loss_bitwise": a["loss"] == b["loss"],
+        "grad_norm": max(abs(x - y) / abs(y) for x, y in
+                         zip(a["grad_norm"], b["grad_norm"])),
+        "params": max(float((x.float() - y.float()).abs().max())
+                      / max(float(y.float().abs().max()), 1e-30)
+                      for x, y in zip(tree_leaves(pa), tree_leaves(pb)))}
+    del pa, pb, bundle, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (i) The sharded fsdp step.
+    cfg = _fsdp_cfg()
+    data = DataShards(group, FSDP_RANKS, rank)
+    bundle = build_model(cfg, device=dev, data=data)
+    gathered = set()
+    gather_dim = parallel.gather_dim
+
+    def spy(x, dp, dim):
+        if dp is data:
+            gathered.add((tuple(x.shape), dim))
+        return gather_dim(x, dp, dim)
+
+    parallel.gather_dim = spy
+    step = make_fsdp_train_step(bundle, FSDP_MICRO, donate=True)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    opt = _zero1_moments(cfg, dev, FSDP_RANKS, rank)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = flash_attention_cuda.launches
+    params, out = _fsdp_steps(step, params, opt, dev, group)
+    parallel.gather_dim = gather_dim
+    res["fsdp"] = dict(
+        out, flash_launches=flash_attention_cuda.launches - before,
+        micro_steps=FSDP_MICRO * FSDP_STEPS,
+        attention_layers=attention_layer_count(cfg),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        gathers=sorted(gathered),
+        layer_data_bytes_per_step=data.stats["bytes"] / FSDP_STEPS,
+        step_data_bytes_per_step=step.stats["bytes"] / FSDP_STEPS,
+        resting_gb=sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params)) / 1e9)
+    whole = unshard_params(params, cfg, None, device="cpu", dp=data)
+    del params, opt, step, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        one = build_model(cfg, device=dev)
+        step = make_fsdp_train_step(one, FSDP_MICRO, donate=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        p1, out1 = _fsdp_steps(step, one.init(torch.Generator(
+            device=dev).manual_seed(0)), _zero1_moments(cfg, dev, 1, 0), dev)
+        res["held"] = _held_to_one_process(whole, res["fsdp"], p1, out1,
+                                           FSDP_STEPS, dev)
+        del p1, step, one
+    dist.barrier()
+    return res
+
+
+def _zero1_specs(cfg, n_data, n_model=1):
+    """ZeRO-1's moment specs (``opt_shardings``) on an (n_data, n_model)
+    mesh."""
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models.parallel import meta_params
+
+    mesh = MeshSpec((n_data, n_model), ("data", "model"))
+    shapes = meta_params(cfg)
+    return sharding.opt_shardings(sharding.param_shardings(shapes, cfg, mesh),
+                                  mesh, shapes)["m"]
+
+
+def phase_train_fsdp(dev, smi):
+    """FSDP_RANKS gloo ranks on cuda:0: the sharded fsdp step (held to the
+    one-process step) and ZeRO-1 (held to the same ranks without it). Returns
+    the ranks' flash launches (summed)."""
+    ranks, wall, card_peak = _ranks_on_card(_fsdp_rank_body, FSDP_RANKS,
+                                            "train_fsdp")
+    held = ranks[0].pop("held")
+    fsdp_ok = all(
+        r["fsdp"]["flash_launches"] == 2 * r["fsdp"]["attention_layers"]
+        * r["fsdp"]["micro_steps"]
+        and r["fsdp"]["loss"] == ranks[0]["fsdp"]["loss"]
+        and FSDP_GATHERS <= {(tuple(g[0]), g[1])
+                             for g in r["fsdp"]["gathers"]}
+        for r in ranks)
+    zero1_ok = all(
+        r["zero1_err"]["loss_bitwise"]
+        and r["zero1_err"]["grad_norm"] <= ZERO1_TOL
+        and r["zero1_err"]["params"] <= ZERO1_TOL
+        and all(m["flash_launches"] == 2 * r["zero1_attention_layers"]
+                * r["zero1_micro_steps"] for m in r["zero1"].values())
+        for r in ranks)
+    launches = sum(r["fsdp"]["flash_launches"]
+                   + sum(m["flash_launches"] for m in r["zero1"].values())
+                   for r in ranks)
+    emit({"phase": "train_fsdp", "arch": MODEL_ARCH, "depth": FSDP_DEPTH,
+          "reduced": {"n_layers": [40, FSDP_DEPTH],
+                      "why": "qwen1.5-110b at 1 layer (3.85 B parameters, "
+                             "~54 GB of state) leaves too little room for two "
+                             "ranks' gathers on one card"},
+          "train_mode": "fsdp", "seq_len": TRAIN_SEQ, "rows": FSDP_ROWS,
+          "micro": FSDP_MICRO, "weights": FSDP_WEIGHTS,
+          "mesh": [FSDP_RANKS, 1], "zero1_arch": TRAIN_ARCH,
+          "zero1_depth": DIST_DEPTH, "backend": "gloo",
+          "why_gloo": "NCCL refuses two ranks on one GPU",
+          "ranks_detail": ranks, "held": held, "ranks_wall_s": wall,
+          "card_peak_used_gb": card_peak,
+          "tolerances": {"loss": TP_LOSS_TOL, "grad_norm": TP_GNORM_TOL,
+                         "param_share": TP_PARAM_SHARE, "zero1": ZERO1_TOL},
+          "flash_launches": launches, "nvidia_smi": smi})
+    if not (held["ok"] and fsdp_ok and zero1_ok):
+        raise AssertionError(f"train_fsdp failed: held {held['ok']}, fsdp "
+                             f"{fsdp_ok}, zero1 {zero1_ok}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_train_remat(dev, smi):
@@ -3840,6 +4171,9 @@ def main() -> int:
     # ---- 5d. main path: training over model shards ----
     reset_launches(counters)
     totals["flash_attention"] += phase_train_tp(dev, smi)
+    # ---- 5e. main path: parameters and moments cut over data ----
+    reset_launches(counters)
+    totals["flash_attention"] += phase_train_fsdp(dev, smi)
 
     # ---- 6. checkpoint / resume and the serving path at Sec. V ----
     phase_checkpoint(smi)

@@ -16,10 +16,12 @@ Two training modes (the reference's DESIGN.md §6):
   usec — params sharded over ``model`` only; the data axis is the USEC
          worker axis (its own uneven loops). The trainer cuts each leaf's
          ``"model"`` dim (:func:`repro_torch.models.parallel.shard_params`).
-  fsdp — params sharded over (dp axes, model). The port's trainer cuts the
-         ``"model"`` dims and keeps the dp entries whole (a copy per data
-         rank); ZeRO-1 (:func:`opt_shardings`) and the sharded fsdp step
-         are data for the dry-run and a later slice.
+  fsdp — params sharded over (dp axes, model): each leaf is cut along its
+         ``"model"`` dim and its data dim (:func:`data_dim`), and each layer
+         gathers its data-cut leaves when it runs
+         (:func:`repro_torch.models.parallel.gather_from_data`).
+  ZeRO-1 (:func:`opt_shardings`): the AdamW moments cut over the dp axes
+         too, in either mode; the train steps update those slices.
   dp   — every leaf replicated (``()``): model ranks compute the same step.
 
 Every rule is divisibility-guarded: an axis that does not divide its dim,
@@ -167,8 +169,8 @@ def opt_shardings(param_shardings_tree: Any, mesh, param_shapes: Any = None,
                   axes: Optional[Tuple[str, ...]] = None) -> Dict[str, Any]:
     """Moments follow the params + ZeRO-1: each moment is also sharded over
     the DP axes on its first still-unsharded divisible dim (given
-    ``param_shapes``). The optimizer step of the port's trainer keeps its
-    moments as the params are (item 13c-ii of ROADMAP.md)."""
+    ``param_shapes``). The train steps take these as their
+    ``reduced_grad_shardings`` (:mod:`repro_torch.runtime.trainstep`)."""
     dp = tuple(axes) if axes else dp_axes(mesh)
     dp_size = _axis_size(mesh, dp)
 
@@ -265,5 +267,15 @@ def model_dim(spec: Spec) -> Optional[int]:
     """The dim a spec puts on ``"model"`` alone (None if none does)."""
     for i, e in enumerate(spec):
         if e == "model":
+            return i
+    return None
+
+
+def data_dim(spec: Spec) -> Optional[int]:
+    """The dim a spec puts on the dp axes (``"pod"``, ``"data"`` or both;
+    None if none does)."""
+    for i, e in enumerate(spec):
+        if e is not None and set(e if isinstance(e, tuple) else (e,)) <= \
+                {"pod", "data"}:
             return i
     return None

@@ -30,8 +30,12 @@ kernel launches, step times, the step losses and gradient norms, bytes
 all-reduced by the master combine and by the model group, and peak device
 memory. In ``dp`` mode (``train_mode``) every leaf is replicated, so model
 ranks compute the same step on whole weights, as in the reference; in
-``fsdp`` mode the rules' data-axis entries are kept whole (a copy per data
-index) and only the ``"model"`` dims are cut.
+``fsdp`` mode the parameters and AdamW moments rest cut over data as well,
+by the rules' data-axis entries (the reference's trainer places them by
+``param_shardings``), and the usec step gathers them whole once at its
+start and reduce-scatters their totals at its end
+(:func:`repro_torch.runtime.trainstep.make_usec_train_step`). The report
+then also gives each rank's resting bytes (parameters and moments).
 
 Run (on a machine with an NVIDIA GPU; ``--device cpu`` runs the plain
 PyTorch versions on the host):
@@ -168,7 +172,12 @@ def _train(args, device):
         workers_of,
     )
     from repro_torch.models import build_model
-    from repro_torch.models.parallel import ModelShards
+    from repro_torch.models.parallel import (
+        DataShards,
+        ModelShards,
+        cut_over_data,
+    )
+    from repro_torch.models.transformer import tree_leaves
     from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.runtime import checkpoint as ckpt
     from repro_torch.runtime.compression import init_state as comp_init
@@ -186,7 +195,7 @@ def _train(args, device):
     device = torch.device(device) if device is not None else None
 
     n, n_model = args.workers, args.model_shards
-    group, shards, rank, world = None, None, 0, 1
+    group, shards, data, rank, world = None, None, None, 0, 1
     data_index, n_data, model_index = 0, 1, 0
     if dist.is_initialized():
         dev_type = (device.type if device is not None else "cuda")
@@ -197,6 +206,8 @@ def _train(args, device):
         n_data = world // n_model
         if n_model > 1:
             shards = ModelShards(model_group(mesh), n_model, model_index)
+        if cfg.train_mode == "fsdp" and n_data > 1:
+            data = DataShards(group, n_data, data_index)
         # NCCL gathers on the card, gloo on the host.
         comm_device = (torch.device("cuda", torch.cuda.current_device())
                        if dist.get_backend() == "nccl"
@@ -230,8 +241,12 @@ def _train(args, device):
 
     params = bundle.init(
         torch.Generator(device=bundle.device).manual_seed(args.seed))
-    opt = adamw.init(params)
+    # Each worker's error feedback spans its model shard, whole over data
+    # (the step sums whole gradients).
     comp = comp_init(params, len(mine)) if args.compress_grads else None
+    if data is not None:
+        params = cut_over_data(params, cfg, n_model, data)
+    opt = adamw.init(params)
     t_stage = max(len(z) for z in placement.storage_sets())
     b_max = sched.t_max
     step_fn = make_usec_train_step(bundle, t_stage, b_max,
@@ -243,7 +258,7 @@ def _train(args, device):
         latest = ckpt.latest_checkpoint(args.ckpt_dir)
         if latest:
             start, params, opt, extra = ckpt.restore_train_state(
-                latest, params, opt, cfg, shards)
+                latest, params, opt, cfg, shards, data)
             if "speeds" in extra:
                 sched.estimator._s = np.asarray(extra["speeds"])
             log(f"resumed from {latest} at step {start}")
@@ -294,12 +309,12 @@ def _train(args, device):
                 f"avail={len(avail)} dropped={list(dropped)}",
                 flush=True,
             )
-        if (data_index == 0 and args.ckpt_dir
+        if ((data_index == 0 or data is not None) and args.ckpt_dir
                 and (step + 1) % args.ckpt_every == 0):
             ckpt.save_train_state(
                 args.ckpt_dir, step + 1, params, opt, cfg, shards,
                 extra={"speeds": sched.estimator.speeds.tolist()},
-                write=rank == 0)
+                write=rank == 0, data=data)
     log(f"done: {args.steps - start} steps, simulated wall time {wall:.2f} "
         f"(speed-aware USEC assignment) on {bundle.device}", flush=True)
     if group is not None:
@@ -315,6 +330,9 @@ def _train(args, device):
             "reduced_bytes": step_fn.stats["bytes"],
             "collectives": step_fn.stats["collectives"],
             "tp_bytes": tp["bytes"], "tp_collectives": tp["collectives"],
+            "resting_bytes": sum(
+                t.numel() * t.element_size() for t in
+                tree_leaves(params) + tree_leaves([opt["m"], opt["v"]])),
             "max_memory_allocated": (
                 torch.cuda.max_memory_allocated(bundle.device)
                 if bundle.device.type == "cuda" else None)}

@@ -24,6 +24,15 @@ rank's cut (:func:`repro_torch.models.parallel.shard_params`), so every
 shard count trains the same weights; ``loss_fn`` runs the layers tensor-
 parallel over the model group (the embedding and the loss vocabulary-
 parallel). ``prefill`` and ``decode_step`` take whole weights.
+
+Data shards (``build_model(cfg, data=DataShards(...))``, the fsdp rules):
+``init`` also keeps this rank's slice of each leaf the rules cut over data
+(:func:`repro_torch.models.parallel.data_dims`), and ``loss_fn`` gathers
+those leaves where they are read: each layer's when it runs
+(:func:`repro_torch.models.transformer.stack_train`), the embedding and
+unembedding at the lookup and the loss. Each rank's ``loss_fn`` runs its
+own rows of a microbatch and counts the MoE load-balance term 1/D, so the
+ranks' losses sum to the microbatch's.
 """
 
 from __future__ import annotations
@@ -38,7 +47,15 @@ from repro_torch.device import resolve_device
 
 from .layers import apply_norm, dense_init, dtype_of, init_norm, normal_
 from .losses import chunked_cross_entropy, lm_loss
-from .parallel import ModelShards, over, reduce_from_model, shard_params
+from .parallel import (
+    DataShards,
+    ModelShards,
+    data_dims_tree,
+    gather_tree,
+    over,
+    reduce_from_model,
+    shard_params,
+)
 from .transformer import (
     init_cache,
     init_stack,
@@ -65,24 +82,38 @@ class ModelBundle:
     device: torch.device
     embed_batch: Callable  # (params, batch) -> (x, loss_mask or None)
     shards: Optional[ModelShards] = None  # this rank's model group
+    data: Optional[DataShards] = None     # this rank's data group
 
 
-def build_model(cfg, device=None, shards: Optional[ModelShards] = None
-                ) -> ModelBundle:
+def _cut(tree, cfg, shards, data):
+    """This rank's cut of a whole parameter tree over its groups."""
+    if shards is None and data is None:
+        return tree
+    m = (1, 0) if shards is None else (shards.size, shards.rank)
+    d = (1, 0) if data is None else (data.size, data.rank)
+    return shard_params(tree, cfg, *m, *d)
+
+
+def build_model(cfg, device=None, shards: Optional[ModelShards] = None,
+                data: Optional[DataShards] = None) -> ModelBundle:
     """The bundle for ``cfg`` on ``device`` (CUDA unless named; raises
     without a GPU and no explicit device); ``shards``: this rank's model
-    group, or None for the whole model on this process."""
+    group, or None for the whole model on this process; ``data``: this
+    rank's data group, when the leaves the rules cut over data rest cut
+    (the fsdp step's layout), or None."""
     device = resolve_device(device)
     dt = dtype_of(cfg.param_dtype)
+    if data is not None and data.size == 1:
+        data = None
+    dims = None if data is None else data_dims_tree(
+        cfg, data.size, 1 if shards is None else shards.size)
 
     def init(generator: torch.Generator) -> Dict:
         """Random weights from ``generator`` (on ``device``), every leaf
         allocated on the device in ``cfg.param_dtype`` (the reference's fp32
-        leaves in fp32); with ``shards``, this rank's cut of them."""
-        p = init_whole(generator)
-        if shards is None:
-            return p
-        return shard_params(p, cfg, shards.size, shards.rank)
+        leaves in fp32); with ``shards`` or ``data``, this rank's cut of
+        them."""
+        return _cut(init_whole(generator), cfg, shards, data)
 
     def init_whole(generator: torch.Generator) -> Dict:
         embed = torch.empty((cfg.vocab_size, cfg.d_model), dtype=dt,
@@ -100,17 +131,22 @@ def build_model(cfg, device=None, shards: Optional[ModelShards] = None
                                             cfg.d_model, dt, device=device)
         return p
 
+    def leaf(params, key):
+        """``params[key]``, gathered over the data group where it is cut."""
+        return gather_tree(params[key], None if dims is None else dims[key],
+                           data)
+
     def unembed_of(params):
         if cfg.tie_embeddings:
-            return params["embed"].T
-        return params["unembed"]
+            return leaf(params, "embed").T
+        return leaf(params, "unembed")
 
     def embed(params, tokens) -> torch.Tensor:
         """The embedding rows of ``tokens``; vocabulary-parallel when the
         table is this rank's slice: ids outside it give zero rows, and the
         ranks' rows are summed (exactly: one is nonzero)."""
         tokens = torch.as_tensor(tokens, device=device).long()
-        table = params["embed"]
+        table = leaf(params, "embed")
         vtp = over(shards, table.shape[0], cfg.vocab_size)
         if vtp is None:
             return table[tokens]
@@ -126,10 +162,11 @@ def build_model(cfg, device=None, shards: Optional[ModelShards] = None
     def embed_batch(params, batch) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """-> (x (B, S, D), the loss mask (B, S) or None)."""
         if cfg.frontend == "audio_frames":
-            return features(batch["frames"]) @ params["frontend_proj"], None
+            return features(batch["frames"]) @ leaf(params, "frontend_proj"), \
+                None
         if cfg.frontend == "vision_patches":
             xt = embed(params, batch["tokens"])
-            xv = features(batch["patches"]) @ params["frontend_proj"]
+            xv = features(batch["patches"]) @ leaf(params, "frontend_proj")
             mask = torch.cat([
                 torch.zeros(xv.shape[:2], dtype=torch.float32, device=device),
                 torch.ones(xt.shape[:2], dtype=torch.float32, device=device)],
@@ -140,11 +177,13 @@ def build_model(cfg, device=None, shards: Optional[ModelShards] = None
     def loss_fn(params, batch):
         """(total, metrics): the summed token NLL plus ``0.01 · aux`` (the
         MoE load-balance loss; 0 without experts) where any token counts;
-        metrics ``n_tokens`` and ``aux_loss``."""
+        metrics ``n_tokens`` and ``aux_loss`` (with ``data``, the aux
+        term counts 1/D here: this rank's share of the microbatch's)."""
         x, loss_mask = embed_batch(params, batch)
         positions = torch.arange(x.shape[1], device=device)
-        h, aux = stack_train(params["stack"], x, cfg, positions, shards)
-        h = apply_norm(params["final_norm"], h, cfg.norm)
+        h, aux = stack_train(params["stack"], x, cfg, positions, shards,
+                             data, None if dims is None else dims["stack"])
+        h = apply_norm(leaf(params, "final_norm"), h, cfg.norm)
         unembed = unembed_of(params)
         vtp = over(shards, unembed.shape[-1], cfg.vocab_size)
         if cfg.decoder:
@@ -163,7 +202,8 @@ def build_model(cfg, device=None, shards: Optional[ModelShards] = None
             m = {"n_tokens": ntok}
         m = dict(m, aux_loss=aux)
         n = m["n_tokens"]
-        total = nll + 0.01 * aux * n / torch.clamp(n, min=1.0)
+        share = 0.01 if data is None else 0.01 / data.size
+        total = nll + share * aux * n / torch.clamp(n, min=1.0)
         return total, m
 
     def prefill(params, batch):
@@ -186,7 +226,7 @@ def build_model(cfg, device=None, shards: Optional[ModelShards] = None
         return cache, logits
 
     return ModelBundle(cfg, init, loss_fn, prefill, decode_step, device,
-                       embed_batch, shards)
+                       embed_batch, shards, data)
 
 
 def make_cache(cfg, batch: int, max_len: int, device=None):
@@ -206,10 +246,11 @@ def _tensor(a) -> torch.Tensor:
 
 
 def params_from_reference(tree, cfg, device=None,
-                          shards: Optional[ModelShards] = None) -> Dict:
+                          shards: Optional[ModelShards] = None,
+                          data: Optional[DataShards] = None) -> Dict:
     """The reference's params (``jax.tree.map(np.asarray, params)``) as the
     port's tree on ``device``, leaf for leaf with the same dtypes (with
-    ``shards``, this rank's cut, as ``init`` gives it). Raises if
+    ``shards`` or ``data``, this rank's cut, as ``init`` gives it). Raises if
     a leaf is not in ``cfg.param_dtype``, except the leaves the reference
     keeps in fp32: an MoE ``router``, and the fp32 leaves of an ssm or
     rglru layer's temporal block (:data:`_FP32_LEAVES`)."""
@@ -242,7 +283,4 @@ def params_from_reference(tree, cfg, device=None,
                              f"{t.dtype}, want {want(path)}")
         return t.to(device)
 
-    params = carry(tree)
-    if shards is None:
-        return params
-    return shard_params(params, cfg, shards.size, shards.rank)
+    return _cut(carry(tree), cfg, shards, data)

@@ -1,6 +1,6 @@
-"""Tensor parallelism over the ``"model"`` mesh axis: the collectives a
-sharded training step needs, with their gradients, and the cut of a
-parameter tree into model shards.
+"""Tensor parallelism over the ``"model"`` mesh axis and parameter
+sharding over the ``"data"`` axis: the collectives a sharded training step
+needs, with their gradients, and the cut of a parameter tree over both.
 
 The reference never writes these: it places each parameter by
 :mod:`repro_torch.launch.sharding`'s rules and GSPMD inserts every gather
@@ -24,6 +24,16 @@ fp32 whatever the tensor's dtype, and each result is rounded once to it.
 
 :class:`ModelShards` is one rank's model group; ``None`` in its place
 means one shard, and every function here is then the identity.
+
+Over the data axis (the fsdp rules' ``"DP"`` entries) each rank of a model
+index holds its slice of the leaves the rules cut there
+(:func:`data_dims`), and a layer gathers them whole when it runs:
+
+  gather_from_data   all-gather along a dim forward, reduce-scatter backward
+
+The backward's sum runs in fp32 and is rounded once to the leaf's dtype,
+so each microbatch's gradient reaches its rank already reduce-scattered.
+:class:`DataShards` is one rank's data group.
 """
 
 from __future__ import annotations
@@ -42,22 +52,31 @@ def _unflatten(like, leaves):
     return sharding.map_with_path(lambda _, __: next(it), like)
 
 
-class ModelShards:
-    """One rank's model group: ``group`` (a ``torch.distributed`` process
-    group of ``size`` ranks) and this rank's index ``rank`` in it.
-    ``stats`` counts the collectives the layers issued through it and the
-    bytes each rank handed them (forward and backward, recomputes
-    included)."""
-
+class _Shards:
     def __init__(self, group, size: int, rank: int):
         if size < 1 or not 0 <= rank < size:
-            raise ValueError(f"model rank {rank} of {size}")
+            raise ValueError(f"rank {rank} of {size}")
         self.group, self.size, self.rank = group, size, rank
         self.stats = {"collectives": 0, "bytes": 0}
 
     def _count(self, t: torch.Tensor) -> None:
         self.stats["collectives"] += 1
         self.stats["bytes"] += t.numel() * t.element_size()
+
+
+class ModelShards(_Shards):
+    """One rank's model group: ``group`` (a ``torch.distributed`` process
+    group of ``size`` ranks) and this rank's index ``rank`` in it.
+    ``stats`` counts the collectives the layers issued through it and the
+    bytes each rank handed them (forward and backward, recomputes
+    included)."""
+
+
+class DataShards(_Shards):
+    """One rank's data group (the ranks of its model index), as
+    :class:`ModelShards` is its model group: ``group``, its ``size`` D,
+    this rank's data index ``rank`` and ``stats`` (the whole tensor of each
+    gather and reduce-scatter)."""
 
 
 def over(tp: Optional[ModelShards], local: int, full: int
@@ -94,7 +113,46 @@ def _all_gather(x: torch.Tensor, tp: ModelShards, dim: int) -> torch.Tensor:
     return out
 
 
-def _own(x: torch.Tensor, tp: ModelShards, dim: int) -> torch.Tensor:
+def _single(name: str):
+    """``torch.distributed``'s one-tensor collective ``name`` (torch 2.13),
+    or the ``*_tensor`` name it replaces."""
+    import torch.distributed as dist
+
+    return getattr(dist, f"{name}_single", None) or \
+        getattr(dist, f"{name}_tensor" if name == "reduce_scatter"
+                else f"{name}_into_tensor")
+
+
+def gather_dim(x: torch.Tensor, dp: _Shards, dim: int) -> torch.Tensor:
+    """The group's slices of ``x`` joined along ``dim`` in rank order, in
+    ``x``'s dtype (one all-gather, counted in ``dp.stats``)."""
+    moved = x.movedim(dim, 0).contiguous()
+    out = torch.empty((dp.size * moved.shape[0],) + moved.shape[1:],
+                      dtype=x.dtype, device=x.device)
+    _single("all_gather")(out, moved, group=dp.group)
+    dp._count(out)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dp: _Shards, dim: int,
+                       dtype=None) -> torch.Tensor:
+    """This rank's slice along ``dim`` of ``x`` summed over the group: the
+    sum in fp32 (one reduce-scatter, counted in ``dp.stats``), rounded once
+    to ``dtype`` (default ``x``'s)."""
+    moved = x.movedim(dim, 0)
+    buf = moved
+    if moved.dtype != torch.float32 or not moved.is_contiguous():
+        buf = torch.empty(moved.shape, dtype=torch.float32, device=x.device)
+        buf.copy_(moved)
+    out = torch.empty((moved.shape[0] // dp.size,) + moved.shape[1:],
+                      dtype=torch.float32, device=x.device)
+    _single("reduce_scatter")(out, buf, group=dp.group)
+    dp._count(buf)
+    return out.movedim(0, dim).to(dtype or x.dtype)
+
+
+def own_slice(x: torch.Tensor, tp: _Shards, dim: int) -> torch.Tensor:
+    """This rank's slice of ``x`` along ``dim`` (a contiguous copy)."""
     n = x.shape[dim] // tp.size
     return x.narrow(dim, tp.rank * n, n).contiguous()
 
@@ -128,18 +186,53 @@ class _GatherFromModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _own(g, ctx.tp, ctx.dim), None, None
+        return own_slice(g, ctx.tp, ctx.dim), None, None
 
 
 class _SliceToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp, dim):
         ctx.tp, ctx.dim = tp, dim
-        return _own(x, tp, dim)
+        return own_slice(x, tp, dim)
 
     @staticmethod
     def backward(ctx, g):
         return _all_gather(g, ctx.tp, ctx.dim), None, None
+
+
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dp, dim):
+        ctx.dp, ctx.dim = dp, dim
+        return gather_dim(x, dp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.dp, ctx.dim), None, None
+
+
+def gather_from_data(x: torch.Tensor, dp: Optional[DataShards],
+                     dim: Optional[int]) -> torch.Tensor:
+    """The data group's slices of a leaf joined along ``dim`` (a whole
+    leaf); the gradient is this rank's slice of the group's summed
+    gradients (fp32 sum, rounded once to ``x``'s dtype). The identity
+    without a data group or a ``dim``."""
+    if dp is None or dp.size == 1 or dim is None:
+        return x
+    return _GatherFromData.apply(x, dp, dim % x.ndim)
+
+
+def gather_tree(tree, dims, dp: Optional[DataShards]):
+    """``tree`` with each leaf whose entry in ``dims`` (a tree of the same
+    shape: a dim, or None for a whole leaf) is a dim passed through
+    :func:`gather_from_data`."""
+    if dp is None or dims is None or tree is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, dims[k], dp) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_tree(v, d, dp) for v, d in zip(tree, dims))
+    return gather_from_data(tree, dp, dims)
 
 
 def copy_to_model(x: torch.Tensor, tp: Optional[ModelShards]) -> torch.Tensor:
@@ -191,18 +284,23 @@ def finish(parts: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]],
 # Cutting and joining parameter trees
 # ---------------------------------------------------------------------- #
 @functools.lru_cache(maxsize=None)
-def _full_shapes(cfg) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
-    """(keystr, shape) of every leaf of ``cfg``'s whole parameter tree, in
-    leaf order (built on the meta device: nothing is
-    allocated)."""
+def meta_params(cfg):
+    """``cfg``'s whole parameter tree on the meta device (nothing is
+    allocated; one shared tree per config: read it, do not change it)."""
     from .model import build_model
 
-    params = build_model(cfg, device="meta").init(
+    return build_model(cfg, device="meta").init(
         torch.Generator().manual_seed(0))
+
+
+@functools.lru_cache(maxsize=None)
+def full_shapes(cfg) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
+    """(keystr, shape) of every leaf of ``cfg``'s whole parameter tree, in
+    leaf order."""
     out: List[Tuple[str, Tuple[int, ...]]] = []
     sharding.map_with_path(
         lambda path, t: out.append((sharding.keystr(path), tuple(t.shape))),
-        params)
+        meta_params(cfg))
     return tuple(out)
 
 
@@ -213,45 +311,155 @@ def model_dims(cfg, n_model: int) -> List[Optional[int]]:
     mesh = MeshSpec((1, n_model), ("data", MODEL_AXIS))
     return [sharding.model_dim(sharding.spec_for_param(key, shape, cfg, mesh))
             if n_model > 1 else None
-            for key, shape in _full_shapes(cfg)]
+            for key, shape in full_shapes(cfg)]
 
 
-def shard_params(full_tree: Any, cfg, n_model: int, rank: int) -> Any:
-    """Model shard ``rank`` of ``n_model`` of a whole parameter-shaped tree
-    (params, or an AdamW moment): each leaf cut along its ``"model"`` dim
-    (a contiguous copy), the other leaves as they are."""
+@functools.lru_cache(maxsize=None)
+def data_dims(cfg, n_data: int, n_model: int = 1, moments: bool = False
+              ) -> Tuple[Optional[int], ...]:
+    """Per leaf of ``cfg``'s parameter tree (in leaf order), on a
+    ``(n_data, n_model)`` mesh: the dim cut over the data axis, or None.
+    For parameters, the rules' ``"DP"`` entries (only ``fsdp`` mode has
+    any); with ``moments``, the AdamW moments' cut by
+    :func:`repro_torch.launch.sharding.opt_shardings` (ZeRO-1: in either
+    mode, the first still-whole dim the data axis divides, the stacked
+    layer axis included)."""
+    if n_data == 1:
+        return (None,) * len(full_shapes(cfg))
+    mesh = MeshSpec((n_data, n_model), ("data", MODEL_AXIS))
+    specs = [sharding.spec_for_param(key, shape, cfg, mesh)
+             for key, shape in full_shapes(cfg)]
+    if moments:
+        specs = sharding.opt_shardings(specs, mesh, [
+            torch.empty(shape, device="meta")
+            for _, shape in full_shapes(cfg)])["m"]
+    return tuple(sharding.data_dim(spec) for spec in specs)
+
+
+def data_dims_tree(cfg, n_data: int, n_model: int = 1) -> Any:
+    """:func:`data_dims` of the parameters as a tree shaped like them."""
+    it = iter(data_dims(cfg, n_data, n_model))
+    return sharding.map_with_path(lambda _, __: next(it), meta_params(cfg))
+
+
+def _narrow(t: torch.Tensor, dim: Optional[int], n: int, rank: int
+            ) -> torch.Tensor:
+    if dim is None or n == 1:
+        return t
+    k = t.shape[dim] // n
+    return t.narrow(dim, rank * k, k)
+
+
+def shard_params(full_tree: Any, cfg, n_model: int, rank: int,
+                 n_data: int = 1, data_rank: int = 0,
+                 moments: bool = False) -> Any:
+    """Model shard ``rank`` of ``n_model`` and data slice ``data_rank`` of
+    ``n_data`` of a whole parameter-shaped tree: each leaf cut along its
+    ``"model"`` dim and its data dim (:func:`data_dims`; ``moments``: an
+    AdamW moment's under ZeRO-1), a contiguous copy; the other leaves as
+    they are."""
     dims = model_dims(cfg, n_model)
+    ddims = data_dims(cfg, n_data, n_model, moments)
     leaves = sharding.leaves(full_tree)
     if len(leaves) != len(dims):
         raise ValueError(f"{len(leaves)} leaves for a tree of {len(dims)}")
     out = []
-    for t, d in zip(leaves, dims):
-        if d is None:
+    for t, d, e in zip(leaves, dims, ddims):
+        if d is None and e is None:
             out.append(t)
             continue
-        n = t.shape[d] // n_model
-        out.append(t.narrow(d, rank * n, n).clone())
+        t = _narrow(_narrow(t, d, n_model, rank), e, n_data, data_rank)
+        out.append(t.clone())
     return _unflatten(full_tree, out)
 
 
+def cut_over_data(local_tree: Any, cfg, n_model: int, dp: DataShards
+                  ) -> Any:
+    """``dp``'s slice of one model shard's tree (of ``n_model``): each leaf
+    the rules cut over data (:func:`data_dims`) narrowed along that dim, a
+    contiguous copy; the other leaves as they are."""
+    out = [t if e is None else _narrow(t, e, dp.size, dp.rank).clone()
+           for t, e in zip(sharding.leaves(local_tree),
+                           data_dims(cfg, dp.size, n_model))]
+    return _unflatten(local_tree, out)
+
+
+def local_shapes(cfg, n_model: int) -> List[Tuple[int, ...]]:
+    """Each leaf's shape on one model shard of ``n_model``, whole over
+    data."""
+    out = []
+    for (_, shape), d in zip(full_shapes(cfg), model_dims(cfg, n_model)):
+        shape = list(shape)
+        if d is not None:
+            shape[d] //= n_model
+        out.append(tuple(shape))
+    return out
+
+
+def data_cut_dims(tree: Any, cfg, n_model: int, n_data: int
+                  ) -> List[Optional[int]]:
+    """Per leaf of a tree of one model shard's leaves: the dim along which
+    it holds a 1/``n_data`` slice (read from its shape against the
+    shard's whole leaf), or None where it is whole. Raises on any other
+    shape. So a parameter tree and its moments may rest cut alike (the
+    fsdp placement) or differently (ZeRO-1)."""
+    out = []
+    for t, want in zip(sharding.leaves(tree), local_shapes(cfg, n_model)):
+        got = tuple(t.shape)
+        off = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        if len(got) != len(want) or len(off) > 1 or (
+                off and got[off[0]] * n_data != want[off[0]]):
+            raise ValueError(f"a leaf of shape {got} is no 1/{n_data} slice "
+                             f"of {want}")
+        out.append(off[0] if off else None)
+    return out
+
+
 def unshard_params(local_tree: Any, cfg, tp: Optional[ModelShards],
-                   device=None) -> Any:
-    """The whole tree from every model shard's ``local_tree`` (every rank
-    of the group calls this): each cut leaf all-gathered along its dim,
-    one leaf at a time, and moved to ``device`` (default: where it is).
-    The gathers are not counted in ``tp.stats``."""
+                   device=None, dp: Optional[DataShards] = None) -> Any:
+    """The whole tree from every shard's ``local_tree`` (every rank of the
+    groups calls this): each leaf cut over data (``dp``; the dim read from
+    its shape, :func:`data_cut_dims`) all-gathered along it, then each cut
+    over model along its ``"model"`` dim, one leaf at a time, and moved to
+    ``device`` (default: where it is). The gathers are not counted in the
+    groups' stats."""
     import torch.distributed as dist
 
     leaves = sharding.leaves(local_tree)
-    dims = model_dims(cfg, 1 if tp is None else tp.size)
+    n_model = 1 if tp is None else tp.size
+    dims = model_dims(cfg, n_model)
+    ddims = ([None] * len(dims) if dp is None or dp.size == 1
+             else data_cut_dims(local_tree, cfg, n_model, dp.size))
     out = []
-    for t, d in zip(leaves, dims):
-        if d is not None:
-            parts = [torch.empty_like(t) for _ in range(tp.size)]
-            dist.all_gather(parts, t.contiguous(), group=tp.group)
-            t = torch.cat(parts, dim=d)
+    for t, d, e in zip(leaves, dims, ddims):
+        for cut, shards in ((e, dp), (d, tp)):
+            if cut is not None:
+                parts = [torch.empty_like(t) for _ in range(shards.size)]
+                dist.all_gather(parts, t.contiguous(), group=shards.group)
+                t = torch.cat(parts, dim=cut)
         out.append(t if device is None else t.to(device))
     return _unflatten(local_tree, out)
+
+
+def cut_like(whole_tree: Any, like: Any, cfg, tp: Optional[ModelShards],
+             dp: Optional[DataShards] = None) -> Any:
+    """This rank's cut of a whole tree, each leaf cut as the same leaf of
+    ``like`` (one shard's tree) is: along its ``"model"`` dim, and along
+    the data dim its shape shows (:func:`data_cut_dims`); contiguous
+    copies on ``like``'s devices."""
+    n_model = 1 if tp is None else tp.size
+    dims = model_dims(cfg, n_model)
+    ddims = ([None] * len(dims) if dp is None or dp.size == 1
+             else data_cut_dims(like, cfg, n_model, dp.size))
+    out = []
+    for t, proto, d, e in zip(sharding.leaves(whole_tree),
+                              sharding.leaves(like), dims, ddims):
+        if d is not None:
+            t = _narrow(t, d, n_model, tp.rank)
+        if e is not None:
+            t = _narrow(t, e, dp.size, dp.rank)
+        out.append(t.contiguous().to(proto.device))
+    return _unflatten(like, out)
 
 
 def sharded_leaves(cfg, tp: Optional[ModelShards]) -> List[bool]:

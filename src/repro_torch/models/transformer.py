@@ -37,7 +37,7 @@ from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import apply_mlp, apply_norm, dtype_of, init_mlp, init_norm, mlp_parts
-from .parallel import finish, over
+from .parallel import finish, gather_from_data, gather_tree, over
 
 
 # ---------------------------------------------------------------------- #
@@ -121,9 +121,13 @@ def _ffn_residual(kind: str, p: Dict, x, cfg):
 
 
 def _temporal_train(kind: str, norm1: Dict, p: Dict, x, cfg, positions,
-                    tp=None):
+                    tp=None, dp=None, dims=None):
     """A layer's pre-norm temporal mixer: its sublayer output's (partial,
-    whole) parts (:func:`repro_torch.models.parallel.finish`)."""
+    whole) parts (:func:`repro_torch.models.parallel.finish`). ``dp`` and
+    ``dims``: the data group and the data dims of ``(norm1, p)``; the cut
+    leaves are gathered here, inside any checkpoint around the call, so a
+    recompute gathers them again."""
+    norm1, p = gather_tree((norm1, p), dims, dp)
     h = apply_norm(norm1, x, cfg.norm)
     if kind in ("attn", "lattn"):
         return attn_mod.attention_parts(p, h, cfg, positions,
@@ -134,18 +138,29 @@ def _temporal_train(kind: str, norm1: Dict, p: Dict, x, cfg, positions,
     return ssm_mod.ssm_parts(p, h, cfg, tp)
 
 
-def _ffn_train(norm2: Dict, p: Dict, x, cfg, tp=None):
-    """A layer's pre-norm FFN: (its sublayer output's parts, the MoE aux)."""
+def _ffn_train(norm2: Dict, p: Dict, x, cfg, tp=None, dp=None, dims=None):
+    """A layer's pre-norm FFN: (its sublayer output's parts, the MoE aux);
+    ``dp`` and ``dims`` as in :func:`_temporal_train`. Over a data group
+    the MoE routes the whole microbatch, as one process does: its tokens
+    are gathered over the group (capacity and the load-balance loss span
+    every rank's rows) and each rank keeps its rows' outputs."""
+    norm2, p = gather_tree((norm2, p), dims, dp)
     h = apply_norm(norm2, x, cfg.norm)
     if cfg.is_moe:
-        return moe_mod.moe_parts(p, h, cfg, tp)
+        if dp is None or dp.size == 1:
+            return moe_mod.moe_parts(p, h, cfg, tp)
+        rows = h.shape[0]
+        parts, aux = moe_mod.moe_parts(p, gather_from_data(h, dp, 0), cfg,
+                                       tp)
+        return tuple(None if y is None else y.narrow(0, dp.rank * rows, rows)
+                     for y in parts), aux
     ftp = over(tp, p["w_up"].shape[-1], cfg.d_ff)
     return mlp_parts(p, h, cfg.act, ftp), torch.zeros(
         (), dtype=torch.float32, device=x.device)
 
 
 def _layer_train(kind: str, p: Dict, x, cfg, positions,
-                 save_outs: bool = False, tp=None):
+                 save_outs: bool = False, tp=None, dp=None, dims=None):
     """One layer over a full sequence with its MoE aux (0 for a dense or
     ssm layer); attention is causal in a decoder, bidirectional in an
     encoder. The reference's ``_seq_shard`` is a sharding constraint, a
@@ -155,18 +170,24 @@ def _layer_train(kind: str, p: Dict, x, cfg, positions,
     only the sublayers' insides. ``tp``: the model group; each sublayer's
     partial sums are reduced outside its checkpoint, so the recompute
     never runs that reduction again (the reference's reason for the
-    policy; a gather inside a sublayer does run again)."""
+    policy; a gather inside a sublayer does run again). ``dp`` and
+    ``dims``: the data group and the data dims of ``p``'s leaves (each
+    sublayer gathers its own)."""
     def run(fn, *args):
         if save_outs:
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
+    def sub(*keys):
+        return None if dims is None else tuple(dims[k] for k in keys)
+
     t = finish(run(_temporal_train, kind, p["norm1"], p["temporal"], x, cfg,
-                   positions, tp), tp)
+                   positions, tp, dp, sub("norm1", "temporal")), tp)
     x = x + t.to(x.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind != "ssm":
-        parts, aux = run(_ffn_train, p["norm2"], p["ffn"], x, cfg, tp)
+        parts, aux = run(_ffn_train, p["norm2"], p["ffn"], x, cfg, tp, dp,
+                         sub("norm2", "ffn"))
         x = x + finish(parts, tp).to(x.dtype)
     return x, aux
 
@@ -276,7 +297,8 @@ def _inner_factor(n: int) -> int:
 
 
 def stack_train(params: Dict, x: torch.Tensor, cfg, positions,
-                tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                tp=None, dp=None, dims=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stack over a full sequence: (h, aux), the MoE aux summed over
     layers in the reference's order. With ``cfg.remat`` and grad enabled,
     the pattern blocks recompute in the backward by the reference's
@@ -298,18 +320,28 @@ def stack_train(params: Dict, x: torch.Tensor, cfg, positions,
     policies a block's recompute runs its collectives again; that is right
     only while every rank of the group recomputes its blocks in the same
     order, which autograd does (the same graph on every rank).
-    ``remat_save_outs`` reduces each sublayer outside its checkpoint."""
+    ``remat_save_outs`` reduces each sublayer outside its checkpoint.
+
+    ``dp`` and ``dims``: the data group and the data dims of ``params``'
+    leaves (a tree shaped like them; a stacked leaf's dim counts its layer
+    axis, which is never cut). Each sublayer gathers its cut leaves when it
+    runs, inside the checkpoints, so no whole layer outlives its use; every
+    rank of the group runs the same layers, so the gathers meet."""
     pattern = cfg.layer_pattern
     n_rep, extra_kinds = stack_layout(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     n_inner = _inner_factor(n_rep) if remat and cfg.remat_sqrt else 1
     save_outs = remat and n_inner == 1 and cfg.remat_save_outs
+    dims = dims if dp is not None else None
+    layer_dims = [None if dims is None else tree_map(lambda d: d - 1, b)
+                  for b in (dims["blocks"] if dims else pattern)]
 
     def blocks(h, aux, first, last):
         for i in range(first, last):
             for pos, kind in enumerate(pattern):
                 h, a = _layer_train(kind, _layer(params["blocks"][pos], i), h,
-                                    cfg, positions, save_outs, tp)
+                                    cfg, positions, save_outs, tp, dp,
+                                    layer_dims[pos])
                 aux = aux + a
         return h, aux
 
@@ -320,8 +352,10 @@ def stack_train(params: Dict, x: torch.Tensor, cfg, positions,
                                 use_reentrant=False)
     else:
         x, aux = blocks(x, aux, 0, n_rep)
-    for p_extra, kind in zip(params["extras"], extra_kinds):
-        x, a = _layer_train(kind, p_extra, x, cfg, positions, tp=tp)
+    extra_dims = dims["extras"] if dims else [None] * len(extra_kinds)
+    for p_extra, kind, d in zip(params["extras"], extra_kinds, extra_dims):
+        x, a = _layer_train(kind, p_extra, x, cfg, positions, tp=tp, dp=dp,
+                            dims=d)
         aux = aux + a
     return x, aux
 

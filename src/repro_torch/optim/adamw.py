@@ -5,18 +5,26 @@ Twin of :mod:`repro.optim.adamw`, as plain functions on trees of tensors
 trees and leaves its arguments as they are, so a caller can compare them
 leaf for leaf. Moments are fp32 whatever the parameters' dtype; the weight
 update is computed in fp32 and cast back. The clip scale is applied leaf by
-leaf inside the update, so no scaled copy of the whole gradient tree exists
-at once.
+leaf inside the update, and each leaf is updated in runs of at most
+:data:`CHUNK` elements (element-wise: the same values), so no fp32
+temporary of a whole leaf, nor a scaled copy of the whole gradient tree,
+exists at once. ``update(..., inplace=True)`` writes the new moments and
+parameters into the given ones, as the reference's jitted steps do with
+their donated buffers.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.models.parallel import reduce_from_model
 from repro_torch.models.transformer import tree_leaves, tree_map, tree_unflatten
+
+# The most elements of a leaf one pass of the update holds fp32 temporaries
+# for (256 MB each).
+CHUNK = 1 << 26
 
 
 def init(params: Any) -> Dict[str, Any]:
@@ -31,25 +39,52 @@ def init(params: Any) -> Dict[str, Any]:
 
 
 def global_norm(tree: Any, sharded: Optional[Sequence[bool]] = None,
-                shards=None) -> torch.Tensor:
-    """sqrt of the sum of every leaf's fp32 sum of squares. Over a model
-    group (``shards``, a :class:`repro_torch.models.parallel.ModelShards`;
-    ``sharded[i]``: leaf ``i`` is this rank's slice), the sliced leaves'
-    squares are summed over the group and the replicated leaves' counted
-    once: every rank gets the whole model's norm."""
+                shards=None, data_sliced: Optional[Sequence[bool]] = None,
+                data=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares, each leaf counted
+    once over the whole mesh, as an fp32 scalar. Over a model group
+    (``shards``, a :class:`repro_torch.models.parallel.ModelShards`;
+    ``sharded[i]``: leaf ``i`` is this rank's model slice) and a data group
+    (``data``, a :class:`repro_torch.models.parallel.DataShards`;
+    ``data_sliced[i]``: leaf ``i`` is this rank's data slice), a leaf's
+    squares are summed over the groups it is cut over, and a whole leaf's
+    counted once: every rank gets the whole model's norm.
+
+    The squares are fp32 (the reference's) and their sums accumulate in
+    fp64, so the norm rounds to the same fp32 value however the leaves are
+    cut (ZeRO-1 slices or whole, any shard count), and every layout clips
+    by the same scale; the reference sums in fp32."""
     if shards is None or shards.size == 1:
         sharded = None
-    total = part = None
+    if data is None or data.size == 1:
+        data_sliced = None
+    parts = {}  # (over model, over data) -> this rank's sum
     for i, x in enumerate(tree_leaves(tree)):
-        sq = torch.sum(torch.square(x.to(torch.float32)))
-        if sharded is not None and sharded[i]:
-            part = sq if part is None else part + sq
-        else:
-            total = sq if total is None else total + sq
-    if part is not None:
-        part = reduce_from_model(part, shards)
+        key = (sharded is not None and sharded[i],
+               data_sliced is not None and data_sliced[i])
+        sq = torch.sum(torch.square(x.to(torch.float32)), dtype=torch.float64)
+        parts[key] = sq if key not in parts else parts[key] + sq
+    total = None
+    for key in ((False, False), (True, False), (False, True), (True, True)):
+        if key not in parts:
+            continue
+        part = parts[key]
+        for over, group in zip(key, (shards, data)):
+            if over:
+                part = _summed(part, group)
         total = part if total is None else total + part
-    return torch.sqrt(total)
+    return torch.sqrt(total).to(torch.float32)
+
+
+def _summed(x: torch.Tensor, shards) -> torch.Tensor:
+    """``x`` (fp64) summed over ``shards``' group in fp64, counted in its
+    stats."""
+    import torch.distributed as dist
+
+    x = x.clone()
+    dist.all_reduce(x, group=shards.group)
+    shards._count(x)
+    return x
 
 
 def update(
@@ -64,12 +99,19 @@ def update(
     clip_norm: Optional[float] = 1.0,
     sharded: Optional[Sequence[bool]] = None,
     shards=None,
+    data_sliced: Optional[Sequence[bool]] = None,
+    data=None,
+    inplace: bool = False,
 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """Returns (new_params, new_state, {"grad_norm": ...}). Decoupled weight
-    decay on matrices only (ndim >= 2). ``sharded`` and ``shards``: the
-    model group the leaves are cut over (:func:`global_norm`); the update
-    itself is element-wise, so each rank updates its slices."""
-    gnorm = global_norm(grads, sharded, shards)
+    decay on matrices only (ndim >= 2). ``sharded``, ``shards``,
+    ``data_sliced`` and ``data``: the groups the leaves are cut over
+    (:func:`global_norm`); the update itself is element-wise, so each rank
+    updates whatever slices it is given (grads, moments and params cut
+    alike). ``inplace``: the new moments and parameters are written into
+    ``state``'s and ``params``' leaves, which are returned (no second copy
+    of the state exists)."""
+    gnorm = global_norm(grads, sharded, shards, data_sliced, data)
     scale = None
     if clip_norm is not None:
         scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -82,16 +124,21 @@ def update(
     lr = torch.as_tensor(lr, dtype=torch.float32, device=cf.device)
 
     def one(g, m, v, p):
-        gf = g.to(torch.float32)
-        if scale is not None:  # the reference's g * scale promotes to fp32
-            gf = gf * scale
-        m_new = b1 * m + (1 - b1) * gf
-        v_new = b2 * v + (1 - b2) * gf * gf
-        upd = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
-        pf = p.to(torch.float32)
         wd = weight_decay if p.ndim >= 2 else 0.0
-        p_new = pf - lr * (upd + wd * pf)
-        return p_new.to(p.dtype), m_new, v_new
+        outs = (p, m, v) if inplace else tuple(
+            torch.empty_like(t) for t in (p, m, v))
+        for r in _runs(tuple(p.shape)):
+            gf = g[r].to(torch.float32)
+            if scale is not None:  # the reference's g * scale promotes to fp32
+                gf = gf * scale
+            m_new = b1 * m[r] + (1 - b1) * gf
+            v_new = b2 * v[r] + (1 - b2) * gf * gf
+            upd = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
+            pf = p[r].to(torch.float32)
+            p_new = pf - lr * (upd + wd * pf)
+            for out, new in zip(outs, (p_new, m_new, v_new)):
+                out[r] = new
+        return outs
 
     out = [one(g, m, v, p) for g, m, v, p in zip(
         tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"]),
@@ -100,3 +147,19 @@ def update(
                                 for col in zip(*out))
     return (new_params, {"m": new_m, "v": new_v, "count": count},
             {"grad_norm": gnorm})
+
+
+def _runs(shape, lead=()) -> list:
+    """Indices that cover a leaf of ``shape`` in runs of at most about
+    :data:`CHUNK` elements: row ranges of the first dim whose rows fit,
+    each index of the dims before it fixed (the whole leaf when it is
+    smaller)."""
+    n = math.prod(shape)
+    if not shape or n <= CHUNK:
+        return [lead + (...,)]
+    inner = n // shape[0]
+    if inner <= CHUNK or len(shape) == 1:
+        rows = max(1, CHUNK // inner)
+        return [lead + (slice(i, i + rows),)
+                for i in range(0, shape[0], rows)]
+    return [r for i in range(shape[0]) for r in _runs(shape[1:], lead + (i,))]

@@ -222,18 +222,22 @@ def restore_checkpoint(path: str, like: Any) -> Tuple[int, Any, Dict[str, Any]]:
 
 def save_train_state(directory: str, step: int, params: Any, opt: Any, cfg,
                      shards=None, extra: Optional[Dict[str, Any]] = None,
-                     write: bool = True) -> Optional[str]:
+                     write: bool = True, data=None) -> Optional[str]:
     """Checkpoint a trainer's ``{"params": ..., "opt": ...}``. With model
-    shards (``shards``, a :class:`repro_torch.models.parallel.ModelShards`;
-    every rank of the group calls this) the params and AdamW moments are
-    gathered whole over the group, one leaf at a time onto the host, and the
-    rank with ``write`` writes them in the reference's unsharded format.
-    Returns the checkpoint path (None where nothing was written)."""
-    if shards is not None and shards.size > 1:
+    shards (``shards``, a :class:`repro_torch.models.parallel.ModelShards`)
+    or data shards (``data``, a
+    :class:`repro_torch.models.parallel.DataShards`; every rank of the
+    groups calls this) the params and AdamW moments are gathered whole,
+    over data and then over model, one leaf at a time onto the host, and
+    the rank with ``write`` writes them in the reference's unsharded
+    format. Which leaves are cut over data, and along which dim, is read
+    from their shapes, so the fsdp placement and ZeRO-1's moments save
+    alike. Returns the checkpoint path (None where nothing was written)."""
+    if any(g is not None and g.size > 1 for g in (shards, data)):
         from repro_torch.models.parallel import unshard_params
 
         def whole(tree):
-            return unshard_params(tree, cfg, shards, device="cpu")
+            return unshard_params(tree, cfg, shards, device="cpu", dp=data)
 
         params = whole(params)
         opt = {"m": whole(opt["m"]), "v": whole(opt["v"]),
@@ -244,46 +248,37 @@ def save_train_state(directory: str, step: int, params: Any, opt: Any, cfg,
                            extra=extra)
 
 
-def restore_train_state(path: str, params: Any, opt: Any, cfg, shards=None
-                        ) -> Tuple[int, Any, Any, Dict[str, Any]]:
+def restore_train_state(path: str, params: Any, opt: Any, cfg, shards=None,
+                        data=None) -> Tuple[int, Any, Any, Dict[str, Any]]:
     """(step, params, opt, extra) from a checkpoint of whole leaves, shaped
-    and placed like ``params`` and ``opt``: with model shards, restored on
-    the host and cut to this rank's slices (whatever layout wrote it)."""
+    and placed like ``params`` and ``opt``: with model or data shards,
+    restored on the host and cut to this rank's slices as the prototypes
+    are cut (whatever layout wrote it)."""
     tree = {"params": params, "opt": opt}
-    if shards is None or shards.size == 1:
+    if all(g is None or g.size == 1 for g in (shards, data)):
         step, tree, extra = restore_checkpoint(path, tree)
         return step, tree["params"], tree["opt"], extra
     import torch
 
-    from repro_torch.models.parallel import model_dims, shard_params
-
-    dims = model_dims(cfg, shards.size)
+    from repro_torch.models.parallel import full_shapes, cut_like
 
     def host_like(local):
-        it = iter(dims)
-
-        def one(t):
-            d = next(it)
-            shape = list(t.shape)
-            if d is not None:
-                shape[d] *= shards.size
-            return torch.empty(shape, dtype=t.dtype, device="cpu")
-
-        return _map(one, local)
-
-    def cut(whole, like):
-        got = iter(_flatten(shard_params(whole, cfg, shards.size,
-                                         shards.rank)))
-        return _map(lambda t: next(got)[1].to(t.device), like)
+        it = iter(full_shapes(cfg))
+        return _map(lambda t: torch.empty(next(it)[1], dtype=t.dtype,
+                                          device="cpu"), local)
 
     like = {"params": host_like(params),
             "opt": {"m": host_like(opt["m"]), "v": host_like(opt["v"]),
                     "count": opt["count"]}}
     step, tree, extra = restore_checkpoint(path, like)
-    opt_out = {"m": cut(tree["opt"]["m"], opt["m"]),
-               "v": cut(tree["opt"]["v"], opt["v"]),
+
+    def cut(key, proto):
+        return cut_like(tree[key] if key == "params" else tree["opt"][key],
+                        proto, cfg, shards, data)
+
+    opt_out = {"m": cut("m", opt["m"]), "v": cut("v", opt["v"]),
                "count": tree["opt"]["count"]}
-    return step, cut(tree["params"], params), opt_out, extra
+    return step, cut("params", params), opt_out, extra
 
 
 def _map(fn, tree):

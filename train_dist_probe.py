@@ -4,9 +4,11 @@ of the smoke run.
 
 Run from the repository root on a CUDA machine:
 
-    python3 train_dist_probe.py            # every phase below
-    python3 train_dist_probe.py --tp-only  # only the model-shard runs
-    ... --runs-log PATH                    # also append each run's record
+    python3 train_dist_probe.py              # train_path, train_dist, (a)-(c)
+    python3 train_dist_probe.py --tp-only    # only the model-shard runs
+    python3 train_dist_probe.py --fsdp-only  # only the data-cut runs (d)-(g)
+    ... --runs-log PATH                      # also append each run's record
+    ... --only NAME[,NAME...]                # --fsdp-only: just these cells
 
 It builds the kernels, takes ``chip_smoke.py``'s ``train_path`` (3 steps of
 internvl2-2b at full width and depth on one card through
@@ -38,9 +40,36 @@ is the trainer's own entry point: this script calls ``main`` of
 ``repro_torch.launch.train`` with the config's depth cut where a cell says
 so (``python3 train_dist_probe.py trainer DEPTH MODE -- ARGS`` under
 ``torch.distributed.run``; MODE ``forward`` swaps the step for its loss
-alone). One JSON line per phase (and, with four cards, per run, also
-appended to the ``--runs-log`` file when one is named), the card's name
-and power limit first; exits non-zero if a check fails.
+alone).
+
+With ``--fsdp-only`` and four cards it runs the cells with parameters and
+optimizer state cut over the data axis, on a D = 2 x M = 2 mesh:
+  (d) qwen1.5-110b at full width through the sharded fsdp step
+      (``make_fsdp_train_step`` over the bundle's data shards; FSDP_ROWS
+      rows in FSDP_MICRO microbatches a step): at 1 layer and HELD_SEQ
+      positions a row held to the same step on one card (step 0's loss
+      and norm, and the parameters and first moments after it by
+      ``pair_held``, with each off leaf and the MoE routing reported); at
+      8 layers and 8192 positions 3 steps, step 0's loss held to a
+      forward-only pass on one card;
+  (e) llama4-scout-17b-a16e the same way at 1 layer (held to one card) and
+      4 layers (3 steps, finite losses);
+  and both 1-layer pairs again at the configs' reduced width in fp32,
+      held at WITNESS_TOL;
+  (f) ZeRO-1 on the usec step (``reduced_grad_shardings``), recurrentgemma-
+      2b at full width and depth, cell (c), fp32 and compressed, held to
+      the same ranks without ZeRO-1 (losses, norms, parameters, scales and
+      each worker's error feedback bitwise);
+  (g) the trainer's fsdp placement: qwen1.5-110b at 2 layers through
+      ``repro_torch.launch.train`` at 2 x 2, held to 1 x 4.
+These cells run as ``python3 train_dist_probe.py fsdp ARCH DEPTH STEPS
+MODE SEQ`` and ``... zero1 ARCH DEPTH`` under ``torch.distributed.run`` (one
+rank: the one-card baseline); ``--reduced --device cpu`` after them runs
+one on gloo ranks on the host at the config's reduced width.
+
+One JSON line per phase (and, with four cards, per run, also appended to
+the ``--runs-log`` file when one is named), the card's name and power
+limit first; exits non-zero if a check fails.
 """
 
 import json
@@ -50,7 +79,9 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -84,6 +115,50 @@ SHARDED = [
      RG + ["--steps", "2", "--model-shards", "2", "--compress-grads"],
      "recurrentgemma_2b_3_layers_compressed_one_card"),
 ]
+QWEN, SCOUT = "qwen1.5-110b", "llama4-scout-17b-a16e"
+# The fsdp cells: (name, ranks, arch, depth, steps, mode, positions a row,
+# reduced: the config's reduced width in fp32, hold: the one-card run's
+# name, or None). One card holds neither 1-layer model's training state
+# (qwen1.5-110b 3.85 B, llama4-scout 4.27 B parameters: 16 B a parameter
+# with the step's gradients) beside the activations of two 8192-position
+# rows, so the held pairs run at HELD_SEQ positions a row. The reduced
+# pairs are the same steps in fp32 on the cards, held at WITNESS_TOL.
+HELD_SEQ, SEQ, REDUCED_SEQ = 2048, 8192, 64
+FSDP_ONE_CARD = [
+    ("qwen_1_layer_one_card", 1, QWEN, 1, 2, "train", HELD_SEQ, False),
+    ("scout_1_layer_one_card", 1, SCOUT, 1, 2, "train", HELD_SEQ, False),
+    ("qwen_reduced_one_card", 1, QWEN, 1, 2, "train", REDUCED_SEQ, True),
+    ("scout_reduced_one_card", 1, SCOUT, 1, 2, "train", REDUCED_SEQ, True),
+    ("qwen_8_layers_forward_one_card", 1, QWEN, 8, 1, "forward", SEQ,
+     False),
+]
+FSDP_SHARDED = [
+    ("qwen_1_layer_2x2", 4, QWEN, 1, 2, "train", HELD_SEQ, False,
+     "qwen_1_layer_one_card"),
+    ("scout_1_layer_2x2", 4, SCOUT, 1, 2, "train", HELD_SEQ, False,
+     "scout_1_layer_one_card"),
+    ("qwen_reduced_2x2", 4, QWEN, 1, 2, "train", REDUCED_SEQ, True,
+     "qwen_reduced_one_card"),
+    ("scout_reduced_2x2", 4, SCOUT, 1, 2, "train", REDUCED_SEQ, True,
+     "scout_reduced_one_card"),
+    ("qwen_8_layers_2x2", 4, QWEN, 8, 3, "train", SEQ, False,
+     "qwen_8_layers_forward_one_card"),
+    ("scout_4_layers_2x2", 4, SCOUT, 4, 3, "train", SEQ, False, None),
+]
+# A held pair's parameters and first moments after step 0: an element is
+# live where the one-card run's |m| is at least LIVE_FLOOR (fp32, the CPU
+# tests' floor) or LIVE_FLOOR_BF16 x the rms of its m over the model
+# (bf16: the gradient's rounding relative to its scale). The fp32 pairs
+# hold the loss, norm, live parameters and live moments at WITNESS_TOL
+# (the MoE router's moment, a sum of nearly cancelling terms, at
+# ROUTER_TOL, as on the CPU).
+LIVE_FLOOR, LIVE_FLOOR_BF16 = 1e-7, 2 ** -8
+WITNESS_TOL, ROUTER_TOL = 1e-5, 1e-4
+# (f): recurrentgemma-2b at full depth over 4 workers (J = 2, S = 1),
+# worker ZERO1_DROPS[s] dropped at step s.
+ZERO1_DROPS = (1, 2)
+# (g): the trainer at 2 layers, 2 steps.
+QWEN_TRAIN = ["--arch", QWEN] + CELL + ["--steps", "2"]
 # Each one-card run and each sharded run must end within this.
 RUN_TIMEOUT_S = 900
 
@@ -138,15 +213,312 @@ def forward_step(bundle, t_stage, b_max, compress_grads=False, group=None,
 
 
 def start(name, ranks, depth, mode, args, cards):
+    """The trainer cell ``args`` at ``depth`` under torch.distributed.run."""
+    return launch(name, ranks, ["trainer", str(depth), mode, "--"] + args,
+                  cards)
+
+
+def launch(name, ranks, argv, cards):
+    """``ranks`` processes of this script with ``argv`` under
+    torch.distributed.run on ``cards``: (name, start time, the process)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
                CUDA_VISIBLE_DEVICES=",".join(map(str, cards)))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(ranks), os.path.abspath(__file__),
-           "trainer", str(depth), mode, "--"] + args
+           "--nproc-per-node", str(ranks), os.path.abspath(__file__)] + argv
     return name, time.perf_counter(), subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=env, cwd=ROOT)
+
+
+def _cell_setup(argv, n_workers, n_model):
+    """(cfg, device, mesh groups, report helper) of an fsdp or zero1 cell:
+    the config at ``argv``'s arch and depth (``--reduced`` for its reduced
+    width), the process group joined (NCCL on the card, gloo with
+    ``--device cpu``), and on more than one rank a ``(D, n_model)`` mesh:
+    its ModelShards (None when n_model is 1) and DataShards."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import (
+        coordinates,
+        data_group,
+        make_worker_mesh,
+        model_group,
+    )
+    from repro_torch.launch.train import join_process_group
+    from repro_torch.models.parallel import DataShards, ModelShards
+
+    arch, depth = argv[0], int(argv[1])
+    cfg = get_config(arch)
+    if "--reduced" in argv:
+        cfg = dataclasses.replace(cfg.reduced(), param_dtype="float32")
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    _, device = join_process_group("cpu" if "--device" in argv else None)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.zeros(1, device=device)
+    shards = data = group = None
+    rank, world = 0, 1
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        rank, world = dist.get_rank(), dist.get_world_size()
+        mesh = make_worker_mesh(n_workers, n_model, device_type=device.type)
+        d, m = coordinates(mesh)
+        group = data_group(mesh)
+        if n_model > 1:
+            shards = ModelShards(model_group(mesh), n_model, m)
+        data = DataShards(group, world // n_model, d)
+    return cfg, device, shards, data, group, rank, world
+
+
+def _peak(device):
+    return (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+
+
+def _reports(report, rank, world):
+    """Every rank's report printed by rank 0 as the trainer prints them."""
+    import torch.distributed as dist
+
+    reports = [report]
+    if world > 1:
+        reports = [None] * world
+        dist.all_gather_object(reports, report)
+    if rank == 0:
+        for r, rep in enumerate(reports):
+            print(f"rank {r} of {world}: {json.dumps(rep)}", flush=True)
+
+
+def fsdp_cell(argv) -> None:
+    """``fsdp ARCH DEPTH STEPS MODE SEQ [OUT]``: the sharded fsdp step at
+    2 x 2 (one rank: one process), FSDP_ROWS rows of SEQ positions in
+    FSDP_MICRO microbatches with chip_smoke's FSDP_WEIGHTS, the step
+    donating its state; MODE ``forward``: the weighted loss of step 0's
+    batch alone (no optimizer state). With OUT, the parameters and first
+    moments after step 0 are gathered whole onto the host and saved there
+    (:func:`save_state`)."""
+    import chip_smoke as cs
+    from repro_torch.configs.shapes import demo_batch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import attention, build_model, moe
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.runtime.trainstep import make_fsdp_train_step
+
+    steps, mode, seq = int(argv[2]), argv[3], int(argv[4])
+    out_path = argv[5] if len(argv) > 5 and not argv[5].startswith("--") \
+        else None
+    cfg, device, shards, data, group, rank, world = _cell_setup(argv, 2, 2)
+    bundle = build_model(cfg, device=device, shards=shards, data=data)
+    params = bundle.init(torch.Generator(device=device).manual_seed(0))
+    opt = {"m": {}, "v": {}}
+    if mode == "train":
+        opt = cs._zero1_moments(cfg, device, 1 if data is None else data.size,
+                                0 if data is None else data.rank, shards)
+    batch = demo_batch(cfg, "train", cs.FSDP_ROWS, seq)
+    weights = np.asarray(cs.FSDP_WEIGHTS, np.float32)
+    shapes, flash = set(), attention._flash
+    out = {"losses": [], "grad_norms": [], "step_s": []}
+
+    def spy(q, k, v, causal, window):
+        shapes.add((tuple(q.transpose(1, 2).shape), k.shape[2]))
+        return flash(q, k, v, causal, window)
+
+    attention._flash = spy
+    # Step 0's MoE routing (each call's experts and kept choices), saved
+    # with the state: a held pair compares it.
+    routing, route = [], moe.route
+
+    def record(router, xt, cfg):
+        r = route(router, xt, cfg)
+        if len(out["losses"]) == 0:
+            routing.append(torch.stack([r.idx, r.keep.long()]).cpu())
+        return r
+
+    moe.route = record
+    launches0 = flash_attention_cuda.launches
+    if mode == "forward":
+        out["losses"].append(forward_loss(bundle, params, batch, weights))
+    step = make_fsdp_train_step(bundle, cs.FSDP_MICRO, donate=True)
+    for i in range(steps if mode == "train" else 0):
+        if group is not None:
+            torch.distributed.barrier(group)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch, weights, cs.DIST_LR)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        out["step_s"].append(time.perf_counter() - t0)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        if i == 0 and out_path:
+            save_state(out_path, params, opt["m"], cfg, shards, data, rank,
+                       routing)
+    _reports(dict(
+        out, model_index=0 if shards is None else shards.rank,
+        data_index=0 if data is None else data.rank,
+        micro_steps=cs.FSDP_MICRO * len(out["step_s"]),
+        attention_kernel_launches=flash_attention_cuda.launches - launches0,
+        flash_shapes=sorted([list(q), hk] for q, hk in shapes),
+        max_memory_allocated=_peak(device),
+        resting_bytes=sum(t.numel() * t.element_size() for t in
+                          tree_leaves(params) + tree_leaves([opt["m"],
+                                                            opt["v"]])),
+        tp_bytes=0 if shards is None else shards.stats["bytes"],
+        tp_collectives=0 if shards is None else shards.stats["collectives"],
+        data_bytes=(0 if data is None else data.stats["bytes"])
+        + step.stats["bytes"],
+        reduced_bytes=step.stats["bytes"],
+        collectives=step.stats["collectives"]), rank, world)
+
+
+def save_state(path, params, m, cfg, shards, data, rank, routing) -> None:
+    """``{"params", "m", "routing"}``: the parameters and first moments
+    gathered whole onto the host (every rank calls this; rank 0 saves them,
+    ``torch.save``), the moments in their parameters' dtype, and rank 0's
+    MoE routing (a list of (2, T, k) tensors)."""
+    from repro_torch.models.parallel import unshard_params
+    from repro_torch.models.transformer import tree_leaves, tree_unflatten
+
+    whole = unshard_params(params, cfg, shards, device="cpu", dp=data)
+    m = unshard_params(m, cfg, shards, device="cpu", dp=data)
+    m = tree_unflatten(m, [t.to(p.dtype) for t, p in zip(
+        tree_leaves(m), tree_leaves(whole))])
+    if rank == 0:
+        torch.save({"params": whole, "m": m, "routing": routing}, path)
+
+
+def forward_loss(bundle, params, batch, weights) -> float:
+    """The fsdp step's loss of ``batch`` without a gradient: each
+    microbatch's NLL and token sums scaled by its mean weight."""
+    import chip_smoke as cs
+
+    mb = len(weights) // cs.FSDP_MICRO
+    nll = ntok = 0.0
+    with torch.no_grad():
+        for i in range(cs.FSDP_MICRO):
+            part = slice(i * mb, (i + 1) * mb)
+            loss, m = bundle.loss_fn(params, {
+                k: torch.as_tensor(v[part], device=bundle.device)
+                for k, v in batch.items()})
+            scale = float(np.mean(weights[part]))
+            nll += float(loss) * scale
+            ntok += float(m["n_tokens"]) * scale
+    return nll / max(ntok, 1.0)
+
+
+def zero1_cell(argv) -> None:
+    """``zero1 ARCH DEPTH``: the usec step at 2 x 2 (4 workers, one tile
+    each, worker ZERO1_DROPS[s] dropped at step s), fp32 and compressed,
+    without and with ZeRO-1: each rank's losses, norms, step times, peaks
+    and data-group bytes, and whether ZeRO-1 equals the run without it
+    (losses, norms, the parameters and each worker's scales and error
+    feedback after every step, by exact digests)."""
+    import chip_smoke as cs
+    from repro_torch.launch.mesh import workers_of
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.compression import init_state
+    from repro_torch.runtime.trainstep import make_usec_train_step
+
+    cfg, device, shards, data, group, rank, world = _cell_setup(argv, 4, 2)
+    depth = cfg.n_layers
+    seq = 64 if "--reduced" in argv else cs.TRAIN_SEQ
+    bundle, init, t_stage, b_max, args, n_attn = cs._dist_cell(
+        device, depth, argv[0], 4, ZERO1_DROPS, shards, cfg=cfg, seq=seq)
+    mine = workers_of(data.rank, data.size, 4)
+    specs = cs._zero1_specs(cfg, data.size, shards.size)
+    report = {"model_index": shards.rank, "data_index": data.rank,
+              "workers": list(mine), "attention_layers": n_attn,
+              "micro_steps": sum(int(a[3][mine.start:mine.stop].sum())
+                                 for a in args), "modes": {}}
+
+    def digest(tree):
+        return [cs.tensor_digest(t.float()) for t in tree_leaves(tree)]
+
+    for mode in ("fp32", "compressed"):
+        for zero1 in (False, True):
+            comp = init_state(init(), len(mine)) if mode == "compressed" \
+                else None
+            step = make_usec_train_step(
+                bundle, t_stage, b_max, compress_grads=comp is not None,
+                group=group, reduced_grad_shardings=specs if zero1 else None)
+            params = init()
+            opt = (cs._zero1_moments(cfg, device, data.size, data.rank,
+                                     shards) if zero1 else adamw.init(params))
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(device)
+            run = {"loss": [], "grad_norm": [], "step_s": [], "digests": []}
+            for a in args:
+                torch.distributed.barrier(group)
+                t0 = time.perf_counter()
+                params, opt, comp, m = step(params, opt, comp, *a)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                run["step_s"].append(time.perf_counter() - t0)
+                run["loss"].append(float(m["loss"]))
+                run["grad_norm"].append(float(m["grad_norm"]))
+                run["digests"].append(digest(params) + (
+                    [] if comp is None else digest(comp)))
+            run.update(max_memory_allocated=_peak(device),
+                       data_bytes_per_step=step.stats["bytes"] / len(args))
+            report["modes"][f"{mode}_{'zero1' if zero1 else 'whole'}"] = run
+            del params, opt, comp, step
+    report["zero1_bitwise"] = {
+        mode: all(report["modes"][f"{mode}_zero1"][k]
+                  == report["modes"][f"{mode}_whole"][k]
+                  for k in ("loss", "grad_norm", "digests"))
+        for mode in ("fp32", "compressed")}
+    for run in report["modes"].values():
+        run["digests"] = len(run["digests"][0])
+    _reports(report, rank, world)
+
+
+def pair_held(path, one_path, reduced) -> dict:
+    """A held pair's state after step 0 (:func:`save_state`: the sharded
+    run's at ``path``, the one-card run's at ``one_path``), compared on the
+    host by ``chip_smoke.params_held`` with the first moments: fp32
+    (``reduced``) every live parameter and moment within WITNESS_TOL; bf16
+    at most TP_PARAM_SHARE of a leaf's live elements more than two ulps
+    apart (the moments are reported, not held). The files are removed
+    after. An error is a failed record."""
+    import chip_smoke as cs
+    from repro_torch.models.transformer import tree_leaves
+
+    try:
+        got = torch.load(path, weights_only=True)
+        want = torch.load(one_path, weights_only=True)
+    except (FileNotFoundError, RuntimeError) as e:
+        return {"ok": False, "error": str(e)[-2000:]}
+    cpu = torch.device("cpu")
+    if reduced:
+        floor = LIVE_FLOOR
+        out = cs.params_held(
+            got["params"], want["params"], 1, cpu, want["m"], got["m"],
+            floor, tol=WITNESS_TOL, share_tol=0.0,
+            m_tol=lambda key: ROUTER_TOL if "router" in key else WITNESS_TOL)
+    else:
+        sq = n = 0
+        for t in tree_leaves(want["m"]):
+            sq += float(t.float().square().sum(dtype=torch.float64))
+            n += t.numel()
+        floor = LIVE_FLOOR_BF16 * math.sqrt(sq / n)
+        out = cs.params_held(got["params"], want["params"], 1, cpu,
+                             want["m"], got["m"], floor)
+    for p in (path, one_path):
+        os.remove(p)
+    pairs = list(zip(got["routing"], want["routing"]))
+    changed = sum(int((a != b).any(0).sum()) for a, b in pairs)
+    return dict(out, live_floor=floor,
+                moe_choices=sum(b[0].numel() for _, b in pairs),
+                moe_choices_changed=changed,
+                routing_calls=[len(got["routing"]), len(want["routing"])])
 
 
 def finish(run):
@@ -160,20 +532,23 @@ def finish(run):
     reports = [json.loads(x) for x in re.findall(
         r"^rank \d+ of \d+: (\{.*\})$", out, re.M)]
     head = reports[0]
-    steps = len(head["step_s"])
-    return {"name": name, "wall_s": wall, "losses": head["losses"],
-            "grad_norms": head["grad_norms"], "step_s": head["step_s"],
-            "peak_gb_per_rank": [r["max_memory_allocated"] / 1e9
-                                 for r in reports],
-            "tp_bytes_per_step": [r["tp_bytes"] / steps for r in reports],
-            "tp_collectives_per_step": [r["tp_collectives"] / steps
-                                        for r in reports],
-            "reduced_bytes_per_step": [r["reduced_bytes"] / steps
-                                       for r in reports],
-            "flash_launches": [r["attention_kernel_launches"]
-                               for r in reports],
-            "micro_steps": [r["micro_steps"] for r in reports],
-            "model_index": [r["model_index"] for r in reports]}, reports
+    rec = {"name": name, "wall_s": wall}
+    if "losses" not in head:
+        return rec, reports
+    steps = max(len(head["step_s"]), 1)
+    per_step = {k: [r[k] / steps for r in reports] for k in (
+        "tp_bytes", "tp_collectives", "reduced_bytes", "data_bytes")
+        if k in head}
+    rec.update({"losses": head["losses"], "grad_norms": head["grad_norms"],
+                "step_s": head["step_s"],
+                "peak_gb_per_rank": [(r["max_memory_allocated"] or 0) / 1e9
+                                     for r in reports],
+                **{f"{k}_per_step": v for k, v in per_step.items()},
+                "flash_launches": [r["attention_kernel_launches"]
+                                   for r in reports],
+                "micro_steps": [r["micro_steps"] for r in reports],
+                "model_index": [r["model_index"] for r in reports]})
+    return rec, reports
 
 
 def phase_train_tp4(smi, runs_log=None) -> bool:
@@ -232,9 +607,184 @@ def phase_train_tp4(smi, runs_log=None) -> bool:
     return ok
 
 
+def phase_train_fsdp4(smi, runs_log=None) -> bool:
+    """Cells (d)-(g): the one-card runs at once (one card each), then the
+    sharded runs one after another on four cards; each held as the module
+    docstring says."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    records, ok = [], True
+
+    def keep(rec):
+        print(json.dumps(rec), flush=True)
+        if runs_log:
+            with open(runs_log, "a") as fh:
+                fh.write(json.dumps(rec) + "\n")
+
+    only = (sys.argv[sys.argv.index("--only") + 1].split(",")
+            if "--only" in sys.argv else None)
+    wanted = (lambda name: True) if only is None else only.__contains__
+    saved = os.path.join(ROOT, "build", "fsdp4")
+    os.makedirs(saved, exist_ok=True)
+
+    def saved_at(name):
+        return os.path.join(saved, f"{name}.pt")
+
+    def fsdp_argv(name, arch, depth, steps, mode, seq, reduced,
+                  held=False):
+        return ["fsdp", arch, str(depth), str(steps), mode, str(seq)] + (
+            [saved_at(name)] if held else []) + (
+            ["--reduced"] if reduced else [])
+
+    def ended(run):
+        """``finish(run)``, or a failed record and no reports: one cell's
+        failure (a card out of memory) does not stop the others."""
+        try:
+            return finish(run)
+        except (AssertionError, subprocess.TimeoutExpired) as e:
+            run[2].kill()
+            return {"name": run[0], "ok": False, "error": str(e)[-3000:]}, []
+
+    held_pairs = {hold for *_, hold in FSDP_SHARDED if hold}
+    cards = torch.cuda.device_count()
+    runs = [launch(name, 1, fsdp_argv(
+        name, *cell, held=name in held_pairs and cell[3] == "train"),
+        [i % cards])
+        for i, (name, _, *cell) in enumerate(
+            c for c in FSDP_ONE_CARD if wanted(c[0]))]
+    one = {}
+    for run in runs:
+        one[run[0]] = ended(run)[0]
+        keep(one[run[0]])
+
+    def held(rec, want, norms, steps=None, tol=None):
+        """Losses (and norms) of the first ``steps`` steps (all by
+        default) within the TP_* tolerances (or ``tol``) of ``want``'s."""
+        if "losses" not in want:
+            return False
+        n = min(len(want["losses"]), len(rec["losses"]), steps or 1 << 30)
+        rec["loss_rel_err"] = [abs(a - b) / abs(b) for a, b in zip(
+            rec["losses"][:n], want["losses"][:n])]
+        good = max(rec["loss_rel_err"]) <= (tol or cs.TP_LOSS_TOL)
+        if norms:
+            rec["grad_norm_rel_err"] = [abs(a - b) / abs(b) for a, b in zip(
+                rec["grad_norms"][:n], want["grad_norms"][:n])]
+            good &= max(rec["grad_norm_rel_err"]) <= (tol or cs.TP_GNORM_TOL)
+        return good
+
+    pool, compares = ThreadPoolExecutor(1), []
+    for (name, ranks, arch, depth, steps, mode, seq, reduced,
+         hold) in FSDP_SHARDED:
+        if not wanted(name):
+            continue
+        params = hold is not None and mode == "train" and "forward" not in hold
+        rec, reports = ended(launch(name, ranks, fsdp_argv(
+            name, arch, depth, steps, mode, seq, reduced, held=params),
+            list(range(4))))
+        if not reports:
+            keep(rec)
+            records.append(rec)
+            ok = False
+            continue
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
+                                  n_layers=depth)
+        n_attn = cs.attention_layer_count(cfg)
+        # The kernel runs above attn_chunk positions (the reduced pairs'
+        # attention is the plain one).
+        per_micro = 2 * n_attn if seq > cfg.attn_chunk else 0
+        good = all(math.isfinite(x) for x in rec["losses"]) and all(
+            r["attention_kernel_launches"] == per_micro * r["micro_steps"]
+            for r in reports)
+        if hold is not None and params:
+            # Both runs start from the same weights: step 0's loss and norm
+            # are held, and the parameters and first moments after it
+            # (pair_held). The later losses are reported, not held: on a
+            # batch the 1-layer model nearly memorizes in a step, the next
+            # loss magnifies the first update's sign noise (AdamW moves an
+            # element by about lr x sign(g), so where g is zero to
+            # rounding the two runs may move it 2 lr apart).
+            rec["held_to"] = hold
+            good &= held(rec, one.get(hold, {}), True, steps=1,
+                         tol=WITNESS_TOL if reduced else None)
+            # On the host, beside the next cell's run; its record follows.
+            compares.append((name, pool.submit(
+                pair_held, saved_at(name), saved_at(hold), reduced)))
+            if "losses" in one.get(hold, {}):
+                rec["later_loss_rel_err"] = [abs(a - b) / abs(b) for a, b in
+                                             zip(rec["losses"][1:],
+                                                 one[hold]["losses"][1:])]
+        elif hold is not None:
+            rec["held_to"] = hold
+            good &= held(rec, one.get(hold, {}), False)
+        rec.update(ok=bool(good), depth=depth, seq=seq,
+                   attention_layers=n_attn,
+                   flash_shapes=reports[0]["flash_shapes"],
+                   resting_gb_per_rank=[r["resting_bytes"] / 1e9
+                                        for r in reports])
+        keep(rec)
+        records.append(rec)
+        ok &= good
+    for name, done in compares:
+        try:
+            rec = {"name": f"{name}_params", **done.result()}
+        except Exception as e:  # noqa: BLE001 - a failed record
+            rec = {"name": f"{name}_params", "ok": False,
+                   "error": repr(e)[-2000:]}
+        keep(rec)
+        records.append(rec)
+        ok &= rec["ok"]
+    pool.shutdown()
+    if wanted("recurrentgemma_2b_2x2_zero1"):
+        rec, reports = ended(launch("recurrentgemma_2b_2x2_zero1", 4,
+                                    ["zero1", "recurrentgemma-2b", "0"],
+                                    list(range(4))))
+        rec.update(ok=bool(reports) and all(
+            all(r["zero1_bitwise"].values()) for r in reports),
+            ranks_detail=reports)
+        keep(rec)
+        records.append(rec)
+        ok &= rec["ok"]
+    trained = {}
+    for m in (4, 2) if wanted("qwen_2_layers_trainer_2x2") else ():
+        name = f"qwen_2_layers_trainer_{4 // m}x{m}"
+        rec, reports = ended(start(name, 4, 2, "train",
+                                   QWEN_TRAIN + ["--model-shards", str(m)],
+                                   list(range(4))))
+        rec["resting_gb_per_rank"] = [r["resting_bytes"] / 1e9
+                                      for r in reports]
+        trained[m] = rec
+    if trained:
+        rec = trained[2]
+        rec["held_to"] = trained[4]["name"]
+        rec["ok"] = bool("losses" in rec and held(rec, trained[4], True)
+                         and all(math.isfinite(x) for x in rec["losses"]))
+        for r in trained.values():
+            keep(r)
+            records.append(r)
+        ok &= rec["ok"]
+    cs.emit({"phase": "train_fsdp4", "cards": torch.cuda.device_count(),
+             "one_card": one, "sharded": records,
+             "tolerances": {"loss": cs.TP_LOSS_TOL,
+                            "grad_norm": cs.TP_GNORM_TOL},
+             "phase_s": time.perf_counter() - t0, "nvidia_smi": smi})
+    return ok
+
+
 def main() -> int:
-    if len(sys.argv) > 1 and sys.argv[1] == "trainer":
-        trainer(sys.argv[2:])
+    if len(sys.argv) > 1 and sys.argv[1] in ("trainer", "fsdp", "zero1"):
+        cell = {"trainer": trainer, "fsdp": fsdp_cell,
+                "zero1": zero1_cell}[sys.argv[1]]
+        try:
+            cell(sys.argv[2:])
+        finally:
+            if sys.argv[1] != "trainer" and \
+                    torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
         return 0
     if not torch.cuda.is_available():
         print("train_dist_probe: no CUDA device; nothing was run",
@@ -255,13 +805,19 @@ def main() -> int:
     _build.build_all()
     dev = torch.device("cuda", 0)
     torch.zeros(1, device=dev)
+    log = (sys.argv[sys.argv.index("--runs-log") + 1]
+           if "--runs-log" in sys.argv else None)
+    four = torch.cuda.device_count() >= 4
+    if "--fsdp-only" in sys.argv:
+        if four:
+            return 0 if phase_train_fsdp4(smi, log) else 1
+        cs.phase_train_fsdp(dev, smi)
+        return 0
     if "--tp-only" not in sys.argv:
         _, metrics = cs.phase_train_path(
             dev, {"flash_attention": flash_attention_cuda}, smi)
         cs.phase_train_dist(dev, smi, metrics)
-    if torch.cuda.device_count() >= 4:
-        log = (sys.argv[sys.argv.index("--runs-log") + 1]
-               if "--runs-log" in sys.argv else None)
+    if four:
         if not phase_train_tp4(smi, log):
             return 1
     else:
