@@ -41,7 +41,12 @@ dropped, ``train_flash_grad`` holds the kernel route's gradients to the
 plain scan's at one layer's shape, ``train_parity`` holds one usec
 step on the card to the host's for three reduced archs, ``train_remat``
 holds the reference's three remat policies bitwise to each other (time
-and peak memory each), and ``train_dist`` runs 4 ranks of the usec step
+and peak memory each), ``dryrun`` holds ``repro_torch.launch.dryrun``
+against the card (its H100 memory constant; one production cell per train
+mode at 256 fake ranks, each ``ok``; the trainer's cell and glm4-9b's
+8192-token prefill dry-run at world 1 and run for real: the predicted
+peak within 5 % of ``max_memory_allocated``, the predicted flops equal to
+``FlopCounterMode``'s), and ``train_dist`` runs 4 ranks of the usec step
 (with four cards: NCCL, the trainer at full depth under
 torch.distributed.run, held to train_path's losses; with one card: 4 gloo
 ranks sharing it at DIST_DEPTH layers, fp32 and compressed, held to the
@@ -1942,14 +1947,6 @@ def attn_err(got, want, live=None):
     return float(err.max()) if err.numel() else 0.0
 
 
-def live_pairs(sq: int, skv: int, causal: bool, window) -> int:
-    """(query, key) pairs the mask keeps, per (batch, head)."""
-    q_pos = np.arange(sq, dtype=np.int64) + skv - sq
-    hi = np.minimum(skv - 1, q_pos) if causal else np.full(sq, skv - 1)
-    lo = np.maximum(0, q_pos - window + 1) if window else np.zeros(sq)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
-
-
 def flash_operands(case, dev, seed):
     b, h, hk, sq, skv, d, _, _, dt = case
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -2022,6 +2019,7 @@ def flash_layer(case, dev, seed):
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda,
         flash_attention_plain,
+        live_pairs,
     )
 
     err = flash_check(case, dev, seed)
@@ -3620,7 +3618,8 @@ def _held_to_one_process(whole, out, p1, out1, n_steps, dev):
 
 
 def params_held(whole, p1, n_steps, dev, m1=None, m2=None, floor=0.0,
-                tol=2 ** -7, share_tol=TP_PARAM_SHARE, m_tol=None):
+                tol=2 ** -7, share_tol=TP_PARAM_SHARE, m_tol=None,
+                live_sigmas=None, coverage=None):
     """The TP_* rule for a sharded run's gathered parameters ``whole``
     against the one-process run's ``p1`` after ``n_steps`` steps: at most
     ``share_tol`` of a leaf's elements more than ``tol`` (two bf16 ulps) of
@@ -3637,7 +3636,16 @@ def params_held(whole, p1, n_steps, dev, m1=None, m2=None, floor=0.0,
     moment off) is listed in ``leaves``: its key, size, share off, worst
     excess over ``tol``, the largest |m1| of the leaf and of its off
     elements, and ``m_err``, the largest |m2 - m1| over live elements
-    against the largest |m1|."""
+    against the largest |m1|.
+
+    ``live_sigmas`` (with the moments; ``floor`` is then unused): the live
+    set comes from each leaf's own layout noise, sigma, the rms over the
+    leaf of ``m2 - m1``: live where ``|m1| >= live_sigmas x sigma``, and
+    the share is of the leaf's live elements. ``coverage`` = (ratio,
+    least): every leaf whose sigma is below ``ratio`` x its largest |m1|
+    must keep at least ``least`` of its elements live. Every leaf's live
+    share and sigma (as a share of its largest |m1|) are listed in
+    ``live``."""
     from repro_torch.launch.sharding import keystr, map_with_path
     from repro_torch.models.transformer import tree_leaves
 
@@ -3645,7 +3653,7 @@ def params_held(whole, p1, n_steps, dev, m1=None, m2=None, floor=0.0,
     map_with_path(lambda path, _: keys.append(keystr(path)), p1)
     moments = ([None] * len(keys) if m1 is None
                else list(zip(tree_leaves(m1), tree_leaves(m2))))
-    share, worst, ok, rows = 0.0, 0.0, True, []
+    share, worst, ok, rows, lives = 0.0, 0.0, True, [], []
     step_bound = 3 * DIST_LR * n_steps
     for key, a, b, mm in zip(keys, tree_leaves(whole), tree_leaves(p1),
                              moments):
@@ -3659,8 +3667,20 @@ def params_held(whole, p1, n_steps, dev, m1=None, m2=None, floor=0.0,
         live = None
         if mm is not None:
             g1, g2 = (t.to(dev).float() for t in mm)
-            live = g1.abs() >= floor
             g_top = float(g1.abs().max())
+            if live_sigmas is None:
+                live = g1.abs() >= floor
+            else:
+                sigma = float((g2 - g1).square().mean().sqrt())
+                live = g1.abs() >= live_sigmas * sigma
+                rel = sigma / g_top if g_top > 0 else 0.0
+                entry = {"leaf": key, "live_share": float(
+                    live.float().mean()), "sigma_over_top": rel}
+                if coverage is not None and rel < coverage[0] and \
+                        entry["live_share"] < coverage[1]:
+                    ok = False
+                    entry["coverage_failed"] = True
+                lives.append(entry)
             m_err = (float(((g2 - g1).abs() * live).max()) / g_top
                      if g_top > 0 else 0.0)
             row.update(max_abs_m1=g_top, live_share=float(
@@ -3673,15 +3693,21 @@ def params_held(whole, p1, n_steps, dev, m1=None, m2=None, floor=0.0,
         row["share_off"] = float(off.float().mean())
         held_off = off if live is None else off & live
         row["share_off_live"] = float(held_off.float().mean())
+        if live_sigmas is not None:  # of the live elements
+            row["share_off_live"] = float(held_off.sum()) / max(
+                float(live.sum()), 1.0)
         share = max(share, row["share_off_live"])
         worst = max(worst, excess)
         if row["share_off"] > 0 or row.get("m_over_tol"):
             rows.append(row)
         del off, live, held_off
     ok &= share <= share_tol and worst <= step_bound
-    return {"ok": bool(ok), "param_share_off": share,
-            "param_excess_over_2ulps": worst, "param_step_bound": step_bound,
-            "leaves": rows}
+    out = {"ok": bool(ok), "param_share_off": share,
+           "param_excess_over_2ulps": worst, "param_step_bound": step_bound,
+           "leaves": rows}
+    if live_sigmas is not None:
+        out["live"] = lives
+    return out
 
 
 def _ranks_on_card(body, world, name):
@@ -4066,6 +4092,154 @@ def phase_train_remat(dev, smi):
     torch.cuda.empty_cache()
 
 
+# The dry-run's production cells run here (one per train mode, 256 fake
+# ranks each, in subprocesses beside the card's runs), and two cells the
+# smoke runs for real, dry-run with the same arguments at world 1: the
+# trainer's cell (TRAIN_ARGS, one step) and glm4-9b's 8192-token prefill.
+# Each of the two: the predicted peak within DRYRUN_PEAK_TOL of the card's
+# max_memory_allocated over the same run, and the predicted flops equal to
+# FlopCounterMode's count of the run.
+DRYRUN_CELLS = (("glm4-9b", "train_4k"), ("qwen1.5-110b", "train_4k"),
+                ("stablelm-1.6b", "train_4k"))
+DRYRUN_PEAK_TOL = 0.05
+
+
+def _usec_layout(args):
+    """(n workers, t_stage, b_max) the trainer derives from ``args``."""
+    from repro_torch.core import USECScheduler, cyclic_placement
+
+    def opt(flag):
+        return int(args[args.index(flag) + 1])
+
+    n = opt("--workers")
+    placement = cyclic_placement(n, opt("--tiles-per-worker") * n,
+                                 opt("--replication"))
+    sched = USECScheduler(placement, rows_per_tile=1,
+                          initial_speeds=np.ones(n),
+                          stragglers=opt("--straggler-tolerance"), gamma=0.5)
+    return n, max(len(z) for z in placement.storage_sets()), sched.t_max
+
+
+def phase_dryrun(dev, smi):
+    """``repro_torch.launch.dryrun`` held against the card (see
+    DRYRUN_CELLS). Hard checks: the module's H100_HBM_BYTES equals the
+    card's total memory; each production cell's status ``ok``; each world-1
+    cell's peak and flops as stated. The real runs' launches are
+    comparisons, not the main path's."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import demo_batch, get_config
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models import build_model
+    from repro_torch.runtime import executor
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    if total != dryrun.H100_HBM_BYTES:
+        raise AssertionError(f"dryrun: the card has {total} bytes, the "
+                             f"module says {dryrun.H100_HBM_BYTES}")
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [(arch, shape, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=ROOT)) for arch, shape in DRYRUN_CELLS]
+
+    # The trainer's cell, one step, on the card and traced.
+    args = TRAIN_ARGS[:TRAIN_ARGS.index("--steps")] + ["--steps", "1"] + \
+        TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 2:]
+    trips, real_bp = [], executor.block_plan
+
+    def bp_spy(*a, **k):
+        bp = real_bp(*a, **k)
+        trips.append(int(bp.n_blocks.sum()))
+        return bp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    executor.block_plan = bp_spy
+    try:
+        with FlopCounterMode(display=False) as fc:
+            train.main(args)
+    finally:
+        executor.block_plan = real_bp
+    torch.cuda.synchronize(dev)
+    real = {"peak": torch.cuda.max_memory_allocated(dev),
+            "flops": fc.get_total_flops(), "micro_steps": trips}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    n, t_stage, b_max = _usec_layout(args)
+    t0 = time.perf_counter()
+    res = dryrun.trace_usec(cfg, None, n, t_stage, b_max, 1, TRAIN_SEQ,
+                            zero1=False)
+    one, two = (int(c.flops) for c in res["costs"])
+    per_trip = (two - one) // n
+    flops = sum(one - n * per_trip + t * per_trip for t in trips)
+    peak = max(res["setup_peak_bytes"], res["argument_bytes"],
+               *(c.peak_bytes for c in res["costs"]))
+    train_cell = {"args": args, "real": real, "predicted": {
+        "peak": peak, "flops": flops, "flops_per_micro_step": per_trip,
+        "trace_s": time.perf_counter() - t0},
+        "peak_rel_err": abs(peak - real["peak"]) / real["peak"]}
+
+    # glm4-9b's prefill of model_path: batch 1, PROMPT_LEN tokens.
+    pcfg = get_config(MODEL_ARCH)
+    bundle = build_model(pcfg, device=dev)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in demo_batch(
+        pcfg, "prefill", MODEL_BATCH, PROMPT_LEN, seed=0).items()}
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        cache, logits = bundle.prefill(params, batch)
+    torch.cuda.synchronize(dev)
+    real = {"peak": torch.cuda.max_memory_allocated(dev),
+            "flops": fc.get_total_flops(),
+            "finite": bool(torch.isfinite(logits).all())}
+    del bundle, params, batch, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = dryrun.trace_serve(pcfg, "prefill", MODEL_BATCH, PROMPT_LEN)
+    cost = res["cost"]
+    peak = max(cost.peak_bytes, res["argument_bytes"])
+    prefill_cell = {"arch": MODEL_ARCH, "batch": MODEL_BATCH,
+                    "prompt_len": PROMPT_LEN, "real": real, "predicted": {
+                        "peak": peak, "flops": int(cost.flops),
+                        "trace_s": time.perf_counter() - t0},
+                    "peak_rel_err": abs(peak - real["peak"]) / real["peak"]}
+
+    cells = []
+    for arch, shape, t0, proc in procs:
+        log, _ = proc.communicate(timeout=900)
+        path = os.path.join(out_dir, f"{arch}__{shape}__single.json")
+        rec = {"arch": arch, "shape": shape, "rc": proc.returncode,
+               "wall_s": time.perf_counter() - t0, "log": log[-600:]}
+        if os.path.exists(path):
+            with open(path) as fh:
+                got = json.load(fh)
+            rec.update({k: got.get(k) for k in (
+                "status", "meta", "flops_per_device", "bytes_per_device",
+                "collective_bytes_per_device", "collective_groups", "memory",
+                "setup_peak_bytes", "hbm_fit", "trace_s", "error")})
+        cells.append(rec)
+    emit({"phase": "dryrun", "hbm_bytes": total,
+          "module_hbm_bytes": dryrun.H100_HBM_BYTES, "production": cells,
+          "train_path": train_cell, "model_path_prefill": prefill_cell,
+          "peak_tol": DRYRUN_PEAK_TOL, "nvidia_smi": smi})
+    bad = [c["arch"] for c in cells if c.get("status") != "ok"
+           or c["rc"] != 0]
+    for name, cell in (("train_path", train_cell),
+                       ("prefill", prefill_cell)):
+        if cell["peak_rel_err"] > DRYRUN_PEAK_TOL or \
+                cell["predicted"]["flops"] != cell["real"]["flops"]:
+            bad.append(name)
+    if bad or not prefill_cell["real"]["finite"]:
+        raise AssertionError(f"dryrun: {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4165,6 +4339,8 @@ def main() -> int:
     phase_train_flash_grad(dev)
     phase_train_parity(dev)
     phase_train_remat(dev, smi)
+    # ---- 5b'. the dry-run held against the card ----
+    phase_dryrun(dev, smi)
     # ---- 5c. main path: training across 4 ranks ----
     reset_launches(counters)
     totals["flash_attention"] += phase_train_dist(dev, smi, train_metrics)

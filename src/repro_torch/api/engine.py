@@ -286,6 +286,32 @@ class ElasticEngine:
             self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ #
+    @classmethod
+    def from_runner(cls, runner, workload: Workload) -> "ElasticEngine":
+        """Adopt an already-built :class:`ElasticRunner` (the legacy
+        ``run_power_iteration(runner, ...)`` calling convention), on the
+        runner's device.
+
+        The runner's executor was built for its construction-time
+        workload's block function; the adopted workload must be
+        executor-compatible (same block function and ``out_cols``): the
+        power-iteration driver over a matvec runner is the canonical case.
+        """
+        eng = cls(
+            workload,
+            cfg=EngineConfig(
+                block_rows=runner.cfg.block_rows,
+                verify=runner.cfg.verify,
+                allclose_atol=runner.cfg.allclose_atol,
+            ),
+            backend="device",
+            placement=runner.placement,
+            device=runner.device,
+        )
+        runner.workload = workload
+        eng._runner = runner
+        return eng
+
     @property
     def runner(self):
         """The device backend's live runner (None before the first run)."""

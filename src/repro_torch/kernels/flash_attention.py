@@ -34,6 +34,15 @@ the model path's (1, 32, 8192, 128) causal bf16 layer that is 0.55 TFLOP,
 Both walk only their live KV tiles, mask ragged lengths in the kernel (the
 wrapper pads nothing) and read Q, K, V through their strides, so a
 (B, S, H, d) activation viewed as (B, H, S, d) is read in place.
+
+The kernel is also the PyTorch operator ``torch.ops.repro_torch.
+flash_attention`` (:func:`flash_attention_op`), which
+``kernels.ops.flash_attention`` calls for card tensors: its implementation
+is :func:`flash_attention_cuda` (one launch a call), its fake (meta)
+implementation gives the output's shape and dtype without running anything
+(the dry-run traces the model on meta tensors), and its flop formula, for
+``torch.utils.flop_counter``, counts :func:`flash_flops`: 4·d per live
+(query, key) pair a (batch, head), the count the bound above uses.
 """
 
 from __future__ import annotations
@@ -41,12 +50,15 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .ref import attention_ref
 
-__all__ = ["HEAD_DIMS", "flash_attention_cuda", "flash_attention_plain"]
+__all__ = ["HEAD_DIMS", "flash_attention_cuda", "flash_attention_op",
+           "flash_attention_plain", "flash_flops", "live_pairs"]
 
 HEAD_DIMS = (32, 64, 80, 128, 256)  # one kernel instance each
 _INT_MAX = 2 ** 31 - 1
@@ -187,3 +199,41 @@ def flash_attention_cuda(
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_tc = 0
 flash_attention_cuda.launches_ffma = 0
+
+
+def live_pairs(sq: int, skv: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs the kernel's mask keeps, per (batch, head): query
+    row r sits at key position ``r + skv - sq``."""
+    q_pos = np.arange(sq, dtype=np.int64) + skv - sq
+    hi = np.minimum(skv - 1, q_pos) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(0, q_pos - window + 1) if window else np.zeros(sq)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_flops(q_shape, k_shape, causal: bool = True,
+                window: Optional[int] = None) -> int:
+    """The attention's floating-point operations: 4·d per live (query, key)
+    pair (2·d for Q·Kᵀ, 2·d for P·V) in each (batch, head)."""
+    b, h, sq, d = q_shape
+    return 4 * d * b * h * live_pairs(sq, k_shape[2], causal, window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: Optional[int],
+                       scale: Optional[float]) -> torch.Tensor:
+    """:func:`flash_attention_cuda` as an operator: one kernel launch, or
+    its error (any tensor that is not on a CUDA device raises there)."""
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                scale=scale)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window, scale):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, window, scale, *args,
+      out_shape=None, **kwargs):
+    return flash_flops(q_shape, k_shape, causal, window)

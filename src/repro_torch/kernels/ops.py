@@ -10,6 +10,12 @@ Twins of :mod:`repro.kernels.ops`. The route is picked per call:
 There is no fallback: a CUDA tensor launches the kernel or the call raises.
 The reference's ``"pallas"`` and ``"interpret"`` modes do not exist here and
 raise ``ValueError``.
+
+Flash attention goes through the operator ``torch.ops.repro_torch.
+flash_attention`` (``kernels.flash_attention.flash_attention_op``): on a
+CUDA tensor it is the kernel; on a meta tensor (the dry-run's stand-in for
+a card tensor, :mod:`repro_torch.launch.dryrun`) its fake implementation
+gives the output's shape and runs nothing.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .flash_attention import flash_attention_op, flash_attention_plain
 from .ref import matvec_ref, segmented_gather_ref
 from .tile_checksum import tile_checksum_cuda, tile_checksum_plain
 from .usec_matvec import usec_matvec_cuda
@@ -42,6 +48,13 @@ def use_kernel(mode: Optional[str], x: torch.Tensor) -> bool:
     if mode == "ref":
         return False
     return mode == "cuda" or x.is_cuda
+
+
+def card_route(mode: Optional[str], x: torch.Tensor) -> bool:
+    """:func:`use_kernel` for the flash operator, which also takes a meta
+    tensor (the dry-run's stand-in for a card tensor) on the card's route
+    unless ``mode`` is ``"ref"``."""
+    return use_kernel(mode, x) or (x.is_meta and mode != "ref")
 
 
 def usec_matvec(
@@ -174,9 +187,8 @@ def flash_attention(
     The reference's Pallas tile sizes (``block_q``, ``block_k``) have no
     counterpart: the Hopper kernels' tiles are fixed.
     """
-    if use_kernel(mode, q):
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    scale=scale)
+    if card_route(mode, q):
+        return flash_attention_op(q, k, v, causal, window, scale)
     return flash_attention_plain(q, k, v, causal=causal, window=window,
                                  scale=scale)
 
@@ -194,6 +206,7 @@ def tile_checksum(x: torch.Tensor, tile_dims: int = 2,
 
 __all__ = [
     "MODES",
+    "card_route",
     "check_mode",
     "executor_matmul",
     "flash_attention",

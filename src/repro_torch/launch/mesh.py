@@ -11,7 +11,11 @@ them, and the D ranks of a model index meet at the master combine. A data
 index owns a contiguous run of the workers (:func:`workers_of`): one worker
 when there are as many data indices as workers, several when there are
 fewer. :func:`make_production_mesh` keeps the reference's production shapes
-as plain data for the dry-run (item 13d); it builds no process group.
+as plain data, and :func:`make_fake_mesh` lays one over a process group of
+the ``"fake"`` backend for the dry-run (:mod:`repro_torch.launch.dryrun`),
+the port's counterpart of the reference's forced host devices
+(``repro.launch.hostdev``): torch has no device count to force, so a fake
+group of 256 or 512 ranks stands in for the devices.
 """
 
 from __future__ import annotations
@@ -99,3 +103,37 @@ def model_group(mesh):
     if MODEL_AXIS not in mesh.mesh_dim_names:
         return None
     return mesh.get_group(MODEL_AXIS)
+
+
+def make_fake_mesh(spec: MeshSpec, rank: int = 0):
+    """A ``DeviceMesh("cuda", spec.shape)`` named ``spec.axis_names`` over a
+    default process group of the ``"fake"`` backend of ``prod(spec.shape)``
+    ranks, this process rank ``rank``: every collective returns at once and
+    moves nothing, so one process traces rank ``rank``'s step of a mesh it
+    does not have. A default group already in place is destroyed first
+    (the caller owns this process's group; call
+    ``torch.distributed.destroy_process_group()`` when done). This is the
+    only place that uses the fake backend."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    world = math.prod(spec.shape)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    return DeviceMesh("cuda", torch.arange(world).reshape(spec.shape),
+                      mesh_dim_names=tuple(spec.axis_names))
+
+
+def flat_group(mesh, axes: Tuple[str, ...]):
+    """The process group over ``axes`` of ``mesh`` taken together (one dim
+    as it is; ``("pod", "data")`` flattened into one group, the data axis
+    of a two-pod mesh)."""
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[tuple(axes)]._flatten().get_group()

@@ -185,9 +185,9 @@ class FlashAttentionFn(torch.autograd.Function):
 def long_attention(q, k, v, causal: bool, window: Optional[int], chunk: int):
     """The ``s > attn_chunk`` branch: the flash kernel for CUDA tensors
     (through :class:`FlashAttentionFn`, which gives it a gradient when one
-    is needed), :func:`chunked_attention` for host tensors. (B, S, H, hd)
-    in and out."""
-    if not q.is_cuda:
+    is needed; a meta tensor, the dry-run's card tensor, too),
+    :func:`chunked_attention` for host tensors. (B, S, H, hd) in and out."""
+    if not kernel_ops.card_route(None, q):
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  chunk=chunk)
     return FlashAttentionFn.apply(q, k, v, causal, window, chunk)

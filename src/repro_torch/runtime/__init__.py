@@ -31,6 +31,7 @@ from .elastic_runner import (
     SyntheticSpeedClock,
     make_exact_matrix,
     quantize_unit,
+    run_power_iteration,
 )
 from .scenarios import (
     ChurnStep,
@@ -120,6 +121,7 @@ __all__ = [
     "quantize_unit",
     "refresh_include",
     "restore_checkpoint",
+    "run_power_iteration",
     "save_checkpoint",
     "simulate_batch",
     "simulate_step",

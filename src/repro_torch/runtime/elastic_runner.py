@@ -2219,3 +2219,43 @@ class PowerIterationResult:
         wall = sum(r.wall_s for r in self.reports)
         return len(self.reports) / wall if wall > 0 else float("inf")
 
+
+def run_power_iteration(
+    runner: ElasticRunner,
+    n_steps: int,
+    events=None,
+    w0: Optional[np.ndarray] = None,
+    straggler_sets=None,
+    quantize_bits: Optional[int] = 8,
+    seed: int = 0,
+) -> PowerIterationResult:
+    """Deprecated shim: drive elastic power iteration through a churn trace.
+
+    Twin of :func:`repro.runtime.run_power_iteration`. The loop lives in
+    :class:`repro_torch.api.workload.MatVecPowerIteration` driven by
+    :class:`repro_torch.api.ElasticEngine` (``backend="device"``); this
+    wrapper adopts the given runner (:meth:`ElasticEngine.from_runner`) and
+    delegates, returning the same :class:`PowerIterationResult` bit for bit.
+    New code should call the engine directly.
+
+    ``events`` yields at most one ``ElasticEvent`` per step;
+    ``straggler_sets`` is an indexable of per-step straggler sets or a
+    callable ``(step, membership) -> sequence`` evaluated after the step's
+    event is applied. With ``quantize_bits`` the iterate stays on an
+    exactly representable grid (:func:`quantize_unit`), which is what makes
+    the runner's exact verification meaningful.
+    """
+    import warnings
+
+    from repro_torch.api import ElasticEngine, MatVecPowerIteration
+
+    warnings.warn(
+        "run_power_iteration is deprecated; use repro_torch.api."
+        "ElasticEngine(MatVecPowerIteration(...), ..., backend='device')",
+        DeprecationWarning, stacklevel=2,
+    )
+    workload = MatVecPowerIteration(w0=w0, quantize_bits=quantize_bits,
+                                    seed=seed)
+    res = ElasticEngine.from_runner(runner, workload).run(
+        n_steps=n_steps, events=events, straggler_sets=straggler_sets)
+    return res.result

@@ -38,7 +38,9 @@ fsdp mode (:func:`make_fsdp_train_step`)
     microbatch, its layers gather their leaves as they run, and each
     micro-step's gradient reaches the rank's total reduce-scattered.
 
-The reference's ``worker_axes`` (pure-DP meshes) is not ported; its
+The reference's ``worker_axes`` (pure DP: every chip a worker) is this
+step over a one-dim data group of every rank, one worker a rank, no model
+shards (:mod:`repro_torch.launch.dryrun`'s dp cells); its
 ``grad_shardings`` is what the model shards do.
 """
 

@@ -52,6 +52,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "repro_torch.launch.train",
             "repro_torch.launch.mesh",
             "repro_torch.launch.sharding",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.op_cost",
             "repro_torch.models.parallel"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -68,6 +70,106 @@ def test_port_imports_no_jax_and_no_reference_package():
                           text=True, env=env, cwd=REPO, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.strip()) == len(mods)
+
+
+def _imported(path):
+    """The top-level names of the modules a Python file imports."""
+    import ast
+
+    names = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_scripts_and_examples_import_no_jax_and_no_reference_package():
+    """``chip_smoke.py``, ``train_dist_probe.py`` and ``examples_torch/``
+    import neither JAX nor the JAX package (read from their import
+    statements, nested ones included)."""
+    scripts = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                               "train_dist_probe.py")]
+    ex = os.path.join(REPO, "examples_torch")
+    scripts += [os.path.join(ex, f) for f in sorted(os.listdir(ex))
+                if f.endswith(".py")]
+    assert len(scripts) == 7
+    for path in scripts:
+        bad = _imported(path) & {"jax", "jaxlib", "repro"}
+        assert not bad, (path, bad)
+
+
+def _reference_symbols():
+    """{module: public names} of the JAX package, read from its sources
+    (its ``__all__``, else its top-level public names)."""
+    import ast
+
+    out = {}
+    root = os.path.join(SRC, "repro")
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            mod = os.path.relpath(path, SRC)[:-3].replace(os.sep, ".")
+            mod = mod[: -len(".__init__")] if mod.endswith(".__init__") \
+                else mod
+            tree = ast.parse(open(path).read())
+            names, listed = [], None
+            for node in tree.body:
+                if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                    names.append(node.name)
+                elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+                    targets = (node.targets if isinstance(node, ast.Assign)
+                               else [node.target])
+                    for t in targets:
+                        if isinstance(t, ast.Name):
+                            if t.id == "__all__":
+                                listed = [e.value for e in node.value.elts]
+                            names.append(t.id)
+            out[mod] = listed if listed is not None else [
+                n for n in names if not n.startswith("_")]
+    return out
+
+
+def test_port_map_names_every_symbol_and_every_port_symbol_imports():
+    """``docs/port_map.md``: every public symbol of the JAX package has a
+    row, and every port symbol a row names imports (in a subprocess that
+    then holds no JAX)."""
+    import re
+
+    rows = re.findall(r"^\| `(repro\.[\w.]+)` \| (.+?) \|",
+                      open(os.path.join(REPO, "docs", "port_map.md")).read(),
+                      re.M)
+    mapped = {ref: port for ref, port in rows}
+    want = {f"{m}.{n}" for m, names in _reference_symbols().items()
+            for n in names}
+    assert want <= set(mapped), sorted(want - set(mapped))[:20]
+    ports = sorted({p.strip("`") for p in mapped.values()
+                    if p.startswith("`repro_torch")})
+    missing = [r for r, p in mapped.items() if not p.startswith("`")
+               and not p.startswith("no counterpart, because ")]
+    assert not missing, missing
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {ports!r}:
+            mod, _, attr = name.rpartition(".")
+            try:
+                obj = getattr(importlib.import_module(mod), attr)
+            except (ImportError, AttributeError):
+                obj = importlib.import_module(name)
+            assert obj is not None, name
+        bad = sorted(k for k in sys.modules if k.split(".")[0] in
+                     ("jax", "repro"))
+        assert not bad, bad
+        print(len({ports!r}))
+    """)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.strip()) == len(ports) > 300
 
 
 def test_core_and_runtime_host_layers_import_without_torch():

@@ -65,7 +65,11 @@ optimizer state cut over the data axis, on a D = 2 x M = 2 mesh:
 These cells run as ``python3 train_dist_probe.py fsdp ARCH DEPTH STEPS
 MODE SEQ`` and ``... zero1 ARCH DEPTH`` under ``torch.distributed.run`` (one
 rank: the one-card baseline); ``--reduced --device cpu`` after them runs
-one on gloo ranks on the host at the config's reduced width.
+one on gloo ranks on the host at the config's reduced width. Each sharded
+fsdp cell is also dry-run on the host while the cards work
+(``repro_torch.launch.dryrun.trace_fsdp`` on a fake 2 x 2 group): every
+rank's step peak within DRYRUN_PEAK_TOL of the prediction and its data-
+and model-group bytes a step equal to it.
 
 One JSON line per phase (and, with four cards, per run, also appended to
 the ``--runs-log`` file when one is named), the card's name and power
@@ -124,13 +128,15 @@ QWEN, SCOUT = "qwen1.5-110b", "llama4-scout-17b-a16e"
 # rows, so the held pairs run at HELD_SEQ positions a row. The reduced
 # pairs are the same steps in fp32 on the cards, held at WITNESS_TOL.
 HELD_SEQ, SEQ, REDUCED_SEQ = 2048, 8192, 64
+# The one-card runs go to cards in this order, one each, the fifth beside
+# the first: the full-width runs first, the reduced ones (a few MB) last.
 FSDP_ONE_CARD = [
     ("qwen_1_layer_one_card", 1, QWEN, 1, 2, "train", HELD_SEQ, False),
     ("scout_1_layer_one_card", 1, SCOUT, 1, 2, "train", HELD_SEQ, False),
-    ("qwen_reduced_one_card", 1, QWEN, 1, 2, "train", REDUCED_SEQ, True),
-    ("scout_reduced_one_card", 1, SCOUT, 1, 2, "train", REDUCED_SEQ, True),
     ("qwen_8_layers_forward_one_card", 1, QWEN, 8, 1, "forward", SEQ,
      False),
+    ("qwen_reduced_one_card", 1, QWEN, 1, 2, "train", REDUCED_SEQ, True),
+    ("scout_reduced_one_card", 1, SCOUT, 1, 2, "train", REDUCED_SEQ, True),
 ]
 FSDP_SHARDED = [
     ("qwen_1_layer_2x2", 4, QWEN, 1, 2, "train", HELD_SEQ, False,
@@ -145,15 +151,19 @@ FSDP_SHARDED = [
      "qwen_8_layers_forward_one_card"),
     ("scout_4_layers_2x2", 4, SCOUT, 4, 3, "train", SEQ, False, None),
 ]
-# A held pair's parameters and first moments after step 0: an element is
-# live where the one-card run's |m| is at least LIVE_FLOOR (fp32, the CPU
-# tests' floor) or LIVE_FLOOR_BF16 x the rms of its m over the model
-# (bf16: the gradient's rounding relative to its scale). The fp32 pairs
-# hold the loss, norm, live parameters and live moments at WITNESS_TOL
-# (the MoE router's moment, a sum of nearly cancelling terms, at
-# ROUTER_TOL, as on the CPU).
-LIVE_FLOOR, LIVE_FLOOR_BF16 = 1e-7, 2 ** -8
-WITNESS_TOL, ROUTER_TOL = 1e-5, 1e-4
+# A held pair's parameters and first moments after step 0. fp32: an
+# element is live where the one-card run's |m| is at least LIVE_FLOOR (the
+# CPU tests' floor), and the loss, norm, live parameters and live moments
+# are held at WITNESS_TOL (the MoE router's moment, a sum of nearly
+# cancelling terms, at ROUTER_TOL, as on the CPU). bf16: each leaf's live
+# set comes from its own measured layout noise, sigma = the rms over the
+# leaf of m_2x2 - m_1card: live where |m_1card| >= LIVE_SIGMAS x sigma; at
+# most 1 % of a leaf's live elements more than two bf16 ulps of its top;
+# every leaf whose sigma is below COVERAGE[0] of its largest |m| keeps at
+# least COVERAGE[1] of its elements live. An MoE pair changes at most
+# ROUTES_CHANGED of step 0's routed choices.
+LIVE_FLOOR, LIVE_SIGMAS, COVERAGE = 1e-7, 4.0, (1e-2, 0.5)
+WITNESS_TOL, ROUTER_TOL, ROUTES_CHANGED = 1e-5, 1e-4, 1e-2
 # (f): recurrentgemma-2b at full depth over 4 workers (J = 2, S = 1),
 # worker ZERO1_DROPS[s] dropped at step s.
 ZERO1_DROPS = (1, 2)
@@ -301,7 +311,9 @@ def fsdp_cell(argv) -> None:
     donating its state; MODE ``forward``: the weighted loss of step 0's
     batch alone (no optimizer state). With OUT, the parameters and first
     moments after step 0 are gathered whole onto the host and saved there
-    (:func:`save_state`)."""
+    (:func:`save_state`). Each step's peak (``step_peaks``: the card's
+    ``max_memory_allocated`` from the step's start, its state included)
+    is reported beside the run's."""
     import chip_smoke as cs
     from repro_torch.configs.shapes import demo_batch
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -344,15 +356,19 @@ def fsdp_cell(argv) -> None:
     if mode == "forward":
         out["losses"].append(forward_loss(bundle, params, batch, weights))
     step = make_fsdp_train_step(bundle, cs.FSDP_MICRO, donate=True)
+    run_peak, step_peaks = 0, []
     for i in range(steps if mode == "train" else 0):
         if group is not None:
             torch.distributed.barrier(group)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+            run_peak = max(run_peak, _peak(device))
+            torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, batch, weights, cs.DIST_LR)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+            step_peaks.append(_peak(device))
         out["step_s"].append(time.perf_counter() - t0)
         out["losses"].append(float(m["loss"]))
         out["grad_norms"].append(float(m["grad_norm"]))
@@ -365,7 +381,9 @@ def fsdp_cell(argv) -> None:
         micro_steps=cs.FSDP_MICRO * len(out["step_s"]),
         attention_kernel_launches=flash_attention_cuda.launches - launches0,
         flash_shapes=sorted([list(q), hk] for q, hk in shapes),
-        max_memory_allocated=_peak(device),
+        max_memory_allocated=(None if device.type != "cuda"
+                              else max(run_peak, _peak(device))),
+        step_peaks=step_peaks,
         resting_bytes=sum(t.numel() * t.element_size() for t in
                           tree_leaves(params) + tree_leaves([opt["m"],
                                                             opt["v"]])),
@@ -485,9 +503,11 @@ def pair_held(path, one_path, reduced) -> dict:
     run's at ``path``, the one-card run's at ``one_path``), compared on the
     host by ``chip_smoke.params_held`` with the first moments: fp32
     (``reduced``) every live parameter and moment within WITNESS_TOL; bf16
-    at most TP_PARAM_SHARE of a leaf's live elements more than two ulps
-    apart (the moments are reported, not held). The files are removed
-    after. An error is a failed record."""
+    the live set from each leaf's layout noise (LIVE_SIGMAS, COVERAGE) and
+    at most TP_PARAM_SHARE of its live elements more than two ulps apart
+    (the moments are reported, not held); an MoE pair at most
+    ROUTES_CHANGED of step 0's routed choices changed. The files are
+    removed after. An error is a failed record."""
     import chip_smoke as cs
     from repro_torch.models.transformer import tree_leaves
 
@@ -504,21 +524,76 @@ def pair_held(path, one_path, reduced) -> dict:
             floor, tol=WITNESS_TOL, share_tol=0.0,
             m_tol=lambda key: ROUTER_TOL if "router" in key else WITNESS_TOL)
     else:
-        sq = n = 0
-        for t in tree_leaves(want["m"]):
-            sq += float(t.float().square().sum(dtype=torch.float64))
-            n += t.numel()
-        floor = LIVE_FLOOR_BF16 * math.sqrt(sq / n)
+        floor = None
         out = cs.params_held(got["params"], want["params"], 1, cpu,
-                             want["m"], got["m"], floor)
+                             want["m"], got["m"], live_sigmas=LIVE_SIGMAS,
+                             coverage=COVERAGE)
     for p in (path, one_path):
         os.remove(p)
     pairs = list(zip(got["routing"], want["routing"]))
     changed = sum(int((a != b).any(0).sum()) for a, b in pairs)
-    return dict(out, live_floor=floor,
-                moe_choices=sum(b[0].numel() for _, b in pairs),
-                moe_choices_changed=changed,
+    choices = sum(b[0].numel() for _, b in pairs)
+    routes_ok = changed <= ROUTES_CHANGED * choices
+    return dict(out, ok=bool(out["ok"] and routes_ok), live_floor=floor,
+                live_sigmas=None if reduced else LIVE_SIGMAS,
+                moe_choices=choices, moe_choices_changed=changed,
+                moe_routes_held=routes_ok,
                 routing_calls=[len(got["routing"]), len(want["routing"])])
+
+
+# The dry-run of each sharded fsdp cell (repro_torch.launch.dryrun on a
+# fake 2 x 2 group, in this process): every rank's step peak within
+# DRYRUN_PEAK_TOL of the predicted peak (for cells whose predicted peak is
+# at least DRYRUN_PEAK_FLOOR: below it the card's fixed cuBLAS workspaces,
+# which the program's tensors do not include, are a large share), and each
+# rank's data-group and model-group bytes a step (the layers' and the
+# step's ``stats``: whole tensors) equal to the dry-run's.
+DRYRUN_PEAK_TOL, DRYRUN_PEAK_FLOOR = 0.05, 2 ** 30
+
+
+def fsdp_prediction(arch, depth, seq, reduced) -> dict:
+    """The dry-run of ``fsdp ARCH DEPTH ... SEQ`` at 2 x 2 (rank 0, one
+    step): its peak, its data- and model-group bytes, the trace's seconds."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import trace_fsdp
+    from repro_torch.launch.mesh import MeshSpec
+
+    cfg = get_config(arch)
+    if reduced:
+        cfg = dataclasses.replace(cfg.reduced(), param_dtype="float32")
+    cfg = dataclasses.replace(cfg, n_layers=depth)
+    t0 = time.perf_counter()
+    res = trace_fsdp(cfg, MeshSpec((2, 2), ("data", "model")),
+                     cs.FSDP_MICRO, cs.FSDP_ROWS, seq, cs.FSDP_WEIGHTS)
+    cost, names = res["cost"], res["group_names"]
+    return {"peak_bytes": max(cost.peak_bytes, res["argument_bytes"]),
+            "argument_bytes": res["argument_bytes"],
+            "flops": cost.flops,
+            "data_bytes": cost.groups.get(names["data"], {}).get("bytes", 0),
+            "model_bytes": cost.groups.get(names["model"], {}).get("bytes",
+                                                                   0),
+            "trace_s": time.perf_counter() - t0}
+
+
+def dryrun_held(rec, reports, pred) -> bool:
+    """``rec`` gains the dry-run's prediction and how every rank's run
+    compares with it; True when the rule above holds."""
+    steps = [max(r["step_peaks"]) for r in reports]
+    peak = pred["peak_bytes"]
+    peak_err = [abs(s - peak) / peak for s in steps]
+    data = [r["data_bytes"] / max(len(r["step_s"]), 1) for r in reports]
+    model = [r["tp_bytes"] / max(len(r["step_s"]), 1) for r in reports]
+    peak_held = peak < DRYRUN_PEAK_FLOOR or max(peak_err) <= DRYRUN_PEAK_TOL
+    bytes_held = all(d == pred["data_bytes"] for d in data) and all(
+        m == pred["model_bytes"] for m in model)
+    rec["dryrun"] = dict(pred, step_peak_per_rank=steps,
+                         peak_rel_err=peak_err, peak_held=peak_held,
+                         data_bytes_per_rank=data, model_bytes_per_rank=model,
+                         bytes_held=bytes_held)
+    return peak_held and bytes_held
 
 
 def finish(run):
@@ -650,6 +725,12 @@ def phase_train_fsdp4(smi, runs_log=None) -> bool:
             return {"name": run[0], "ok": False, "error": str(e)[-3000:]}, []
 
     held_pairs = {hold for *_, hold in FSDP_SHARDED if hold}
+    # The dry-runs trace on the host while the cards run the cells.
+    pool = ThreadPoolExecutor(1)
+    predictions = {
+        name: pool.submit(fsdp_prediction, arch, depth, seq, reduced)
+        for name, _, arch, depth, _, mode, seq, reduced, _ in FSDP_SHARDED
+        if wanted(name) and mode == "train"}
     cards = torch.cuda.device_count()
     runs = [launch(name, 1, fsdp_argv(
         name, *cell, held=name in held_pairs and cell[3] == "train"),
@@ -676,11 +757,16 @@ def phase_train_fsdp4(smi, runs_log=None) -> bool:
             good &= max(rec["grad_norm_rel_err"]) <= (tol or cs.TP_GNORM_TOL)
         return good
 
-    pool, compares = ThreadPoolExecutor(1), []
+    compares = []
     for (name, ranks, arch, depth, steps, mode, seq, reduced,
          hold) in FSDP_SHARDED:
         if not wanted(name):
             continue
+        pred = predictions.get(name)
+        try:
+            pred = None if pred is None else pred.result()
+        except Exception as e:  # noqa: BLE001 - a failed record
+            pred = {"error": repr(e)[-2000:]}
         params = hold is not None and mode == "train" and "forward" not in hold
         rec, reports = ended(launch(name, ranks, fsdp_argv(
             name, arch, depth, steps, mode, seq, reduced, held=params),
@@ -721,6 +807,12 @@ def phase_train_fsdp4(smi, runs_log=None) -> bool:
         elif hold is not None:
             rec["held_to"] = hold
             good &= held(rec, one.get(hold, {}), False)
+        if pred is not None:
+            if "error" in pred:
+                rec["dryrun"] = pred
+                good = False
+            else:
+                good &= dryrun_held(rec, reports, pred)
         rec.update(ok=bool(good), depth=depth, seq=seq,
                    attention_layers=n_attn,
                    flash_shapes=reports[0]["flash_shapes"],
