@@ -54,7 +54,11 @@ one-process step; a one-rank NCCL group issues every collective);
 ``train_tp`` splits glm4-9b at 1 layer over 2 model shards and
 ``train_fsdp`` cuts its parameters and moments over 2 data ranks (the
 sharded fsdp step) and the usec step's moments by ZeRO-1, each held to its
-unsharded step. Then ``checkpoint`` cuts Sec. V runs after step 5 and resumes them bitwise in
+unsharded step; ``serve_tp`` serves glm4-9b (2 layers bf16, 1 layer fp32)
+and recurrentgemma-2b (3 layers) at full width over 2 model shards (the
+weights and the decode caches cut by the reference's rules; an 8192-token
+prompt and 16 decode steps), held to the one-process run. Then
+``checkpoint`` cuts Sec. V runs after step 5 and resumes them bitwise in
 fresh engines (and a card checkpoint on the host), and
 ``serve_path`` drives serve_cli's seeded request trace through both serving
 lanes at Sec. V width (every response exact, launches per window exact,
@@ -1923,6 +1927,22 @@ FLASH_LAYER_QWEN_M2 = (1, 32, 4, PROMPT_LEN, PROMPT_LEN, 128, True, None,
                        torch.bfloat16)
 FLASH_LAYER_SCOUT_M2 = (1, 20, 4, PROMPT_LEN, PROMPT_LEN, 128, True, None,
                         torch.bfloat16)
+# The same layers' local heads over 4 model shards: the four-card serving
+# cells (train_dist_probe.py --serve-only).
+FLASH_LAYER_QWEN_M4 = (1, 16, 2, PROMPT_LEN, PROMPT_LEN, 128, True, None,
+                       torch.bfloat16)
+FLASH_LAYER_SCOUT_M4 = (1, 10, 2, PROMPT_LEN, PROMPT_LEN, 128, True, None,
+                        torch.bfloat16)
+# The serve_tp phase's local heads over 2 model shards: a recurrentgemma-2b
+# local-attention layer's (10 query heads over 2, the window kept).
+FLASH_LAYER_WINDOW_M2 = (1, 5, 1, PROMPT_LEN, PROMPT_LEN, 256, True, 2048,
+                         torch.bfloat16)
+# The fp32 (FFMA kernel) shapes of the serve_tp phase's glm4-9b fp32 cell:
+# one card's layer and its local heads over 2 model shards.
+FLASH_SERVE_FP32 = [(1, 32, 2, PROMPT_LEN, PROMPT_LEN, 128, True, None,
+                     torch.float32),
+                    (1, 16, 1, PROMPT_LEN, PROMPT_LEN, 128, True, None,
+                     torch.float32)]
 # (rtol, atol) of the flash kernel against an fp32 version of the same
 # function. Both sides read the inputs exactly, compute in fp32 and round
 # once to the output type, so they differ by the fp32 sum order and, in
@@ -2058,12 +2078,15 @@ def phase_flash(dev, paths):
     layer (MHA), one recurrentgemma-2b local-attention layer (d 256, GQA
     10, window 2048), one hubert-xlarge encoder layer (bidirectional, MHA,
     d 80), one internvl2-2b layer (GQA 2, d 128), a glm4-9b layer's
-    local heads over 4 model shards (GQA 8:1) and a qwen1.5-110b and a
-    llama4-scout-17b-a16e layer's over 2 (GQA 8:1, 5:1); each layer's
-    times:
+    local heads over 4 model shards (GQA 8:1), a qwen1.5-110b and a
+    llama4-scout-17b-a16e layer's over 2 (GQA 8:1, 5:1) and over 4 (GQA
+    8:1, 5:1) and a recurrentgemma-2b local-attention layer's over 2 (GQA
+    5:1, window 2048); each layer's times:
     kernel, plain version, and one library
-    call (SDPA) as a yardstick; and both kernels' ptxas registers and
-    spills. The kernels line takes the glm4-9b layer's numbers."""
+    call (SDPA) as a yardstick; the fp32 glm4-9b layer, whole and over 2
+    model shards, against the plain version only; and both kernels' ptxas
+    registers and spills. The kernels line takes the glm4-9b layer's
+    numbers."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     cases = FLASH_CASES + FLASH_HEAD_DIM_CASES
@@ -2080,10 +2103,17 @@ def phase_flash(dev, paths):
     tp4 = flash_layer(FLASH_LAYER_TP4, dev, 94)
     qwen_m2 = flash_layer(FLASH_LAYER_QWEN_M2, dev, 93)
     scout_m2 = flash_layer(FLASH_LAYER_SCOUT_M2, dev, 92)
+    qwen_m4 = flash_layer(FLASH_LAYER_QWEN_M4, dev, 91)
+    scout_m4 = flash_layer(FLASH_LAYER_SCOUT_M4, dev, 90)
+    windowed_m2 = flash_layer(FLASH_LAYER_WINDOW_M2, dev, 89)
+    serve_fp32 = [{"shape": list(c[:8]), "max_abs_err": flash_check(c, dev, 88)}
+                  for c in FLASH_SERVE_FP32]
+    torch.cuda.empty_cache()
     routes = {"launches_tc": flash_attention_cuda.launches_tc - routes0[0],
               "launches_ffma": flash_attention_cuda.launches_ffma - routes0[1]}
     emit({"phase": "kernel", "name": "flash_attention",
-          "cases": len(cases) + 8, "max_abs_err_cases": errs,
+          "cases": len(cases) + 11 + len(FLASH_SERVE_FP32),
+          "max_abs_err_cases": errs,
           "rtol_atol": {str(dt).replace("torch.", ""): tol
                         for dt, tol in ATTN_TOL.items()},
           "bitwise_run_to_run": True, "dtype": "bfloat16",
@@ -2094,6 +2124,10 @@ def phase_flash(dev, paths):
           "layer_glm4_9b_over_4_model_shards": tp4,
           "layer_qwen1_5_110b_over_2_model_shards": qwen_m2,
           "layer_llama4_scout_over_2_model_shards": scout_m2,
+          "layer_qwen1_5_110b_over_4_model_shards": qwen_m4,
+          "layer_llama4_scout_over_4_model_shards": scout_m4,
+          "layer_recurrentgemma_2b_lattn_over_2_model_shards": windowed_m2,
+          "layer_glm4_9b_fp32_whole_and_over_2_model_shards": serve_fp32,
           "check_launches": routes,
           "ptxas": {stem: ptxas_report(paths[stem])
                     for stem in ("flash_attention_tc", "flash_attention")}})
@@ -4033,6 +4067,372 @@ def phase_train_fsdp(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------- #
+# Serving over model shards
+# ---------------------------------------------------------------------- #
+# serve_tp: SERVE_SHARDS gloo ranks share cuda:0 (D 1 x M 2; NCCL refuses
+# two ranks on one GPU), the weights cut by the sharding rules, the caches
+# by cache_shardings. Each cell of SERVE_TP_CELLS (arch, layers, dtype) at full
+# width: a PROMPT_LEN-token prompt, then SERVE_STEPS decode steps
+# teacher-forced with the one-process run's greedy tokens (the one-process
+# run goes first, in this process, on the same card), held by these rules:
+#   * every logit within SERVE_LOGIT_TOL[dtype] x the step's max|logit| of
+#     one card (bf16: each rank's partial product rounds once to bf16
+#     before the fp32 sum, as for the TP_* tolerances; fp32: the sum
+#     order);
+#   * the sharded run's greedy token equals one card's at every step where
+#     one card's top-2 margin exceeds 2 x that bound;
+#   * where layer 0 is an attention layer (not recurrentgemma-2b's rglru),
+#     its K/V cache cut within SERVE_KV_ULPS bf16 ulps of one card's: 2^-7
+#     of the leaf's largest |value| (the repo's "two bf16 ulps", as
+#     params_held's tol);
+#   * in every cell, the first attention layer's K/V cut (recurrentgemma-
+#     2b's layer 2, a 2048-slot ring buffer cut on slots) within
+#     SERVE_KV_ULPS of one card's K/V of that layer computed from the input
+#     this rank gave it, so the rule holds the cut itself whatever the
+#     layers before it added to that input (their share is reported as
+#     kv_input_ulps, and the whole difference from one card as kv_ulps);
+#   * exactly one flash launch per attention layer per rank, on the local
+#     heads (glm4-9b (1, 16, 8192, 128) hk 1; recurrentgemma-2b's 10 heads
+#     (1, 5, 8192, 256) hk 1).
+SERVE_SHARDS, SERVE_STEPS, SERVE_SEED = 2, 16, 0
+SERVE_TP_CELLS = ((MODEL_ARCH, 2, "bfloat16"), (MODEL_ARCH, 1, "float32"),
+               ("recurrentgemma-2b", 3, "bfloat16"))
+SERVE_LOGIT_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+SERVE_KV_ULPS = 2
+
+
+def serve_cfg(arch, layers, dtype):
+    """``arch`` at full width, ``layers`` deep, in ``dtype``, with the
+    usec rules for a pure-DP arch (as ``launch.serve`` serves it)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                              param_dtype=dtype)
+    if cfg.train_mode == "dp":
+        cfg = dataclasses.replace(cfg, train_mode="usec")
+    return cfg
+
+
+def first_attention_layer(cfg) -> int:
+    """The index, in the stack's order, of the first attention layer."""
+    from repro_torch.models.transformer import stack_layout
+
+    n_rep, extra_kinds = stack_layout(cfg)
+    order = list(cfg.layer_pattern) * n_rep + list(extra_kinds)
+    return next(i for i, k in enumerate(order) if k in ATTENTION_KINDS)
+
+
+def serve_run(bundle, params, batch, steps, tokens=None, routes=False,
+              keep_input=False, keep_params=False):
+    """One served prompt: ``bundle.prefill``, the restage into a cache of
+    prompt + ``steps`` positions, and ``steps`` decode steps, step i fed
+    ``tokens[:, i]`` ((B, steps): another run's picks ``[:, :steps]``), or
+    the run's own greedy picks when None. Returns
+    the logits of every step gathered whole over the model group (CPU, fp32,
+    (steps + 1, B, V)), the picks, the first attention layer's K/V cut
+    (``kv_first``, CPU; with ``keep_input`` also that layer's input, its
+    positions and window, with ``keep_params`` its weights as this rank
+    holds them, on the card), the seconds of
+    the prefill (with its restage) and of the decode loop, the model
+    group's bytes in each, the flash launches and local-head shapes of the
+    prefill, and with ``routes`` the first MoE layer's routed choices over
+    the prompt."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.serve import prompt_length, restage
+    from repro_torch.models import attention, make_cache, moe
+    from repro_torch.models.parallel import gather_from_model, over
+    from repro_torch.models.transformer import tree_map
+
+    cfg, dev, tp = bundle.cfg, bundle.device, bundle.shards
+    b, plen = batch["tokens"].shape[0], prompt_length(batch)
+    shapes, routed, first = set(), [], {}
+    flash, route = attention._flash, moe.route
+    prefill_parts = attention.attention_prefill_parts
+
+    def prefill_spy(p, x, cfg_, positions, window=None, *rest):
+        parts, cache = prefill_parts(p, x, cfg_, positions, window, *rest)
+        if not first:
+            first.update(layer=first_attention_layer(cfg), **{
+                n: cache[n].float().cpu() for n in ("k", "v")})
+            if keep_input:
+                first.update(x=x.cpu(), positions=positions.cpu(),
+                             window=window)
+            if keep_params:
+                first["params"] = tree_map(torch.clone, p)
+        return parts, cache
+
+    def spy(q, k, v, causal, window):
+        shapes.add((tuple(q.transpose(1, 2).shape), k.shape[2]))
+        return flash(q, k, v, causal, window)
+
+    def route_spy(router, xt, cfg_):
+        r = route(router, xt, cfg_)
+        routed.append(r.idx.cpu())
+        return r
+
+    def whole(lg):
+        return gather_from_model(lg, over(tp, lg.shape[-1], cfg.vocab_size))
+
+    attention._flash = spy
+    attention.attention_prefill_parts = prefill_spy
+    if routes:
+        moe.route = route_spy
+    moved = 0 if tp is None else tp.stats["bytes"]
+    before = flash_attention_cuda.launches
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad():
+            pre, logits = bundle.prefill(params, batch)
+    finally:
+        attention._flash, moe.route = flash, route
+        attention.attention_prefill_parts = prefill_parts
+    launches = flash_attention_cuda.launches - before
+    prefill_bytes = 0 if tp is None else tp.stats["bytes"] - moved
+    with torch.no_grad():
+        cache = make_cache(cfg, b, plen + steps, dev, tp, bundle.data)
+        restage(cache, pre, cfg, b, plen, plen + steps, tp)
+    torch.cuda.synchronize(dev)
+    prefill_s = time.perf_counter() - t0
+    del pre
+    out = [whole(logits).float().cpu()]
+    picks = [torch.argmax(out[0], dim=-1)]
+    moved = 0 if tp is None else tp.stats["bytes"]
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(steps):
+            tok = picks[-1] if tokens is None else tokens[:, i]
+            cache, logits = bundle.decode_step(
+                params, cache, tok.reshape(b, 1).to(dev), plen + i,
+                cache_len=plen + steps)
+            out.append(whole(logits).float().cpu())
+            picks.append(torch.argmax(out[-1], dim=-1))
+    torch.cuda.synchronize(dev)
+    decode_s = time.perf_counter() - t1
+    decode_bytes = 0 if tp is None else tp.stats["bytes"] - moved
+    del cache
+    return {"logits": torch.stack(out), "picks": torch.stack(picks, 1),
+            "kv_first": first or None, "prefill_s": prefill_s,
+            "decode_s": decode_s,
+            "model_bytes": {"prefill": prefill_bytes,
+                            "decode_step": decode_bytes / max(steps, 1)},
+            "flash_launches": launches,
+            "flash_shapes": sorted([list(q), hk] for q, hk in shapes),
+            "routes": torch.cat(routed) if routed else None}
+
+
+def bf16_ulps(got, want) -> float:
+    """The largest |got - want| in bf16 ulps of ``want``'s largest |value|
+    (2^-8 of it: the repo's "two bf16 ulps" is 2^-7 of a leaf's largest,
+    as ``params_held``'s ``tol``)."""
+    top = float(want.float().abs().max())
+    diff = float((got.float() - want.float()).abs().max())
+    return diff / (top * 2.0 ** -8) if top else diff
+
+
+def serve_held(one, run, dtype, kv_one=None, kv_on_input=None) -> dict:
+    """A sharded run against the one-card run by the serve_tp rules:
+    ``kv_one`` is one card's cut of the first attention layer's K/V
+    (held within SERVE_KV_ULPS where that layer is layer 0), and
+    ``kv_on_input`` the cut of one card's K/V of that layer computed from
+    this rank's own input to it (the cut held within SERVE_KV_ULPS of it,
+    whatever the layers before it added to the input)."""
+    tol = SERVE_LOGIT_TOL[dtype]
+    a, b = run["logits"], one["logits"]
+    top = b.abs().amax(dim=-1)                     # (steps + 1, B)
+    err = ((a - b).abs().amax(dim=-1) / top)
+    two = torch.topk(b, 2, dim=-1).values
+    margin = (two[..., 0] - two[..., 1]) / top
+    decided = margin > 2 * tol
+    same = run["picks"].T == one["picks"].T        # (steps + 1, B)
+    out = {"logit_err": err.max().item(), "logit_tol": tol,
+           "logit_err_per_step": err.amax(dim=-1).tolist(),
+           "decided_steps": int(decided.sum()),
+           "greedy_equal_where_decided": bool(same[decided].all()),
+           "greedy_equal_all": bool(same.all())}
+    ok = out["logit_err"] <= tol and out["greedy_equal_where_decided"]
+    kv = run["kv_first"]
+
+    def ulps(want):
+        return max(bf16_ulps(kv[n], want[n]) for n in ("k", "v"))
+
+    if kv_one is not None:
+        out["kv_layer"] = kv["layer"]
+        out["kv_ulps"] = ulps(kv_one)
+        if kv["layer"] == 0:
+            ok &= out["kv_ulps"] <= SERVE_KV_ULPS
+    if kv_on_input is not None:
+        out["kv_cut_ulps"] = ulps(kv_on_input)
+        out["kv_input_ulps"] = max(bf16_ulps(kv_on_input[n], kv_one[n])
+                                   for n in ("k", "v"))
+        ok &= out["kv_cut_ulps"] <= SERVE_KV_ULPS
+    out["ok"] = bool(ok)
+    return out
+
+
+def _serve_cell_one(dev, cell):
+    """The one-process run of a serve_tp cell on ``dev``: its record and
+    its greedy picks (the ranks' teacher tokens)."""
+    from repro_torch.configs import demo_batch
+    from repro_torch.models import build_model
+
+    cfg = serve_cfg(*cell)
+    bundle = build_model(cfg, device=dev)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(SERVE_SEED))
+    batch = demo_batch(cfg, "prefill", MODEL_BATCH, PROMPT_LEN,
+                       seed=SERVE_SEED)
+    run = serve_run(bundle, params, batch, SERVE_STEPS, keep_params=True)
+    del bundle, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def _serve_tp_rank_body(rank, dev):
+    """serve_tp's cells over the 1 x SERVE_SHARDS mesh, teacher-forced with
+    the one-process picks the parent saved; each run's tensors saved for
+    the parent."""
+    from repro_torch.configs import demo_batch
+    from repro_torch.launch.mesh import (
+        coordinates,
+        make_worker_mesh,
+        model_group,
+    )
+    from repro_torch.models import build_model
+    from repro_torch.models.parallel import ModelShards, cache_dims
+
+    mesh = make_worker_mesh(1, SERVE_SHARDS, device_type="cuda")
+    _, m = coordinates(mesh)
+    out = {"rank": rank, "model_index": m, "cells": []}
+    base = os.path.join(ROOT, "build", "serve_tp_one")
+    for i, cell in enumerate(SERVE_TP_CELLS):
+        cfg = serve_cfg(*cell)
+        shards = ModelShards(model_group(mesh), SERVE_SHARDS, m)
+        bundle = build_model(cfg, device=dev, shards=shards)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = bundle.init(torch.Generator(device=dev).manual_seed(
+            SERVE_SEED))
+        batch = demo_batch(cfg, "prefill", MODEL_BATCH, PROMPT_LEN,
+                           seed=SERVE_SEED)
+        tokens = torch.load(os.path.join(base, f"picks{i}.pt"))
+        run = serve_run(bundle, params, batch, SERVE_STEPS,
+                        tokens[:, :SERVE_STEPS], keep_input=True)
+        run["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.save(run, os.path.join(base, f"run{i}_rank{rank}.pt"))
+        kv_dims = [d for (d, _) in cache_dims(cfg, MODEL_BATCH, PROMPT_LEN,
+                                              SERVE_SHARDS)]
+        out["cells"].append({
+            "cell": list(cell), "flash_launches": run["flash_launches"],
+            "flash_shapes": run["flash_shapes"],
+            "attention_layers": attention_layer_count(cfg),
+            "prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+            "model_bytes": run["model_bytes"], "peak_gb": run["peak_gb"],
+            "cache_model_dims": kv_dims})
+        del bundle, params, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_tp(dev, smi):
+    """serve_tp (see SERVE_TP_CELLS): the one-process runs first, then
+    SERVE_SHARDS gloo ranks on cuda:0 serve every cell, each held to its
+    one-process run. Returns the ranks' flash launches (summed)."""
+    import shutil
+
+    base = os.path.join(ROOT, "build", "serve_tp_one")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    ones = []
+    for i, cell in enumerate(SERVE_TP_CELLS):
+        one = _serve_cell_one(dev, cell)
+        torch.save(one["picks"], os.path.join(base, f"picks{i}.pt"))
+        ones.append(one)
+    ranks, wall, card_peak = _ranks_on_card(_serve_tp_rank_body,
+                                            SERVE_SHARDS, "serve_tp")
+    cells, ok = [], True
+    launches = 0
+    for i, cell in enumerate(SERVE_TP_CELLS):
+        cfg = serve_cfg(*cell)
+        one = ones[i]
+        local = [1, cfg.n_heads // SERVE_SHARDS, PROMPT_LEN, cfg.head_dim]
+        rec = {"cell": list(cell), "one_card": {
+            k: one[k] for k in ("prefill_s", "decode_s", "flash_launches",
+                                "flash_shapes")}, "ranks": []}
+        for r, rank in enumerate(ranks):
+            run = torch.load(os.path.join(base, f"run{i}_rank{r}.pt"))
+            mine = rank["cells"][i]
+            m = rank["model_index"]
+            held = serve_held(one, run, cell[2],
+                              _kv_cut(one["kv_first"], cfg, m),
+                              _kv_cut(_kv_on_input(one, run, cfg), cfg, m))
+            n_attn = mine["attention_layers"]
+            flash_ok = (mine["flash_launches"] == n_attn and
+                        mine["flash_shapes"] == [[local, 1]])
+            held["flash_ok"] = flash_ok
+            ok &= held["ok"] and flash_ok
+            launches += mine["flash_launches"]
+            rec["ranks"].append({**mine, "held": held})
+        cells.append(rec)
+    emit({"phase": "serve_tp", "mesh": [1, SERVE_SHARDS], "backend": "gloo",
+          "why_gloo": "NCCL refuses two ranks on one GPU",
+          "prompt_len": PROMPT_LEN, "decode_steps": SERVE_STEPS,
+          "reduced": {"n_layers": [[c[0], c[1]] for c in SERVE_TP_CELLS]},
+          "cells": cells, "ranks_wall_s": wall,
+          "card_peak_used_gb": card_peak,
+          "tolerances": {"logit": SERVE_LOGIT_TOL,
+                         "kv_bf16_ulps": SERVE_KV_ULPS},
+          "flash_launches": launches, "nvidia_smi": smi})
+    if not ok:
+        raise AssertionError("serve_tp failed: " + json.dumps(
+            [[r["held"] for r in c["ranks"]] for c in cells]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _kv_on_input(one, run, cfg):
+    """One card's K/V (the ring buffer of a windowed layer) of the first
+    attention layer, from its weights in the one-card run ``one`` and the
+    input a sharded rank gave that layer in ``run``: what the cut should
+    hold given the error the layers before it added (CPU, fp32)."""
+    from repro_torch.models import attention
+
+    mine, theirs = run["kv_first"], one["kv_first"]
+    p = theirs["params"]
+    dev = next(iter(p.values())).device
+    with torch.no_grad():
+        _, cache = attention.attention_prefill_parts(
+            p, mine["x"].to(dev), cfg, mine["positions"].to(dev),
+            mine["window"])
+    return {n: cache[n].float().cpu() for n in ("k", "v")}
+
+
+def _kv_cut(kv, cfg, m, n=SERVE_SHARDS):
+    """One card's K/V (B, S, Hk, hd) of the first attention layer of a
+    PROMPT_LEN-token prefill cut as model shard ``m`` of ``n`` holds it (the
+    rule for one layer's cache); None where there is none."""
+    if kv is None:
+        return None
+    from repro_torch.models.parallel import (
+        ModelShards,
+        cache_model_dims,
+        own_slice,
+    )
+
+    dims = cache_model_dims(cfg, MODEL_BATCH, PROMPT_LEN, n)
+    layer = next(c for c in dims["blocks"] + dims["extras"]
+                 if c is not None and "k" in c)
+    d = layer["k"]
+    if d is None:
+        return {name: kv[name] for name in ("k", "v")}
+    tp = ModelShards(None, n, m)
+    return {name: own_slice(kv[name], tp, d) for name in ("k", "v")}
+
+
 def phase_train_remat(dev, smi):
     """One internvl2-2b training step at full width and REMAT_DEPTH layers
     (loss and gradients of one 8192-position tile of the train cell) under
@@ -4350,6 +4750,9 @@ def main() -> int:
     # ---- 5e. main path: parameters and moments cut over data ----
     reset_launches(counters)
     totals["flash_attention"] += phase_train_fsdp(dev, smi)
+    # ---- 5f. main path: serving over model shards ----
+    reset_launches(counters)
+    totals["flash_attention"] += phase_serve_tp(dev, smi)
 
     # ---- 6. checkpoint / resume and the serving path at Sec. V ----
     phase_checkpoint(smi)

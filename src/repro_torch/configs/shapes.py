@@ -64,21 +64,32 @@ def decode_inputs(cfg: ArchConfig, batch: int) -> Dict[str, Tuple[Tuple[int, ...
     return {"token": ((batch, 1), np.int32)}
 
 
-def cache_specs(cfg: ArchConfig, batch: int, max_len: int, device="meta"):
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int, device="meta",
+                mesh=None):
     """The decode cache tree of ``init_cache`` with no byte allocated: on
     the meta device (the dry-run's stand-in for the card), or on any other
-    device as fake tensors (``FakeTensorMode``)."""
+    device as fake tensors (``FakeTensorMode``). With ``mesh`` (anything
+    with ``.shape`` and ``.axis_names``), rank 0's cut of it by the
+    reference's ``cache_shardings`` (the dp axes taken together)."""
+    import math
+
     import torch
 
+    from repro_torch.launch.sharding import dp_axes
     from repro_torch.models.transformer import init_cache
 
+    cut = (1, 0, 1, 0)
+    if mesh is not None:
+        sizes = dict(zip(mesh.axis_names, mesh.shape))
+        cut = (sizes.get("model", 1), 0,
+               math.prod(sizes[a] for a in dp_axes(mesh)), 0)
     device = torch.device(device)
     if device.type == "meta":
-        return init_cache(cfg, batch, max_len, device=device)
+        return init_cache(cfg, batch, max_len, device, *cut)
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode(allow_non_fake_inputs=True):
-        return init_cache(cfg, batch, max_len, device=device)
+        return init_cache(cfg, batch, max_len, device, *cut)
 
 
 def micro_batch_size(cfg: ArchConfig, shape: ShapeConfig, n_workers: int) -> int:

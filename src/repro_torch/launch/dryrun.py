@@ -44,12 +44,14 @@ How the cells map onto the port's steps:
               axes=all)``): the same usec step over the world group;
   fsdp train  the production mesh, the sharded fsdp step over the data and
               model groups (``make_fsdp_train_step``, donating its state);
-  prefill /   rank 0's batch rows (the batch cut over the data axes as the
-  decode      reference's ``batch_shardings`` cuts it) through the port's
-              serving entry points, ``prefill`` and ``decode_step``, which
-              take whole weights: the port serves a replica of the model a
-              rank (the reference cuts serving weights and caches over the
-              model axis).
+  prefill /   the production mesh through the port's serving entry points,
+  decode      ``prefill`` and ``decode_step``: rank 0's batch rows (the
+              batch cut over the data axes as the reference's
+              ``batch_shardings`` cuts it, whole when they do not divide
+              it), its parameters cut by the rules (the fsdp archs over
+              the data group too; the pure-DP archs with the usec rules, as
+              the reference serves them) and its decode cache by
+              ``cache_shardings``.
 
 The usec step's per-worker loop has its own trip count (the reference's
 dynamic ``while``): a usec cell is traced at ``static_trips`` 1 and 2 and
@@ -80,6 +82,7 @@ import os
 import sys
 import time
 import traceback
+import warnings
 from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple
 
@@ -170,9 +173,9 @@ class _Ranks:
 
 
 def _init(cfg, ranks: _Ranks, fsdp: bool):
-    """(bundle, rank 0's parameters) on the meta device: the whole tree
-    drawn and cut over the model group (and, for ``fsdp``, the data group),
-    as ``bundle.init`` does on the card."""
+    """(bundle, rank 0's parameters) on the meta device: its cut over the
+    model group (and, for ``fsdp``, the data group) drawn streamed, as
+    ``bundle.init`` does on the card."""
     from repro_torch.models import build_model
 
     bundle = build_model(cfg, device=DEVICE, shards=ranks.shards,
@@ -341,35 +344,48 @@ def trace_fsdp(cfg, spec: Optional[MeshSpec], n_micro: int, rows: int,
     return res
 
 
-def trace_serve(cfg, kind: str, rows: int, seq: int) -> Dict[str, Any]:
-    """One ``prefill`` of ``rows`` prompts of ``seq`` positions, or one
-    ``decode_step`` of ``rows`` tokens against a cache of ``seq`` positions
-    at its last slot, on whole weights (the port's serving path)."""
+def trace_serve(cfg, kind: str, batch: int, seq: int,
+                spec: Optional[MeshSpec] = None) -> Dict[str, Any]:
+    """Rank 0's ``prefill`` of ``batch`` prompts of ``seq`` positions, or
+    its ``decode_step`` of ``batch`` tokens against a cache of ``seq``
+    positions at its last slot, over ``spec``'s fake group (one process
+    when None): every rank passes the whole batch (host arrays holding no
+    memory) and moves its own rows to the card, its parameters cut over
+    the model group (and over the data group for the fsdp archs), its
+    cache cut by the reference's ``cache_shardings``."""
     from repro_torch.configs.shapes import batch_schema, cache_specs
+    from repro_torch.models import build_model
 
     mem = MemoryTracker()
-    ranks = _Ranks(None)
-    with traced(mem) as setup:
-        bundle, params = _init(cfg, ranks, fsdp=False)
-        if kind == "prefill":
-            inputs = {k: torch.zeros(shp, dtype=_torch_dtype(dt),
-                                     device=DEVICE)
-                      for k, (shp, dt) in batch_schema(
-                          cfg, "prefill", rows, seq).items()}
-        else:
-            inputs = {"cache": cache_specs(cfg, rows, seq, DEVICE),
-                      "token": torch.zeros((rows, 1), dtype=torch.int32,
-                                           device=DEVICE)}
-    args = mem.live
-    with torch.no_grad(), traced(mem) as tc:
-        if kind == "prefill":
-            out = bundle.prefill(params, inputs)
-        else:
-            out = bundle.decode_step(params, inputs["cache"],
-                                     inputs["token"], seq - 1)
-    res = _result([tc.cost], args, _storage_bytes(out), setup.cost.peak_bytes,
-                  params, ranks)
-    del params, inputs, out, bundle
+    with _Ranks(spec) as ranks:
+        bundle = build_model(cfg, device=DEVICE, shards=ranks.shards,
+                             data=ranks.data())
+        with traced(mem) as setup:
+            params = bundle.init(torch.Generator().manual_seed(0))
+            if kind == "prefill":
+                inputs = {k: np.broadcast_to(np.zeros((), dt), shp)
+                          for k, (shp, dt) in batch_schema(
+                              cfg, "prefill", batch, seq).items()}
+            else:
+                inputs = {"cache": cache_specs(cfg, batch, seq, DEVICE,
+                                               spec),
+                          "token": np.zeros((batch, 1), np.int32)}
+        args = mem.live
+        with torch.no_grad(), traced(mem) as tc, warnings.catch_warnings():
+            # the host arrays are read-only broadcasts: nothing writes them
+            warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                    "writable")
+            if kind == "prefill":
+                out = bundle.prefill(params, inputs)
+            else:
+                out = bundle.decode_step(params, inputs["cache"],
+                                         inputs["token"], seq - 1,
+                                         cache_len=seq)
+        res = _result([tc.cost], args, _storage_bytes(out),
+                      setup.cost.peak_bytes, params, ranks)
+        res["cache_shapes"] = _shapes(out[0] if kind == "prefill"
+                                      else inputs["cache"])
+        del params, inputs, out, bundle
     return res
 
 
@@ -380,8 +396,8 @@ def trace_serve(cfg, kind: str, rows: int, seq: int) -> Dict[str, Any]:
 class Cell:
     """One dry-run cell of the port: ``kind`` ``"usec"`` (the usec and dp
     train modes), ``"fsdp"``, ``"prefill"`` or ``"decode"``; ``spec`` the
-    mesh rank 0 runs on (None for serving: whole weights, one process);
-    ``args`` what :meth:`trace` hands its tracer."""
+    mesh rank 0 runs on (None: one process); ``args`` what :meth:`trace`
+    hands its tracer."""
 
     kind: str
     cfg: Any
@@ -395,14 +411,24 @@ class Cell:
             return trace_usec(self.cfg, self.spec, **self.args)
         if self.kind == "fsdp":
             return trace_fsdp(self.cfg, self.spec, **self.args)
-        return trace_serve(self.cfg, self.kind, **self.args)
+        return trace_serve(self.cfg, self.kind, spec=self.spec, **self.args)
 
     def param_shapes(self):
         """(key, shape) of every leaf of rank 0's parameters, made as the
         trace makes them (nothing else runs)."""
         with _Ranks(self.spec) as ranks:
-            _, params = _init(self.cfg, ranks, fsdp=self.kind == "fsdp")
+            _, params = _init(self.cfg, ranks,
+                              fsdp=self.kind in ("fsdp", "prefill",
+                                                 "decode"))
             return _shapes(params)
+
+    def cache_shapes(self):
+        """(key, shape) of every leaf of rank 0's decode cache for a
+        serving cell (a prefill's, of its prompt positions)."""
+        from repro_torch.configs.shapes import cache_specs
+
+        return _shapes(cache_specs(self.cfg, self.args["batch"],
+                                   self.args["seq"], DEVICE, self.spec))
 
 
 def build_cell(arch: str, shape_name: str, multi_pod: bool):
@@ -465,16 +491,20 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool):
         return Cell("fsdp", cfg, spec, dict(
             n_micro=n_micro, rows=shape.global_batch, seq=shape.seq_len,
             micro_trips=(1, 2) if n_micro > 2 else None)), meta
-    b = shape.global_batch
-    rows = b // n_workers if b % n_workers == 0 else b
-    return Cell(shape.kind, cfg, None, dict(rows=rows,
-                                           seq=shape.seq_len)), meta
+    return Cell(shape.kind, cfg, spec, dict(batch=shape.global_batch,
+                                            seq=shape.seq_len)), meta
 
 
 def _layout(meta, res) -> Dict[str, Any]:
     mode, kind = meta["train_mode"], meta["kind"]
     if kind != "train":
-        return {"params": "whole (the port serves a replica a rank)",
+        return {"params": {"usec": "cut over the model group",
+                           "fsdp": "cut over the data and model groups"}[
+                               mode],
+                "cache": "cut by cache_shardings (K/V slots, heads or "
+                         "head dim over the model group, rows over data)",
+                "rows": "rank 0's rows of the batch when the data axis "
+                        "divides it, else every row",
                 "groups": res["group_names"]}
     return {"params": {"usec": "cut over the model group",
                        "dp": "whole",

@@ -20,6 +20,13 @@ kernels/ref.attention_ref):
 The decode cache is updated in place (slice assignment where the reference
 returns a ``dynamic_update_slice`` copy): the returned cache holds the same
 tensors as the one passed in.
+
+Over model shards (:func:`attention_parts`, :func:`attention_prefill_parts`,
+:func:`attention_decode_parts`) each rank holds its columns of the
+projections and its cut of the cache by the reference's
+``cache_shardings``; over a cut of the cache's slots the decode is
+flash-decoding's split-K (:func:`split_k_attention`), the collectives GSPMD
+inserts in the reference written out.
 """
 
 from __future__ import annotations
@@ -31,23 +38,25 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
 
-from .layers import dense_init, dtype_of, rope
+from .layers import dense_init, dtype_of, full, rope
+from .parallel import at
 
 NEG_INF = -1e30
 
 
-def init_attention(generator, cfg, device=None, lead=()) -> Dict:
+def init_attention(generator, cfg, device=None, lead=(), cut=None) -> Dict:
     d, hd = cfg.d_model, cfg.head_dim
     dt = dtype_of(cfg.param_dtype)
     shapes = {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
               "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d)}
-    p = {n: dense_init(generator, *shp, dt, device=device, lead=lead)
+    p = {n: dense_init(generator, *shp, dt, device=device, lead=lead,
+                       cut=at(cut, n))
          for n, shp in shapes.items()}
     if cfg.qkv_bias:
         for n, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
                          ("bv", cfg.n_kv_heads)):
-            p[n] = torch.zeros(tuple(lead) + (width * hd,), dtype=dt,
-                               device=device)
+            p[n] = full(tuple(lead) + (width * hd,), 0.0, dt, device,
+                        at(cut, n))
     return p
 
 
@@ -279,8 +288,9 @@ def _kv_for_heads(k, v, heads, grp):
 
 def attention_parts(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                     window: Optional[int] = None, causal: bool = True,
-                    attn_impl: str = "chunked", tp=None):
-    """(partial, whole) of :func:`attention_train`.
+                    attn_impl: str = "chunked", tp=None, kv: bool = False):
+    """(partial, whole) of :func:`attention_train`; with ``kv``, also the
+    layer's whole K and V (B, S, Hk, hd) after RoPE, for a cache.
 
     With ``tp`` (a :class:`repro_torch.models.parallel.ModelShards`) each
     projection whose columns the sharding rules split (``wq``/``wk``/``wv``
@@ -310,7 +320,8 @@ def attention_parts(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     ktp = over(tp, p["wk"].shape[-1], hk * hd)
     if qtp is None and ktp is None:
         q, k, v = qkv(p, x, cfg, positions)
-        return None, _attend(q, k, v, cfg, window, causal, attn_impl) @ p["wo"]
+        out = None, _attend(q, k, v, cfg, window, causal, attn_impl) @ p["wo"]
+        return (out, (k, v)) if kv else out
     x_tp = copy_to_model(x, tp)
 
     def proj(w, bias, split):
@@ -331,16 +342,21 @@ def attention_parts(p: Dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     q = rope(q.reshape(b, s, -1, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(b, s, -1, hd), positions, cfg.rope_theta)
     v = v.reshape(b, s, -1, hd)
+    whole_kv = (k, v)
+    if own_kv and kv:
+        whole_kv = tuple(gather_from_model(t, tp, 2) for t in (k, v))
     if aligned and not own_kv:
         hl = h // tp.size
         k, v = _kv_for_heads(k, v, range(tp.rank * hl, (tp.rank + 1) * hl),
                              h // hk)
     o = _attend(q, k, v, cfg, window, causal, attn_impl)
     if qtp is None:
-        return None, o @ p["wo"]
-    if not aligned:
-        o = slice_to_model(o, tp)
-    return o @ p["wo"], None
+        out = None, o @ p["wo"]
+    else:
+        if not aligned:
+            o = slice_to_model(o, tp)
+        out = o @ p["wo"], None
+    return (out, whole_kv) if kv else out
 
 
 def attention_prefill(
@@ -351,24 +367,38 @@ def attention_prefill(
 
     Returns (out (B,S,D), cache). For windowed layers the cache is the ring
     buffer holding the trailing ``window`` positions (slot = pos % window),
-    consistent with :func:`attention_decode`.
+    consistent with :func:`attention_decode`. (Over model shards:
+    :func:`attention_prefill_parts`.)
     """
-    b, s, _ = x.shape
-    causal = cfg.decoder  # encoder-only archs attend bidirectionally
-    q, k, v = qkv(p, x, cfg, positions)
-    if s > cfg.attn_chunk:
-        o = long_attention(q, k, v, causal, window, cfg.attn_chunk)
-    else:
-        o = full_attention(q, k, v, _square_mask(s, causal, window, x.device)[None])
+    parts, cache = attention_prefill_parts(p, x, cfg, positions, window)
+    return parts[1], cache
+
+
+def attention_prefill_parts(p: Dict, x: torch.Tensor, cfg,
+                            positions: torch.Tensor,
+                            window: Optional[int] = None, tp=None,
+                            kv_dim: Optional[int] = None):
+    """((partial, whole), cache) of :func:`attention_prefill` over the
+    model group ``tp`` (:func:`attention_parts`: on the card the flash
+    kernel runs on this rank's query heads when they are aligned). The
+    cache is this rank's cut of the whole one: ``kv_dim`` (counted from the
+    end: -3 the slots, -2 the heads, -1 the head dim; None whole) is the
+    dim the reference's ``cache_shardings`` puts on ``"model"``. A windowed
+    layer's ring buffer is laid out whole and then cut."""
+    from .parallel import own_slice
+
+    parts, (k, v) = attention_parts(p, x, cfg, positions, window,
+                                    causal=cfg.decoder, tp=tp, kv=True)
+    s = x.shape[1]
     if window:
         slots = min(window, s)
         # ring layout: position p -> slot p % slots; take trailing `slots`.
         roll = (s - slots) % slots
-        k_cache = torch.roll(k[:, -slots:], shifts=roll, dims=1)
-        v_cache = torch.roll(v[:, -slots:], shifts=roll, dims=1)
-    else:
-        k_cache, v_cache = k, v
-    return o.reshape(b, s, -1) @ p["wo"], {"k": k_cache, "v": v_cache}
+        k = torch.roll(k[:, -slots:], shifts=roll, dims=1)
+        v = torch.roll(v[:, -slots:], shifts=roll, dims=1)
+    if kv_dim is not None:
+        k, v = own_slice(k, tp, kv_dim), own_slice(v, tp, kv_dim)
+    return parts, {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------- #
@@ -392,21 +422,104 @@ def attention_decode(
     Ring-buffer semantics when ``window`` is set (slot = pos % window; RoPE is
     applied at write time with absolute positions, so relative geometry
     survives the ring). The new K/V row is written into ``cache`` in place.
+    (Over model shards: :func:`attention_decode_parts`.)
     """
-    b = x.shape[0]
-    pos = int(cache_pos)
-    slots = cache["k"].shape[1]
-    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = qkv(p, x, cfg, positions=positions)
-    # dynamic_update_slice clamps a start past the end to the last slot.
-    slot = min(pos % slots if window else pos, slots - 1)
-    cache["k"][:, slot: slot + 1] = k
-    cache["v"][:, slot: slot + 1] = v
-    idx = torch.arange(slots, device=x.device)
+    parts, cache = attention_decode_parts(p, x, cache, cache_pos, cfg, window)
+    return parts[1], cache
+
+
+def _valid_slots(idx: torch.Tensor, pos: int, slots: int,
+                 window: Optional[int]) -> torch.Tensor:
+    """Which of the (global) slots ``idx`` of a ``slots``-slot cache hold a
+    position once position ``pos`` is written."""
     if window:
         # Slot i last written at p_i = pos - ((pos - i) mod slots).
-        valid = pos - torch.remainder(pos - idx, slots) >= 0
+        return pos - torch.remainder(pos - idx, slots) >= 0
+    return idx <= pos
+
+
+def split_k_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid: torch.Tensor, tp) -> torch.Tensor:
+    """:func:`full_attention` of every query head against a cache whose
+    slots are cut over the model group (flash-decoding's split-K): each
+    rank scores its stripe ``k``/``v`` (B, S/M, Hk, hd) where ``valid``
+    (S/M,) holds. The row maximum and the softmax sum are reduced over the
+    group first (fp32), then each rank rounds its probabilities to ``v``'s
+    dtype, as one card does after its softmax, and the partial outputs are
+    summed in fp32: one card's rounding, up to the sum order."""
+    from .parallel import max_over_model, reduce_from_model
+
+    b, sq, h, hd = q.shape
+    hk = k.shape[2]
+    qg = q.reshape(b, sq, hk, h // hk, hd)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg.to(torch.float32),
+                     k.to(torch.float32)) * hd ** -0.5
+    s = torch.where(valid, s, NEG_INF)
+    m = max_over_model(torch.amax(s, dim=-1, keepdim=True), tp)
+    e = torch.exp(s - m)
+    p = e / reduce_from_model(torch.sum(e, dim=-1, keepdim=True), tp)
+    o = torch.einsum("bkgqc,bckd->bqkgd", p.to(v.dtype).to(torch.float32),
+                     v.to(torch.float32))
+    return reduce_from_model(o, tp).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def attention_decode_parts(p: Dict, x: torch.Tensor, cache: Dict, cache_pos,
+                           cfg, window: Optional[int] = None, tp=None,
+                           kv_dim: Optional[int] = None):
+    """((partial, whole), cache) of :func:`attention_decode` over the model
+    group ``tp``, the cache this rank's cut (``kv_dim`` as in
+    :func:`attention_prefill_parts`). The token's q, k and v are
+    made whole on every rank (their split projections gathered). The slot
+    of the new position is the one card's, ``dynamic_update_slice``'s clamp
+    to the last slot included, and only the rank holding it writes it (its
+    own heads or head dims of it for those cuts). Over a slot cut the
+    attention is :func:`split_k_attention` with each slot's validity read
+    from its global index; over a head or head-dim cut this rank's cut of
+    the layer is gathered whole for the step. The output leaves through
+    ``wo``'s rows: a partial sum when they are split."""
+    from .parallel import gather_from_model, over, slice_to_model
+
+    if tp is None or tp.size == 1:  # one shard: the cache is whole
+        tp, kv_dim = None, None
+    b = x.shape[0]
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pos = int(cache_pos)
+    local = cache["k"].shape[1]
+    slots = local * tp.size if kv_dim == -3 else local  # the whole cache's
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+
+    def proj(w, bias, width):
+        y = x @ p[w]
+        y = y + p[bias] if cfg.qkv_bias else y
+        y = gather_from_model(y, over(tp, p[w].shape[-1], width))
+        return y.reshape(b, 1, -1, hd)
+
+    q = rope(proj("wq", "bq", h * hd), positions, cfg.rope_theta)
+    k = rope(proj("wk", "bk", hk * hd), positions, cfg.rope_theta)
+    v = proj("wv", "bv", hk * hd)
+    slot = min(pos % slots if window else pos, slots - 1)
+    if kv_dim == -3:
+        lo = tp.rank * local
+        if lo <= slot < lo + local:
+            cache["k"][:, slot - lo: slot - lo + 1] = k
+            cache["v"][:, slot - lo: slot - lo + 1] = v
+        valid = _valid_slots(lo + torch.arange(local, device=x.device), pos,
+                             slots, window)
+        o = split_k_attention(q, cache["k"], cache["v"], valid, tp)
     else:
-        valid = idx <= pos
-    o = full_attention(q, cache["k"], cache["v"], valid[None, None, :])
-    return o.reshape(b, 1, -1) @ p["wo"], cache
+        if kv_dim is not None:
+            n = cache["k"].shape[kv_dim]
+            k, v = (t.narrow(kv_dim, tp.rank * n, n) for t in (k, v))
+        cache["k"][:, slot: slot + 1] = k
+        cache["v"][:, slot: slot + 1] = v
+        kw, vw = cache["k"], cache["v"]
+        if kv_dim is not None:
+            kw, vw = (gather_from_model(t, tp, kv_dim) for t in (kw, vw))
+        valid = _valid_slots(torch.arange(slots, device=x.device), pos, slots,
+                             window)
+        o = full_attention(q, kw, vw, valid[None, None, :])
+    o = o.reshape(b, 1, -1)
+    wtp = over(tp, p["wo"].shape[-2], h * hd)
+    if wtp is None:
+        return (None, o @ p["wo"]), cache
+    return (slice_to_model(o, wtp) @ p["wo"], None), cache

@@ -11,12 +11,14 @@ device, a bounded fp32 chunk at a time.
 
 from __future__ import annotations
 
+import itertools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .parallel import copy_to_model
+from .parallel import at, copy_to_model, row_runs
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -27,35 +29,79 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def normal_(out: torch.Tensor, generator: torch.Generator, scale: float) -> torch.Tensor:
+def normal_(out: torch.Tensor, generator: torch.Generator, scale: float,
+            cut=None) -> torch.Tensor:
     """Fill ``out`` in place with ``N(0, 1) * scale`` drawn in fp32, then
     rounded once to ``out``'s dtype. Rows are drawn in chunks, so a large
-    low-precision leaf never has a full fp32 copy."""
-    flat = out.view(-1, out.shape[-1]) if out.ndim > 1 else out.view(1, -1)
-    rows = max(1, _INIT_CHUNK // max(flat.shape[1], 1))
-    for part in flat.split(rows):
-        draw = torch.randn(part.shape, generator=generator,
+    low-precision leaf never has a full fp32 copy.
+
+    ``cut`` (a :class:`repro_torch.models.parallel.InitCut` at this leaf):
+    ``out`` is this rank's slice of the whole leaf; the whole leaf's chunks
+    are drawn in the same order and shapes and each keeps only the slice's
+    elements, so the slice is bitwise the whole draw's and no whole leaf
+    (nor more than one chunk) is ever allocated."""
+    box = None if cut is None else cut.box()
+    if box is None or box.whole:
+        flat = out.view(-1, out.shape[-1]) if out.ndim > 1 else out.view(1, -1)
+        rows = max(1, _INIT_CHUNK // max(flat.shape[1], 1))
+        for part in flat.split(rows):
+            draw = torch.randn(part.shape, generator=generator,
+                               dtype=torch.float32, device=out.device)
+            part.copy_(draw.mul_(scale))
+            del draw
+        return out
+    n_rows, n_cols = math.prod(box.shape[:-1]), box.shape[-1]
+    c0, cn = box.lo[-1], box.size[-1]
+    flat = out.view(-1, cn)
+    rows = max(1, _INIT_CHUNK // max(n_cols, 1))
+    runs, first = row_runs(box), 0
+    for r0 in range(0, n_rows, rows):
+        r1 = min(r0 + rows, n_rows)
+        draw = torch.randn((r1 - r0, n_cols), generator=generator,
                            dtype=torch.float32, device=out.device)
-        part.copy_(draw.mul_(scale))
+        while first < len(runs) and sum(runs[first][:2]) <= r0:
+            first += 1
+        for g, n, local in itertools.takewhile(lambda run: run[0] < r1,
+                                               runs[first:]):
+            a, b = max(g, r0), min(g + n, r1)
+            flat[local + a - g: local + b - g].copy_(
+                draw[a - r0: b - r0, c0: c0 + cn].mul_(scale))
+        del draw
     return out
 
 
+def empty(shape, dtype, device=None, cut=None) -> torch.Tensor:
+    """An uninitialized leaf of ``shape``, or this rank's slice of it."""
+    shape = tuple(shape) if cut is None else cut.local(shape)
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def full(shape, value: float, dtype, device=None, cut=None) -> torch.Tensor:
+    """A leaf of ``shape`` filled with ``value``, or this rank's slice."""
+    shape = tuple(shape) if cut is None else cut.local(shape)
+    return torch.full(shape, value, dtype=dtype, device=device)
+
+
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, dtype,
-               scale: Optional[float] = None, device=None, lead=()) -> torch.Tensor:
+               scale: Optional[float] = None, device=None, lead=(),
+               cut=None) -> torch.Tensor:
     """A (``*lead``, d_in, d_out) weight, ``N(0, 1) * scale`` (default
-    ``d_in ** -0.5``). ``lead`` stacks independent draws (the layer axis)."""
+    ``d_in ** -0.5``). ``lead`` stacks independent draws (the layer axis);
+    ``cut``: this rank's slice of it (:func:`normal_`)."""
     s = scale if scale is not None else d_in ** -0.5
-    out = torch.empty(tuple(lead) + (d_in, d_out), dtype=dtype, device=device)
-    return normal_(out, generator, s)
+    out = empty(tuple(lead) + (d_in, d_out), dtype, device, cut)
+    return normal_(out, generator, s, cut)
 
 
 # ---------------------------------------------------------------------- #
 # Norms
 # ---------------------------------------------------------------------- #
-def init_norm(d: int, kind: str, dtype, device=None, lead=()) -> Dict:
-    p = {"scale": torch.ones(tuple(lead) + (d,), dtype=dtype, device=device)}
+def init_norm(d: int, kind: str, dtype, device=None, lead=(),
+              cut=None) -> Dict:
+    shape = tuple(lead) + (d,)
+    p = {"scale": full(shape, 1.0, dtype, device, at(cut, "scale"))}
     if kind == "layernorm":
-        p["bias"] = torch.zeros(tuple(lead) + (d,), dtype=dtype, device=device)
+        p["bias"] = full(shape, 0.0, dtype, device, at(cut, "bias"))
     return p
 
 
@@ -107,13 +153,14 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def init_mlp(generator: torch.Generator, d: int, f: int, act: str, dtype,
-             device=None, lead=()) -> Dict:
+             device=None, lead=(), cut=None) -> Dict:
     if act in GATED_ACTS:
         names = ("w_gate", "w_up", "w_down")
     else:
         names = ("w_up", "w_down")
     return {n: dense_init(generator, *((f, d) if n == "w_down" else (d, f)),
-                          dtype, device=device, lead=lead) for n in names}
+                          dtype, device=device, lead=lead, cut=at(cut, n))
+            for n in names}
 
 
 def apply_mlp(p: Dict, x: torch.Tensor, act: str) -> torch.Tensor:

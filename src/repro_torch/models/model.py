@@ -19,11 +19,13 @@ reference tree (as numpy) across. ``loss_fn`` is differentiable with
 autograd; the serving entry points take parameters that require no grad.
 
 Model shards (``build_model(cfg, shards=ModelShards(...))``): ``init``
-draws the whole tree from the generator, as one shard does, and keeps this
-rank's cut (:func:`repro_torch.models.parallel.shard_params`), so every
-shard count trains the same weights; ``loss_fn`` runs the layers tensor-
-parallel over the model group (the embedding and the loss vocabulary-
-parallel). ``prefill`` and ``decode_step`` take whole weights.
+draws the whole tree's random stream, as one shard does, and keeps this
+rank's cut (bitwise :func:`repro_torch.models.parallel.shard_params` of
+the whole tree, which is never made), so every shard count trains and
+serves the same weights; ``loss_fn``, ``prefill`` and ``decode_step`` run
+the layers tensor-parallel over the model group (the embedding, the loss
+and the logits vocabulary-parallel), the decode caches cut by the
+reference's ``cache_shardings`` (``make_cache(..., shards=)``).
 
 Data shards (``build_model(cfg, data=DataShards(...))``, the fsdp rules):
 ``init`` also keeps this rank's slice of each leaf the rules cut over data
@@ -32,7 +34,9 @@ those leaves where they are read: each layer's when it runs
 (:func:`repro_torch.models.transformer.stack_train`), the embedding and
 unembedding at the lookup and the loss. Each rank's ``loss_fn`` runs its
 own rows of a microbatch and counts the MoE load-balance term 1/D, so the
-ranks' losses sum to the microbatch's.
+ranks' losses sum to the microbatch's. In serving the data group is the
+batch's: each data index serves its rows of the batch every rank passes
+(all of them when D does not divide it).
 """
 
 from __future__ import annotations
@@ -45,14 +49,18 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from .layers import apply_norm, dense_init, dtype_of, init_norm, normal_
+from .layers import apply_norm, dense_init, dtype_of, empty, init_norm, normal_
 from .losses import chunked_cross_entropy, lm_loss
 from .parallel import (
     DataShards,
     ModelShards,
+    at,
+    cache_model_dims,
     data_dims_tree,
     gather_tree,
+    init_cut,
     over,
+    own_rows,
     reduce_from_model,
     shard_params,
 )
@@ -107,28 +115,38 @@ def build_model(cfg, device=None, shards: Optional[ModelShards] = None,
         data = None
     dims = None if data is None else data_dims_tree(
         cfg, data.size, 1 if shards is None else shards.size)
+    cut = None  # this rank's cut of every leaf, for init
+    if shards is not None or data is not None:
+        cut = init_cut(cfg, *((1, 0) if shards is None
+                              else (shards.size, shards.rank)),
+                       *((1, 0) if data is None else (data.size, data.rank)))
 
     def init(generator: torch.Generator) -> Dict:
         """Random weights from ``generator`` (on ``device``), every leaf
         allocated on the device in ``cfg.param_dtype`` (the reference's fp32
         leaves in fp32); with ``shards`` or ``data``, this rank's cut of
-        them."""
-        return _cut(init_whole(generator), cfg, shards, data)
+        them, bitwise :func:`repro_torch.models.parallel.shard_params` of
+        the whole tree: each leaf's draws are made whole, a chunk at a time,
+        and only this rank's elements kept (no whole leaf is allocated)."""
+        return draw(generator, cut)
 
-    def init_whole(generator: torch.Generator) -> Dict:
-        embed = torch.empty((cfg.vocab_size, cfg.d_model), dtype=dt,
-                            device=device)
+    def draw(generator: torch.Generator, cut) -> Dict:
+        embed = empty((cfg.vocab_size, cfg.d_model), dt, device,
+                      at(cut, "embed"))
         p: Dict[str, Any] = {
-            "embed": normal_(embed, generator, 0.02),
-            "stack": init_stack(generator, cfg, device),
-            "final_norm": init_norm(cfg.d_model, cfg.norm, dt, device),
+            "embed": normal_(embed, generator, 0.02, at(cut, "embed")),
+            "stack": init_stack(generator, cfg, device, at(cut, "stack")),
+            "final_norm": init_norm(cfg.d_model, cfg.norm, dt, device,
+                                    cut=at(cut, "final_norm")),
         }
         if not cfg.tie_embeddings:
             p["unembed"] = dense_init(generator, cfg.d_model, cfg.vocab_size,
-                                      dt, scale=0.02, device=device)
+                                      dt, scale=0.02, device=device,
+                                      cut=at(cut, "unembed"))
         if cfg.frontend:
             p["frontend_proj"] = dense_init(generator, cfg.frontend_dim,
-                                            cfg.d_model, dt, device=device)
+                                            cfg.d_model, dt, device=device,
+                                            cut=at(cut, "frontend_proj"))
         return p
 
     def leaf(params, key):
@@ -206,22 +224,59 @@ def build_model(cfg, device=None, shards: Optional[ModelShards] = None,
         total = nll + share * aux * n / torch.clamp(n, min=1.0)
         return total, m
 
+    def sharded(b: int, length: Optional[int]):
+        """The keywords of the stack's serving functions over the groups
+        for a batch of ``b`` rows and a cache of ``length`` positions: the
+        model group, the data group and its dims, the cache's model dims
+        (:func:`repro_torch.models.parallel.cache_model_dims`), and whether
+        each data index serves its own rows (:func:`own_rows`)."""
+        if shards is None and data is None:
+            return {}
+        cdims = None
+        if shards is not None and shards.size > 1:
+            if length is None:
+                raise ValueError("decode over model shards needs cache_len, "
+                                 "the cache's positions")
+            cdims = cache_model_dims(cfg, b, length, shards.size)
+        return {"tp": shards, "dp": data,
+                "dims": None if dims is None else dims["stack"],
+                "cdims": cdims, "row_cut": own_rows(b, data) is not None}
+
+    def rows_of(batch, b: int):
+        sl = own_rows(b, data)
+        return batch if sl is None else {k: v[sl] for k, v in batch.items()}
+
     def prefill(params, batch):
         """(cache, last_logits) of any of the three schemas; for an encoder
-        the one forward (its caches as the reference builds them)."""
-        x, _ = embed_batch(params, batch)
+        the one forward (its caches as the reference builds them). Over
+        the groups every rank passes the whole batch: a data index serves
+        its rows (its 1/D when D divides them, else all), the cache comes
+        back this rank's cut (the reference's ``cache_shardings``) and the
+        logits are its rows' over its slice of the vocabulary (the
+        unembedding's cut, the reference's ``(dp, "model")``)."""
+        b = next(iter(batch.values())).shape[0]
+        x, _ = embed_batch(params, rows_of(batch, b))
         positions = torch.arange(x.shape[1], device=device)
-        h, cache = stack_prefill(params["stack"], x, cfg, positions)
-        h = apply_norm(params["final_norm"], h, cfg.norm)
+        h, cache = stack_prefill(params["stack"], x, cfg, positions,
+                                 **sharded(b, x.shape[1]))
+        h = apply_norm(leaf(params, "final_norm"), h, cfg.norm)
         logits = (h[:, -1] @ unembed_of(params)).to(torch.float32)
         return cache, logits
 
-    def decode_step(params, cache, token, cache_pos):
+    def decode_step(params, cache, token, cache_pos,
+                    cache_len: Optional[int] = None):
         """One token (B, 1) at position ``cache_pos``; ``cache`` is updated
-        in place and returned."""
-        x = embed(params, token)  # (B, 1, D)
-        h, cache = stack_decode(params["stack"], x, cache, cache_pos, cfg)
-        h = apply_norm(params["final_norm"], h, cfg.norm)
+        in place and returned. Over the groups every rank passes the whole
+        batch's tokens and its cut of the cache, as :func:`prefill` gives
+        it; ``cache_len`` (over a model group): the cache's positions,
+        ``make_cache``'s ``max_len``."""
+        token = torch.as_tensor(token, device=device)
+        b = token.shape[0]
+        sl = own_rows(b, data)
+        x = embed(params, token if sl is None else token[sl])  # (B, 1, D)
+        h, cache = stack_decode(params["stack"], x, cache, cache_pos, cfg,
+                                **sharded(b, cache_len))
+        h = apply_norm(leaf(params, "final_norm"), h, cfg.norm)
         logits = (h[:, 0] @ unembed_of(params)).to(torch.float32)
         return cache, logits
 
@@ -229,8 +284,14 @@ def build_model(cfg, device=None, shards: Optional[ModelShards] = None,
                        embed_batch, shards, data)
 
 
-def make_cache(cfg, batch: int, max_len: int, device=None):
-    return init_cache(cfg, batch, max_len, device=resolve_device(device))
+def make_cache(cfg, batch: int, max_len: int, device=None,
+               shards: Optional[ModelShards] = None,
+               data: Optional[DataShards] = None):
+    """The decode cache for ``batch`` rows of up to ``max_len`` positions;
+    with ``shards`` or ``data``, zeros of this rank's cut of it alone."""
+    m = (1, 0) if shards is None else (shards.size, shards.rank)
+    d = (1, 0) if data is None else (data.size, data.rank)
+    return init_cache(cfg, batch, max_len, resolve_device(device), *m, *d)
 
 
 def param_count(params) -> int:

@@ -26,30 +26,33 @@ import torch
 import torch.nn.functional as F
 
 from .layers import _gelu, dense_init, dtype_of, init_mlp, mlp_parts
-from .parallel import copy_to_model, over
+from .parallel import at, copy_to_model, over
 
 
-def init_moe(generator: torch.Generator, cfg, device=None, lead=()) -> Dict:
+def init_moe(generator: torch.Generator, cfg, device=None, lead=(),
+             cut=None) -> Dict:
     """The reference's ``init_moe`` tree: an fp32 ``router`` (d, E) and the
     experts stacked on a leading E axis, ``N(0, 1) · d_in ** -0.5`` in
-    ``cfg.param_dtype``; ``lead`` stacks layers."""
+    ``cfg.param_dtype``; ``lead`` stacks layers; ``cut``: this rank's
+    slices (:func:`repro_torch.models.layers.normal_`)."""
     dt = dtype_of(cfg.param_dtype)
     d, fe, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
     lead = tuple(lead)
     p = {
         "router": dense_init(generator, d, e, torch.float32, device=device,
-                             lead=lead),
+                             lead=lead, cut=at(cut, "router")),
         "w_up": dense_init(generator, d, fe, dt, device=device,
-                           lead=lead + (e,)),
+                           lead=lead + (e,), cut=at(cut, "w_up")),
         "w_down": dense_init(generator, fe, d, dt, device=device,
-                             lead=lead + (e,)),
+                             lead=lead + (e,), cut=at(cut, "w_down")),
     }
     if cfg.act == "swiglu":
         p["w_gate"] = dense_init(generator, d, fe, dt, device=device,
-                                 lead=lead + (e,))
+                                 lead=lead + (e,), cut=at(cut, "w_gate"))
     if cfg.n_shared_experts:
         p["shared"] = init_mlp(generator, d, fe * cfg.n_shared_experts,
-                               cfg.act, dt, device, lead)
+                               cfg.act, dt, device, lead,
+                               at(cut, "shared"))
     return p
 
 

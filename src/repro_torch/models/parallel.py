@@ -39,7 +39,9 @@ so each microbatch's gradient reaches its rank already reduce-scattered.
 from __future__ import annotations
 
 import functools
-from typing import Any, List, Optional, Tuple
+import itertools
+import math
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -152,9 +154,11 @@ def reduce_scatter_dim(x: torch.Tensor, dp: _Shards, dim: int,
 
 
 def own_slice(x: torch.Tensor, tp: _Shards, dim: int) -> torch.Tensor:
-    """This rank's slice of ``x`` along ``dim`` (a contiguous copy)."""
+    """This rank's slice of ``x`` along ``dim`` (a contiguous copy, never
+    a view: a slice kept in a cache must not hold ``x``'s storage)."""
     n = x.shape[dim] // tp.size
-    return x.narrow(dim, tp.rank * n, n).contiguous()
+    return x.narrow(dim, tp.rank * n, n).clone(
+        memory_format=torch.contiguous_format)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -283,14 +287,34 @@ def finish(parts: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]],
 # ---------------------------------------------------------------------- #
 # Cutting and joining parameter trees
 # ---------------------------------------------------------------------- #
+def _outside_modes():
+    """A context in which no dispatch mode sees the operators: the meta
+    trees below are bookkeeping (their shapes), not the program's
+    allocations, which the dry-run's tracker counts."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    return _disable_current_modes()
+
+
 @functools.lru_cache(maxsize=None)
 def meta_params(cfg):
     """``cfg``'s whole parameter tree on the meta device (nothing is
     allocated; one shared tree per config: read it, do not change it)."""
     from .model import build_model
 
-    return build_model(cfg, device="meta").init(
-        torch.Generator().manual_seed(0))
+    with _outside_modes():
+        return build_model(cfg, device="meta").init(
+            torch.Generator().manual_seed(0))
+
+
+@functools.lru_cache(maxsize=None)
+def meta_cache(cfg, batch: int, max_len: int):
+    """The whole decode cache of ``batch`` rows and ``max_len`` positions
+    on the meta device (one shared tree: read it, do not change it)."""
+    from .transformer import init_cache
+
+    with _outside_modes():
+        return init_cache(cfg, batch, max_len, device="meta")
 
 
 @functools.lru_cache(maxsize=None)
@@ -466,3 +490,204 @@ def sharded_leaves(cfg, tp: Optional[ModelShards]) -> List[bool]:
     """Per leaf: whether each model shard holds only its slice of it."""
     return [d is not None
             for d in model_dims(cfg, 1 if tp is None else tp.size)]
+
+
+# ---------------------------------------------------------------------- #
+# Drawing a cut tree without its whole leaves
+# ---------------------------------------------------------------------- #
+class Box(NamedTuple):
+    """This rank's part of one whole leaf: its first index and its extent
+    along each dim of the whole ``shape``."""
+
+    shape: Tuple[int, ...]
+    lo: Tuple[int, ...]
+    size: Tuple[int, ...]
+
+    @property
+    def whole(self) -> bool:
+        return self.size == self.shape
+
+
+class InitCut:
+    """This rank's cut of a parameter tree (:func:`init_cut`), for ``init``
+    to allocate each leaf's slice and keep its elements of every draw
+    (:func:`repro_torch.models.layers.normal_`). ``at(*keys)`` is the cut
+    below a path of the tree; at a leaf, ``box()`` its :class:`Box` and
+    ``local(shape)`` the slice's shape."""
+
+    def __init__(self, boxes, path: Tuple = ()):
+        self.path, self._boxes = tuple(path), boxes
+
+    def at(self, *keys) -> "InitCut":
+        return InitCut(self._boxes, self.path + keys)
+
+    def box(self) -> Box:
+        return self._boxes[sharding.keystr(self.path)]
+
+    def local(self, shape) -> Tuple[int, ...]:
+        box = self.box()
+        if tuple(shape) != box.shape:
+            raise ValueError(f"{sharding.keystr(self.path)}: a leaf of "
+                             f"{tuple(shape)}, the tree's is {box.shape}")
+        return box.size
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a small whole leaf ``t`` (a copy)."""
+        box = self.box()
+        for dim, (lo, n) in enumerate(zip(box.lo, box.size)):
+            t = t.narrow(dim, lo, n)
+        return t.clone()
+
+
+def init_cut(cfg, n_model: int, rank: int, n_data: int = 1,
+             data_rank: int = 0) -> InitCut:
+    """The :class:`InitCut` of model shard ``rank`` of ``n_model`` and data
+    slice ``data_rank`` of ``n_data`` of ``cfg``'s tree, as
+    :func:`shard_params` cuts it."""
+    boxes = {}
+    for (key, shape), d, e in zip(full_shapes(cfg), model_dims(cfg, n_model),
+                                  data_dims(cfg, n_data, n_model)):
+        lo, size = [0] * len(shape), list(shape)
+        for dim, n, r in ((d, n_model, rank), (e, n_data, data_rank)):
+            if dim is not None and n > 1:
+                size[dim] //= n
+                lo[dim] += r * size[dim]
+        boxes[key] = Box(shape, tuple(lo), tuple(size))
+    return InitCut(boxes)
+
+
+def at(cut: Optional[InitCut], *keys) -> Optional[InitCut]:
+    """``cut.at(*keys)``, or None for a whole tree."""
+    return None if cut is None else cut.at(*keys)
+
+
+def row_runs(box: Box) -> List[Tuple[int, int, int]]:
+    """The rows of ``box.shape`` viewed as (rows, last dim) that the box
+    keeps, as maximal runs (first whole row, rows, first local row) in
+    order: each run a contiguous block of the whole leaf's rows, landing
+    on contiguous rows of the slice."""
+    dims, lo, size = box.shape[:-1], box.lo[:-1], box.size[:-1]
+    cut = [i for i in range(len(dims)) if size[i] != dims[i]]
+    if not cut:
+        return [(0, math.prod(dims), 0)]
+    t = cut[-1]
+    inner = math.prod(dims[t + 1:])
+    runs, local = [], 0
+    for idx in itertools.product(*(range(lo[i], lo[i] + size[i])
+                                   for i in range(t))):
+        g = 0
+        for i, v in enumerate(idx):
+            g = g * dims[i] + v
+        runs.append(((g * dims[t] + lo[t]) * inner, size[t] * inner, local))
+        local += size[t] * inner
+    return runs
+
+
+# ---------------------------------------------------------------------- #
+# Cutting decode caches
+# ---------------------------------------------------------------------- #
+def _cache_dims_of(tree, cfg, n_model: int, n_data: int
+                   ) -> Tuple[Tuple[Optional[int], Optional[int]], ...]:
+    mesh = MeshSpec((n_data, n_model), ("data", MODEL_AXIS))
+    specs = sharding.leaves(sharding.cache_shardings(tree, cfg, mesh))
+    return tuple((sharding.model_dim(s) if n_model > 1 else None,
+                  sharding.data_dim(s) if n_data > 1 else None)
+                 for s in specs)
+
+
+@functools.lru_cache(maxsize=None)
+def cache_dims(cfg, batch: int, max_len: int, n_model: int, n_data: int = 1
+               ) -> Tuple[Tuple[Optional[int], Optional[int]], ...]:
+    """Per leaf of ``init_cache(cfg, batch, max_len)`` (in leaf order, a
+    stacked leaf's dims counting its layer axis): (the dim
+    :func:`repro_torch.launch.sharding.cache_shardings` cuts over
+    ``n_model`` model shards, the dim it cuts over ``n_data`` data
+    indices), None where it keeps the leaf whole. A K/V leaf's slots go
+    over the model axis when ``slots % M == 0 and slots >= 4M``, else its
+    heads, else its head dim; an ssm ``state`` its heads, a ``conv`` or an
+    rglru ``h`` its channels; the batch rows over data when they divide."""
+    return _cache_dims_of(meta_cache(cfg, batch, max_len), cfg, n_model,
+                          n_data)
+
+
+def cache_model_dims(cfg, batch: int, max_len: int, n_model: int) -> Any:
+    """The model dim of each leaf of :func:`cache_dims` counted from the
+    end (so it holds for one layer's view of a stacked leaf too), as a
+    tree shaped like the cache; None where whole."""
+    from .transformer import tree_unflatten
+
+    whole = meta_cache(cfg, batch, max_len)
+    dims = [None if d is None else d - t.ndim
+            for (d, _), t in zip(cache_dims(cfg, batch, max_len, n_model),
+                                 _leaves(whole))]
+    return tree_unflatten(whole, dims)
+
+
+def _leaves(tree):
+    from .transformer import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def cache_shapes(cfg, batch: int, max_len: int, n_model: int = 1,
+                 rank: int = 0, n_data: int = 1, data_rank: int = 0
+                 ) -> List[Tuple[int, ...]]:
+    """Each cache leaf's shape on model shard ``rank`` and data index
+    ``data_rank`` (:func:`cache_dims`)."""
+    out = []
+    for t, (d, e) in zip(_leaves(meta_cache(cfg, batch, max_len)),
+                         cache_dims(cfg, batch, max_len, n_model, n_data)):
+        shape = list(t.shape)
+        for dim, n in ((d, n_model), (e, n_data)):
+            if dim is not None:
+                shape[dim] //= n
+        out.append(tuple(shape))
+    return out
+
+
+def shard_cache(cache: Any, cfg, n_model: int, rank: int, n_data: int = 1,
+                data_rank: int = 0) -> Any:
+    """Model shard ``rank`` and data index ``data_rank`` of a whole decode
+    cache (each leaf cut by the reference's ``cache_shardings`` rule for
+    its shape; contiguous copies)."""
+    from .transformer import tree_unflatten
+
+    leaves = _leaves(cache)
+    out = [_narrow(_narrow(t, d, n_model, rank), e, n_data,
+                   data_rank).contiguous()
+           for t, (d, e) in zip(leaves, _cache_dims_of(
+               cache, cfg, n_model, n_data))]
+    return tree_unflatten(cache, out)
+
+
+def unshard_cache(cache: Any, cfg, batch: int, max_len: int,
+                  tp: Optional[ModelShards], dp: Optional[DataShards] = None
+                  ) -> Any:
+    """The whole ``(batch, max_len)`` decode cache from every rank's cut
+    (every rank of the groups calls this; the gathers are not counted)."""
+    import torch.distributed as dist
+
+    from .transformer import tree_unflatten
+
+    n_model = 1 if tp is None else tp.size
+    n_data = 1 if dp is None else dp.size
+    out = []
+    for t, (d, e) in zip(_leaves(cache), cache_dims(cfg, batch, max_len,
+                                                    n_model, n_data)):
+        for cut, shards in ((e, dp), (d, tp)):
+            if cut is not None:
+                parts = [torch.empty_like(t) for _ in range(shards.size)]
+                dist.all_gather(parts, t.contiguous(), group=shards.group)
+                t = torch.cat(parts, dim=cut)
+        out.append(t)
+    return tree_unflatten(cache, out)
+
+
+def own_rows(n: int, dp: Optional[DataShards]) -> Optional[slice]:
+    """The rows of a batch of ``n`` this data index serves: its 1/D when D
+    divides ``n`` (the reference's ``batch_shardings``), else None (every
+    data index serves every row)."""
+    if dp is None or dp.size == 1 or n % dp.size:
+        return None
+    k = n // dp.size
+    return slice(dp.rank * k, (dp.rank + 1) * k)

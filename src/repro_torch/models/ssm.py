@@ -19,13 +19,26 @@ fp32 leaves in a model of any ``param_dtype``, as in the reference.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
-from .layers import causal_depthwise_conv, dense_init, dtype_of, normal_
-from .parallel import copy_to_model, gather_from_model, over, slice_to_model
+from .layers import (
+    causal_depthwise_conv,
+    dense_init,
+    dtype_of,
+    empty,
+    full,
+    normal_,
+)
+from .parallel import (
+    at,
+    copy_to_model,
+    gather_from_model,
+    over,
+    slice_to_model,
+)
 
 F32 = torch.float32
 
@@ -36,23 +49,27 @@ def _dims(cfg):
     return d_in, cfg.ssm_state, d_in // cfg.ssm_head_dim
 
 
-def init_ssm(generator, cfg, device=None, lead=()) -> Dict:
+def init_ssm(generator, cfg, device=None, lead=(), cut=None) -> Dict:
     dt = dtype_of(cfg.param_dtype)
     d = cfg.d_model
     d_in, n, h = _dims(cfg)
     lead = tuple(lead)
     d_proj = 2 * d_in + 2 * n + h  # z, x, B, C, dt
-    conv_w = torch.empty(lead + (cfg.ssm_conv, d_in + 2 * n), dtype=dt,
-                         device=device)
+    conv_w = empty(lead + (cfg.ssm_conv, d_in + 2 * n), dt, device,
+                   at(cut, "conv_w"))
     a_log = torch.log(torch.linspace(1.0, 16.0, h, dtype=F32, device=device))
+    a_log = a_log.expand(lead + (h,)).clone()
     return {
-        "w_in": dense_init(generator, d, d_proj, dt, device=device, lead=lead),
-        "conv_w": normal_(conv_w, generator, 0.1),
-        "A_log": a_log.expand(lead + (h,)).clone(),
-        "D": torch.ones(lead + (h,), dtype=F32, device=device),
-        "dt_bias": torch.zeros(lead + (h,), dtype=F32, device=device),
-        "norm_scale": torch.ones(lead + (d_in,), dtype=dt, device=device),
-        "w_out": dense_init(generator, d_in, d, dt, device=device, lead=lead),
+        "w_in": dense_init(generator, d, d_proj, dt, device=device, lead=lead,
+                           cut=at(cut, "w_in")),
+        "conv_w": normal_(conv_w, generator, 0.1, at(cut, "conv_w")),
+        "A_log": a_log if cut is None else cut.at("A_log").take(a_log),
+        "D": full(lead + (h,), 1.0, F32, device, at(cut, "D")),
+        "dt_bias": full(lead + (h,), 0.0, F32, device, at(cut, "dt_bias")),
+        "norm_scale": full(lead + (d_in,), 1.0, dt, device,
+                           at(cut, "norm_scale")),
+        "w_out": dense_init(generator, d_in, d, dt, device=device, lead=lead,
+                            cut=at(cut, "w_out")),
     }
 
 
@@ -175,12 +192,11 @@ def apply_ssm_train(params: Dict, u: torch.Tensor, cfg) -> torch.Tensor:
     return ssm_parts(params, u, cfg)[1]
 
 
-def ssm_parts(params: Dict, u: torch.Tensor, cfg, tp=None):
-    """(partial, whole) of :func:`apply_ssm_train`. Over a model group the
-    block takes the plain route: the split ``w_in`` output, ``conv_w`` and
-    ``norm_scale`` are gathered whole, the conv and the SSD scan run whole
-    on every rank, and a split ``w_out`` reads this rank's columns of the
-    normed output (a partial sum)."""
+def _plain_route(params: Dict, u: torch.Tensor, cfg, tp=None):
+    """:func:`ssm_parts`' plain route over the model group: (the params with
+    ``conv_w`` and ``norm_scale`` gathered whole, the whole ``u @ w_in``
+    when ``w_in`` is split or None, the group ``w_out``'s rows are split
+    over or None)."""
     d_in, n, h = _dims(cfg)
     in_tp = over(tp, params["w_in"].shape[-1], 2 * d_in + 2 * n + h)
     out_tp = over(tp, params["w_out"].shape[-2], d_in)
@@ -191,9 +207,56 @@ def ssm_parts(params: Dict, u: torch.Tensor, cfg, tp=None):
     proj = None
     if in_tp is not None:
         proj = gather_from_model(copy_to_model(u, tp) @ params["w_in"], tp)
+    return params, proj, out_tp
+
+
+def ssm_parts(params: Dict, u: torch.Tensor, cfg, tp=None):
+    """(partial, whole) of :func:`apply_ssm_train`. Over a model group the
+    block takes the plain route: the split ``w_in`` output, ``conv_w`` and
+    ``norm_scale`` are gathered whole, the conv and the SSD scan run whole
+    on every rank, and a split ``w_out`` reads this rank's columns of the
+    normed output (a partial sum)."""
+    params, proj, out_tp = _plain_route(params, u, cfg, tp)
     z, _, x, b, c, dt, _ = _in_proj(params, u, cfg, proj=proj)
     y = ssm_forward(params, z, x, b, c, dt, cfg, out_tp)
     return (y, None) if out_tp is not None else (None, y)
+
+
+def prefill_state(params: Dict, x, dt, b, cfg) -> torch.Tensor:
+    """The SSM state after the prompt, (B, H, P, N) fp32: the reference's
+    closed form, sum_t exp(sum_{u>t} dt_u A) dt_t B_t x_t^T, from a
+    reversed cumsum."""
+    a = -torch.exp(params["A_log"])
+    bsz, s, _ = x.shape
+    xh = x.reshape(bsz, s, -1, cfg.ssm_head_dim).to(F32)
+    da = (dt * a).transpose(1, 2)  # (B,H,S): the cumsum's axis last
+    rev_cum = torch.flip(torch.cumsum(torch.flip(da, (-1,)), dim=-1),
+                         (-1,)) - da  # sum_{u>t}
+    w_t = torch.exp(rev_cum).transpose(1, 2)  # (B,S,H)
+    return torch.einsum("bsn,bsh,bshp->bhpn", b.to(F32), w_t * dt, xh)
+
+
+def ssm_prefill_parts(params: Dict, u: torch.Tensor, cfg, tp=None,
+                      dims: Optional[Dict] = None):
+    """((partial, whole), cache) of the block over the prompt: its output
+    (:func:`ssm_parts`' plain route over ``tp``) and its final (conv,
+    state) caches, each this rank's cut when ``dims`` (the dim the
+    reference's ``cache_shardings`` cuts over the model axis, from the end:
+    ``conv``'s channels, which may cross the x | B | C boundary, and
+    ``state``'s heads; None whole) names one. The in-projection and conv
+    run once (the reference runs them again for the caches; the values are
+    identical)."""
+    from .parallel import own_slice
+
+    params, proj, out_tp = _plain_route(params, u, cfg, tp)
+    z, xbc, x, b, c, dt, _ = _in_proj(params, u, cfg, proj=proj)
+    y = ssm_forward(params, z, x, b, c, dt, cfg, out_tp)
+    cache = {"conv": xbc[:, -(cfg.ssm_conv - 1):, :],
+             "state": prefill_state(params, x, dt, b, cfg)}
+    for k, d in (dims or {}).items():
+        if d is not None:
+            cache[k] = own_slice(cache[k], tp, d)
+    return ((y, None) if out_tp is not None else (None, y)), cache
 
 
 # ---------------------------------------------------------------------- #
@@ -211,17 +274,53 @@ def init_ssm_cache(cfg, batch: int, device=None, lead=()) -> Dict:
     }
 
 
-def apply_ssm_decode(params: Dict, u: torch.Tensor, cache: Dict, cfg):
-    """u: (B, 1, D). Returns (y, cache): the new conv and SSM states are
-    written into ``cache``'s tensors in place. O(1) per token."""
-    z, _, x, b, c, dt, conv_state = _in_proj(params, u, cfg, cache["conv"])
+def _step(params: Dict, u: torch.Tensor, conv, state, cfg, proj=None,
+          out_tp=None):
+    """One token from the (conv, state) caches: (y, the new conv state,
+    the new state); ``proj`` and ``out_tp`` as :func:`_plain_route` gives
+    them."""
+    z, _, x, b, c, dt, conv_state = _in_proj(params, u, cfg, conv, proj)
     dt = dt[:, 0]                                              # (B,H)
     a = -torch.exp(params["A_log"])
     da = torch.exp(dt * a)                                     # (B,H)
     xh = x[:, 0].reshape(x.shape[0], -1, cfg.ssm_head_dim).to(F32)  # (B,H,P)
     bx = torch.einsum("bn,bhp->bhpn", b[:, 0].to(F32), xh * dt[..., None])
-    state = cache["state"] * da[..., None, None] + bx
+    state = state * da[..., None, None] + bx
     y = torch.einsum("bhpn,bn->bhp", state, c[:, 0].to(F32))
+    return _out(params, y[:, None], xh[:, None], z, out_tp), conv_state, \
+        state
+
+
+def apply_ssm_decode(params: Dict, u: torch.Tensor, cache: Dict, cfg):
+    """u: (B, 1, D). Returns (y, cache): the new conv and SSM states are
+    written into ``cache``'s tensors in place. O(1) per token."""
+    y, conv_state, state = _step(params, u, cache["conv"], cache["state"],
+                                 cfg)
     cache["conv"].copy_(conv_state)
     cache["state"].copy_(state)
-    return _out(params, y[:, None], xh[:, None], z), cache
+    return y, cache
+
+
+def ssm_decode_parts(params: Dict, u: torch.Tensor, cache: Dict, cfg,
+                     tp=None, dims: Optional[Dict] = None):
+    """((partial, whole), cache) of :func:`apply_ssm_decode` over the model
+    group by the plain route: this rank's cut of the caches (``dims`` as in
+    :func:`ssm_prefill_parts`) gathered whole, the step run whole on every
+    rank, this rank's cut of the new caches written back in place, and a
+    split ``w_out`` giving a partial sum."""
+    from .parallel import own_slice
+
+    if tp is None or tp.size == 1:
+        y, cache = apply_ssm_decode(params, u, cache, cfg)
+        return (None, y), cache
+    dims = dims or {}
+    params, proj, out_tp = _plain_route(params, u, cfg, tp)
+    whole = {k: t if dims.get(k) is None else gather_from_model(t, tp,
+                                                                dims[k])
+             for k, t in cache.items()}
+    y, conv, state = _step(params, u, whole["conv"], whole["state"], cfg,
+                           proj, out_tp)
+    for k, t in (("conv", conv), ("state", state)):
+        cache[k].copy_(t if dims.get(k) is None else own_slice(t, tp,
+                                                               dims[k]))
+    return ((y, None) if out_tp is not None else (None, y)), cache

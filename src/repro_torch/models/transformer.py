@@ -36,8 +36,8 @@ from . import attention as attn_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
-from .layers import apply_mlp, apply_norm, dtype_of, init_mlp, init_norm, mlp_parts
-from .parallel import finish, gather_from_data, gather_tree, over
+from .layers import apply_norm, dtype_of, init_mlp, init_norm, mlp_parts
+from .parallel import at, finish, gather_from_data, gather_tree, over
 
 
 # ---------------------------------------------------------------------- #
@@ -76,48 +76,36 @@ def _layer(tree, i: int):
 # ---------------------------------------------------------------------- #
 # Per-layer init / apply
 # ---------------------------------------------------------------------- #
-def _init_layer(generator, kind: str, cfg, device, lead=()) -> Dict:
+def _init_layer(generator, kind: str, cfg, device, lead=(), cut=None
+                ) -> Dict:
     dt = dtype_of(cfg.param_dtype)
     p: Dict[str, Any] = {"norm1": init_norm(cfg.d_model, cfg.norm, dt,
-                                            device, lead)}
+                                            device, lead, at(cut, "norm1"))}
+    temporal = at(cut, "temporal")
     if kind in ("attn", "lattn"):
-        p["temporal"] = attn_mod.init_attention(generator, cfg, device, lead)
+        p["temporal"] = attn_mod.init_attention(generator, cfg, device, lead,
+                                                temporal)
     elif kind == "rglru":
-        p["temporal"] = rglru_mod.init_rglru(generator, cfg, device, lead)
+        p["temporal"] = rglru_mod.init_rglru(generator, cfg, device, lead,
+                                             temporal)
     elif kind == "ssm":
-        p["temporal"] = ssm_mod.init_ssm(generator, cfg, device, lead)
+        p["temporal"] = ssm_mod.init_ssm(generator, cfg, device, lead,
+                                         temporal)
     else:
         raise ValueError(kind)
     if kind != "ssm":
-        p["norm2"] = init_norm(cfg.d_model, cfg.norm, dt, device, lead)
-        p["ffn"] = (moe_mod.init_moe(generator, cfg, device, lead)
+        p["norm2"] = init_norm(cfg.d_model, cfg.norm, dt, device, lead,
+                               at(cut, "norm2"))
+        p["ffn"] = (moe_mod.init_moe(generator, cfg, device, lead,
+                                     at(cut, "ffn"))
                     if cfg.is_moe else
                     init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dt,
-                             device, lead))
+                             device, lead, at(cut, "ffn")))
     return p
-
-
-def _apply_ffn(p, x, cfg):
-    """(out, aux): the MoE FFN and its load-balance loss, or the dense FFN
-    and a zero aux (the reference's branches without their GSPMD sharding
-    hints)."""
-    if cfg.is_moe:
-        return moe_mod.apply_moe(p, x, cfg)
-    return apply_mlp(p, x, cfg.act), torch.zeros((), dtype=torch.float32,
-                                                  device=x.device)
 
 
 def _window(kind: str, cfg):
     return cfg.window if kind == "lattn" else None
-
-
-def _ffn_residual(kind: str, p: Dict, x, cfg):
-    """The pre-norm FFN and its residual (none after an ssm block)."""
-    if kind == "ssm":
-        return x
-    h2 = apply_norm(p["norm2"], x, cfg.norm)
-    f, _ = _apply_ffn(p["ffn"], h2, cfg)
-    return x + f.to(x.dtype)
 
 
 def _temporal_train(kind: str, norm1: Dict, p: Dict, x, cfg, positions,
@@ -138,16 +126,19 @@ def _temporal_train(kind: str, norm1: Dict, p: Dict, x, cfg, positions,
     return ssm_mod.ssm_parts(p, h, cfg, tp)
 
 
-def _ffn_train(norm2: Dict, p: Dict, x, cfg, tp=None, dp=None, dims=None):
+def _ffn_train(norm2: Dict, p: Dict, x, cfg, tp=None, dp=None, dims=None,
+               row_cut: bool = True):
     """A layer's pre-norm FFN: (its sublayer output's parts, the MoE aux);
     ``dp`` and ``dims`` as in :func:`_temporal_train`. Over a data group
     the MoE routes the whole microbatch, as one process does: its tokens
     are gathered over the group (capacity and the load-balance loss span
-    every rank's rows) and each rank keeps its rows' outputs."""
+    every rank's rows) and each rank keeps its rows' outputs. ``row_cut``
+    False: ``x`` holds every row of the batch already (a batch the data
+    axis does not divide, served whole by every data index)."""
     norm2, p = gather_tree((norm2, p), dims, dp)
     h = apply_norm(norm2, x, cfg.norm)
     if cfg.is_moe:
-        if dp is None or dp.size == 1:
+        if dp is None or dp.size == 1 or not row_cut:
             return moe_mod.moe_parts(p, h, cfg, tp)
         rows = h.shape[0]
         parts, aux = moe_mod.moe_parts(p, gather_from_data(h, dp, 0), cfg,
@@ -192,53 +183,69 @@ def _layer_train(kind: str, p: Dict, x, cfg, positions,
     return x, aux
 
 
-def _layer_prefill(kind: str, p: Dict, x, cfg, positions):
-    """One layer over the prompt; also this layer's decode cache."""
-    h = apply_norm(p["norm1"], x, cfg.norm)
+def _layer_prefill(kind: str, p: Dict, x, cfg, positions, tp=None,
+                   dp=None, dims=None, cdims=None, row_cut: bool = True):
+    """One layer over the prompt; also this layer's decode cache. ``tp``,
+    ``dp`` and ``dims`` as in :func:`_layer_train` (each sublayer gathers
+    its data-cut leaves when it runs); ``cdims``: the model dims of this
+    layer's cache leaves, counted from the end (None whole), by which the
+    cache comes back cut; ``row_cut`` as in :func:`_ffn_train`."""
+    def sub(*keys):
+        return None if dims is None else tuple(dims[k] for k in keys)
+
+    norm1, pt = gather_tree((p["norm1"], p["temporal"]),
+                            sub("norm1", "temporal"), dp)
+    h = apply_norm(norm1, x, cfg.norm)
     if kind in ("attn", "lattn"):
-        t, cache = attn_mod.attention_prefill(p["temporal"], h, cfg,
-                                              positions,
-                                              window=_window(kind, cfg))
+        parts, cache = attn_mod.attention_prefill_parts(
+            pt, h, cfg, positions, _window(kind, cfg), tp,
+            None if cdims is None else cdims["k"])
     elif kind == "rglru":
-        t, cache = rglru_mod.rglru_prefill(p["temporal"], h, cfg)
+        parts, cache = rglru_mod.rglru_prefill_parts(
+            pt, h, cfg, tp, cut=cdims is not None and cdims["h"] is not None)
     else:
-        t, cache = _ssm_prefill(p["temporal"], h, cfg)
-    return _ffn_residual(kind, p, x + t.to(x.dtype), cfg), cache
+        parts, cache = ssm_mod.ssm_prefill_parts(pt, h, cfg, tp, cdims)
+    x = x + finish(parts, tp).to(x.dtype)
+    if kind != "ssm":
+        parts, _ = _ffn_train(p["norm2"], p["ffn"], x, cfg, tp, dp,
+                              sub("norm2", "ffn"), row_cut)
+        x = x + finish(parts, tp).to(x.dtype)
+    return x, cache
 
 
-def _layer_decode(kind: str, p: Dict, x, cache, cache_pos, cfg):
-    """One token through one layer; ``cache`` is updated in place."""
-    h = apply_norm(p["norm1"], x, cfg.norm)
+def _layer_decode(kind: str, p: Dict, x, cache, cache_pos, cfg, tp=None,
+                  dp=None, dims=None, cdims=None, row_cut: bool = True):
+    """One token through one layer; ``cache`` (this rank's cut) is updated
+    in place. The other arguments as in :func:`_layer_prefill`."""
+    def sub(*keys):
+        return None if dims is None else tuple(dims[k] for k in keys)
+
+    norm1, pt = gather_tree((p["norm1"], p["temporal"]),
+                            sub("norm1", "temporal"), dp)
+    h = apply_norm(norm1, x, cfg.norm)
     if kind in ("attn", "lattn"):
-        t, cache = attn_mod.attention_decode(p["temporal"], h, cache,
-                                             cache_pos, cfg,
-                                             window=_window(kind, cfg))
+        parts, cache = attn_mod.attention_decode_parts(
+            pt, h, cache, cache_pos, cfg, _window(kind, cfg), tp,
+            None if cdims is None else cdims["k"])
     elif kind == "rglru":
-        t, cache = rglru_mod.apply_rglru_decode(p["temporal"], h, cache, cfg)
+        parts, cache = rglru_mod.rglru_decode_parts(
+            pt, h, cache, cfg, tp,
+            cut=cdims is not None and cdims["h"] is not None)
     else:
-        t, cache = ssm_mod.apply_ssm_decode(p["temporal"], h, cache, cfg)
-    return _ffn_residual(kind, p, x + t.to(x.dtype), cfg), cache
+        parts, cache = ssm_mod.ssm_decode_parts(pt, h, cache, cfg, tp, cdims)
+    x = x + finish(parts, tp).to(x.dtype)
+    if kind != "ssm":
+        parts, _ = _ffn_train(p["norm2"], p["ffn"], x, cfg, tp, dp,
+                              sub("norm2", "ffn"), row_cut)
+        x = x + finish(parts, tp).to(x.dtype)
+    return x, cache
 
 
 def _ssm_prefill(p, h, cfg):
-    """SSD forward + final (conv, state) caches for streaming decode. The
-    in-projection and conv run once (the reference runs them again for the
-    caches; the values are identical). The state is the reference's
-    closed form, sum_t exp(sum_{u>t} dt_u A) dt_t B_t x_t^T, from a
-    reversed cumsum."""
-    z, xbc, x, b, c, dt, _ = ssm_mod._in_proj(p, h, cfg)
-    y = ssm_mod.ssm_forward(p, z, x, b, c, dt, cfg)
-    conv_state = xbc[:, -(cfg.ssm_conv - 1):, :]
-    a = -torch.exp(p["A_log"])
-    bsz, s, _ = x.shape
-    xh = x.reshape(bsz, s, -1, cfg.ssm_head_dim).to(torch.float32)
-    da = (dt * a).transpose(1, 2)  # (B,H,S): the cumsum's axis last
-    rev_cum = torch.flip(torch.cumsum(torch.flip(da, (-1,)), dim=-1),
-                         (-1,)) - da  # sum_{u>t}
-    w_t = torch.exp(rev_cum).transpose(1, 2)  # (B,S,H)
-    state = torch.einsum("bsn,bsh,bshp->bhpn", b.to(torch.float32),
-                         w_t * dt, xh)
-    return y, {"conv": conv_state, "state": state}
+    """SSD forward + final (conv, state) caches for streaming decode
+    (:func:`repro_torch.models.ssm.ssm_prefill_parts` on one shard)."""
+    parts, cache = ssm_mod.ssm_prefill_parts(p, h, cfg)
+    return parts[1], cache
 
 
 # ---------------------------------------------------------------------- #
@@ -252,18 +259,36 @@ def stack_layout(cfg) -> Tuple[int, List[str]]:
     return n_rep, [cfg.layer_pattern[i % plen] for i in range(n_extra)]
 
 
-def init_stack(generator, cfg, device=None) -> Dict:
+def init_stack(generator, cfg, device=None, cut=None) -> Dict:
+    """The stack's parameters; ``cut`` (an
+    :class:`repro_torch.models.parallel.InitCut` at ``stack``): this rank's
+    slices of them, drawn as the whole tree is."""
     n_rep, extra_kinds = stack_layout(cfg)
-    blocks = [_init_layer(generator, kind, cfg, device, (n_rep,))
-              if n_rep > 0 else None for kind in cfg.layer_pattern]
-    extras = [_init_layer(generator, kind, cfg, device)
-              for kind in extra_kinds]
+    blocks = [_init_layer(generator, kind, cfg, device, (n_rep,),
+                          at(cut, "blocks", pos))
+              if n_rep > 0 else None
+              for pos, kind in enumerate(cfg.layer_pattern)]
+    extras = [_init_layer(generator, kind, cfg, device, cut=at(cut, "extras",
+                                                               i))
+              for i, kind in enumerate(extra_kinds)]
     return {"blocks": blocks, "extras": extras}
 
 
-def init_cache(cfg, batch: int, max_len: int, device=None) -> Dict:
+def init_cache(cfg, batch: int, max_len: int, device=None, n_model: int = 1,
+               rank: int = 0, n_data: int = 1, data_rank: int = 0) -> Dict:
     """Stacked decode caches matching the stacked-layer layout (an
-    encoder's too: the reference builds them for every arch)."""
+    encoder's too: the reference builds them for every arch); over a
+    ``(n_data, n_model)`` mesh, zeros of this rank's cut of each leaf
+    (:func:`repro_torch.models.parallel.cache_dims`), nothing else
+    allocated."""
+    if n_model > 1 or n_data > 1:
+        from .parallel import cache_shapes, meta_cache
+
+        whole = meta_cache(cfg, batch, max_len)
+        shapes = iter(cache_shapes(cfg, batch, max_len, n_model, rank,
+                                   n_data, data_rank))
+        return tree_map(lambda t: torch.zeros(next(shapes), dtype=t.dtype,
+                                              device=device), whole)
     n_rep, extra_kinds = stack_layout(cfg)
 
     def one(kind, lead=()):
@@ -333,8 +358,7 @@ def stack_train(params: Dict, x: torch.Tensor, cfg, positions,
     n_inner = _inner_factor(n_rep) if remat and cfg.remat_sqrt else 1
     save_outs = remat and n_inner == 1 and cfg.remat_save_outs
     dims = dims if dp is not None else None
-    layer_dims = [None if dims is None else tree_map(lambda d: d - 1, b)
-                  for b in (dims["blocks"] if dims else pattern)]
+    layer_dims = _block_dims(dims, dp, pattern)
 
     def blocks(h, aux, first, last):
         for i in range(first, last):
@@ -360,36 +384,62 @@ def stack_train(params: Dict, x: torch.Tensor, cfg, positions,
     return x, aux
 
 
-def stack_prefill(params: Dict, x: torch.Tensor, cfg, positions) -> Tuple[torch.Tensor, Dict]:
+def _block_dims(dims, dp, pattern):
+    """Per pattern position: one layer's data dims (a stacked leaf's less
+    its layer axis), or None."""
+    dims = dims if dp is not None else None
+    return [None if dims is None else tree_map(lambda d: d - 1, b)
+            for b in (dims["blocks"] if dims else pattern)]
+
+
+def stack_prefill(params: Dict, x: torch.Tensor, cfg, positions, tp=None,
+                  dp=None, dims=None, cdims=None, row_cut: bool = True
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """The stack over the prompt: (h, the decode caches stacked as
+    :func:`init_cache` lays them out). ``tp``, ``dp``, ``dims`` as in
+    :func:`stack_train`; ``cdims``: the cache's model dims from the end (a
+    tree shaped like it, :func:`repro_torch.models.parallel.cache_model_dims`),
+    each layer's cache this rank's cut by them; ``row_cut`` as in
+    :func:`_ffn_train`."""
     pattern = cfg.layer_pattern
     n_rep, extra_kinds = stack_layout(cfg)
+    layer_dims = _block_dims(dims, dp, pattern)
     per_pos: List[List[Dict]] = [[] for _ in pattern]
     for i in range(n_rep):
         for pos, kind in enumerate(pattern):
             x, c = _layer_prefill(kind, _layer(params["blocks"][pos], i), x,
-                                  cfg, positions)
+                                  cfg, positions, tp, dp, layer_dims[pos],
+                                  cdims and cdims["blocks"][pos], row_cut)
             per_pos[pos].append(c)
     caches = [{k: torch.stack([c[k] for c in cs]) for k in cs[0]}
               if cs else None for cs in per_pos]
     extra_caches = []
-    for p_extra, kind in zip(params["extras"], extra_kinds):
-        x, c = _layer_prefill(kind, p_extra, x, cfg, positions)
+    for j, (p_extra, kind) in enumerate(zip(params["extras"], extra_kinds)):
+        x, c = _layer_prefill(kind, p_extra, x, cfg, positions, tp, dp,
+                              dims["extras"][j] if dims and dp else None,
+                              cdims and cdims["extras"][j], row_cut)
         extra_caches.append(c)
     return x, {"blocks": caches, "extras": extra_caches}
 
 
-def stack_decode(params: Dict, x: torch.Tensor, cache: Dict, cache_pos, cfg) -> Tuple[torch.Tensor, Dict]:
+def stack_decode(params: Dict, x: torch.Tensor, cache: Dict, cache_pos, cfg,
+                 tp=None, dp=None, dims=None, cdims=None, row_cut: bool = True
+                 ) -> Tuple[torch.Tensor, Dict]:
     """One token through every layer; each layer's cache is a view of the
     stacked cache and is updated in place, so the returned cache is
-    ``cache``."""
+    ``cache``. The other arguments as in :func:`stack_prefill`."""
     pattern = cfg.layer_pattern
     n_rep, extra_kinds = stack_layout(cfg)
+    layer_dims = _block_dims(dims, dp, pattern)
     for i in range(n_rep):
         for pos, kind in enumerate(pattern):
             x, _ = _layer_decode(kind, _layer(params["blocks"][pos], i), x,
                                  _layer(cache["blocks"][pos], i), cache_pos,
-                                 cfg)
-    for p_extra, c_extra, kind in zip(params["extras"], cache["extras"],
-                                      extra_kinds):
-        x, _ = _layer_decode(kind, p_extra, x, c_extra, cache_pos, cfg)
+                                 cfg, tp, dp, layer_dims[pos],
+                                 cdims and cdims["blocks"][pos], row_cut)
+    for j, (p_extra, c_extra, kind) in enumerate(zip(
+            params["extras"], cache["extras"], extra_kinds)):
+        x, _ = _layer_decode(kind, p_extra, x, c_extra, cache_pos, cfg, tp,
+                             dp, dims["extras"][j] if dims and dp else None,
+                             cdims and cdims["extras"][j], row_cut)
     return x, cache

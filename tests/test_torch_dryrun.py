@@ -6,9 +6,10 @@ package's (``repro.launch.dryrun``) and against the steps it traces.
   the skip reasons, ``G``, ``tile_samples``, ``t_stage``, ``b_max``,
   ``n_micro``, ``avg_trips``, ``n_params``, ``n_active_params``; the
   model flops follow; rank 0's parameter shapes in every train cell equal
-  the reference's ``NamedSharding.shard_shape`` (serving cells: whole
-  leaves, the port serving a replica a rank); ``micro_batch_size`` equals
-  the reference's integer for integer.
+  the reference's ``NamedSharding.shard_shape``, serving cells too, and a
+  serving cell's rank-0 decode cache leaves the reference's
+  ``cache_shardings`` shard shapes; ``micro_batch_size`` equals the
+  reference's integer for integer.
 * A 2 x 2 reduced usec step with ZeRO-1 and a reduced fsdp step run for
   real on 4 gloo ranks: each rank's data-group and model-group bytes (the
   layers' and the step's ``stats``) equal the dry-run's trace of the same
@@ -48,6 +49,8 @@ _REFERENCE = textwrap.dedent("""
     os.environ["REPRO_DRYRUN_DEVICES"] = "512"
     from repro.launch.dryrun import build_cell
     from repro.configs import LM_SHAPES, get_config, list_archs, micro_batch_size
+    from repro.configs.shapes import cache_specs
+    from repro.launch import sharding as shr
     import jax
     out = {"cells": {}, "micro": {}}
     for arch in list_archs():
@@ -57,14 +60,22 @@ _REFERENCE = textwrap.dedent("""
                 out["micro"][f"{arch}|{s.name}|{n}"] = micro_batch_size(cfg, s, n)
             for multi in (False, True):
                 fn, args, meta = build_cell(arch, s.name, multi)
-                meta.pop("_mesh", None)
+                mesh = meta.pop("_mesh", None)
                 rec = {"meta": meta}
-                if fn is not None and meta["kind"] == "train":
+                if fn is not None:
                     rec["params"] = [
                         [jax.tree_util.keystr(p),
                          list(l.sharding.shard_shape(l.shape))]
                         for p, l in jax.tree_util.tree_flatten_with_path(
                             args[0])[0]]
+                if fn is not None and meta["kind"] != "train":
+                    specs = cache_specs(cfg, s.global_batch, s.seq_len)
+                    shard = shr.cache_shardings(specs, cfg, mesh)
+                    rec["cache"] = [
+                        [jax.tree_util.keystr(p), list(sh.shard_shape(l.shape))]
+                        for (p, l), sh in zip(
+                            jax.tree_util.tree_flatten_with_path(specs)[0],
+                            jax.tree.leaves(shard))]
                 out["cells"][f"{arch}|{s.name}|{multi}"] = rec
     print("REF " + json.dumps(out))
 """)
@@ -202,12 +213,38 @@ def test_meta_and_rank0_slices_equal_the_reference(arch, shape, multi, runs):
     if cell is None:
         return
     got = [[k, list(s)] for k, s in cell.param_shapes()]
-    if meta["kind"] == "train":
-        assert got == want["params"]
-    else:  # the port serves whole weights
-        from repro_torch.models.parallel import full_shapes
+    assert got == want["params"]
 
-        assert got == [[k, list(s)] for k, s in full_shapes(cell.cfg)]
+
+@pytest.mark.parametrize("arch,shape,multi", [
+    c for c in CELLS if shape_by_name(c[1]).kind != "train"])
+def test_rank0_cache_cut_equals_the_reference(arch, shape, multi, runs):
+    """A serving cell's rank-0 decode cache (a prefill's: of its prompt)
+    against the reference's ``cache_shardings`` shard shapes."""
+    want = runs["ref"]["cells"][f"{arch}|{shape}|{multi}"]
+    cell, _ = dryrun.build_cell(arch, shape, multi)
+    if cell is None:
+        assert "cache" not in want
+        return
+    assert [[k, list(s)] for k, s in cell.cache_shapes()] == want["cache"]
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_serving_cell_traces_rank0_cut(shape):
+    """A serving cell traces rank 0 over the production mesh's fake group:
+    its arguments are exactly rank 0's bf16 parameter cut and cache cut
+    (a decode's; a prefill's cache is its output), the model group moves
+    bytes, and the cell fits the H100."""
+    import math
+
+    rec = dryrun.run_cell("glm4-9b", shape, "single", None)
+    assert rec["status"] == "ok" and rec["hbm_fit"], rec
+    assert rec["collective_groups"]["model"]["bytes"] > 0
+    cell, _ = dryrun.build_cell("glm4-9b", shape, False)
+    want = 2 * sum(math.prod(s) for _, s in cell.param_shapes())
+    if shape == "decode_32k":
+        want += 2 * sum(math.prod(s) for _, s in cell.cache_shapes())
+    assert rec["memory"]["argument_bytes"] == want
 
 
 def test_micro_batch_size_equals_the_reference(runs):

@@ -7,6 +7,7 @@ Run from the repository root on a CUDA machine:
     python3 train_dist_probe.py              # train_path, train_dist, (a)-(c)
     python3 train_dist_probe.py --tp-only    # only the model-shard runs
     python3 train_dist_probe.py --fsdp-only  # only the data-cut runs (d)-(g)
+    python3 train_dist_probe.py --serve-only # only serving over shards (s1)-(s2)
     ... --runs-log PATH                      # also append each run's record
     ... --only NAME[,NAME...]                # --fsdp-only: just these cells
 
@@ -70,6 +71,31 @@ fsdp cell is also dry-run on the host while the cards work
 (``repro_torch.launch.dryrun.trace_fsdp`` on a fake 2 x 2 group): every
 rank's step peak within DRYRUN_PEAK_TOL of the prediction and its data-
 and model-group bytes a step equal to it.
+
+With ``--serve-only`` and four cards it serves over model shards (D 1 x M
+4, NCCL), the weights and caches cut by the reference's rules:
+  (s1) SERVE_PAIRS: qwen1.5-110b at full width, 2 layers fp32 and 4 layers
+       bf16; llama4-scout at 1 layer fp32 and 2 layers bf16; each an
+       8192-token prompt and chip_smoke.SERVE_STEPS decode steps, first on
+       one card (the four at once, one card each), then over four cards
+       teacher-forced with the one-card run's greedy tokens, held by
+       chip_smoke's serve_tp rules (logits within SERVE_LOGIT_TOL of the
+       step's largest, greedy equal where one card's top-2 margin exceeds
+       twice that, layer 0's K/V cut within two bf16 ulps, one flash
+       launch per attention layer on the local heads) and, for scout, at
+       most SERVE_ROUTES_CHANGED of the prefill's routed choices changed;
+  (s2) qwen1.5-110b (80 layers) and llama4-scout (48 layers) at full width
+       and depth through ``repro_torch.launch.serve.main`` (``python3
+       train_dist_probe.py server -- ARGS`` under torch.distributed.run):
+       an 8192-token prompt and SERVE_GEN greedy tokens, every rank the
+       same tokens, one flash launch per attention layer on the local
+       heads, every rank's prefill and decode peaks and its init's setup
+       peak within SERVE_PEAK_TOL of ``launch.dryrun``'s trace of the same
+       cell (world 4, traced on the host while the cards work), and its
+       model group's bytes in the prefill and a decode step equal to it.
+Then the flash kernel at the two local-head shapes, beside SDPA and its
+bound. The cells run as ``python3 train_dist_probe.py serve NAME ARCH
+DEPTH DTYPE [TEACHER]``.
 
 One JSON line per phase (and, with four cards, per run, also appended to
 the ``--runs-log`` file when one is named), the card's name and power
@@ -169,6 +195,24 @@ WITNESS_TOL, ROUTER_TOL, ROUTES_CHANGED = 1e-5, 1e-4, 1e-2
 ZERO1_DROPS = (1, 2)
 # (g): the trainer at 2 layers, 2 steps.
 QWEN_TRAIN = ["--arch", QWEN] + CELL + ["--steps", "2"]
+# --serve-only: the served pairs (s1), (name, arch, depth, dtype), each run
+# on one card (first, one card each) and over D 1 x M 4 (then, one after
+# another): an 8192-token prompt and chip_smoke.SERVE_STEPS decode steps,
+# the sharded run teacher-forced with the one-card run's greedy tokens.
+SERVE_PAIRS = [
+    ("qwen_2_layers_fp32", QWEN, 2, "float32"),
+    ("qwen_4_layers_bf16", QWEN, 4, "bfloat16"),
+    ("scout_1_layer_fp32", SCOUT, 1, "float32"),
+    ("scout_2_layers_bf16", SCOUT, 2, "bfloat16"),
+]
+SERVE_MODEL_SHARDS = 4
+# (s2): each arch at full width and depth through launch.serve.main under
+# torch.distributed.run, --gen-len SERVE_GEN (32 greedy tokens: the
+# prefill's pick and 31 decode steps, in a cache of 8224 slots, cut on
+# slots over 4).
+SERVE_GEN = 32
+SERVE_ROUTES_CHANGED = 0.01
+SERVE_PEAK_TOL = 0.05
 # Each one-card run and each sharded run must end within this.
 RUN_TIMEOUT_S = 900
 
@@ -608,6 +652,9 @@ def finish(run):
         r"^rank \d+ of \d+: (\{.*\})$", out, re.M)]
     head = reports[0]
     rec = {"name": name, "wall_s": wall}
+    shapes = re.search(r"^flash_shapes: (.*)$", out, re.M)
+    if shapes:
+        rec["flash_shapes"] = json.loads(shapes.group(1))
     if "losses" not in head:
         return rec, reports
     steps = max(len(head["step_s"]), 1)
@@ -867,10 +914,243 @@ def phase_train_fsdp4(smi, runs_log=None) -> bool:
     return ok
 
 
+def serve_cell(argv) -> None:
+    """``serve NAME ARCH DEPTH DTYPE [TEACHER]``: one served pair's run on
+    this world's cards (one rank: one card; more: a D 1 x M mesh), fed the
+    run TEACHER's greedy picks when named; each rank saves its run (the
+    logits gathered whole) under build/serve4/ and reports."""
+    import chip_smoke as cs
+    import torch.distributed as dist
+    from repro_torch.configs import demo_batch
+    from repro_torch.launch.mesh import (
+        coordinates,
+        make_worker_mesh,
+        model_group,
+    )
+    from repro_torch.launch.train import join_process_group
+    from repro_torch.models import build_model
+    from repro_torch.models.parallel import ModelShards
+
+    name, arch, depth, dtype = argv[0], argv[1], int(argv[2]), argv[3]
+    cfg = cs.serve_cfg(arch, depth, dtype)
+    _, device = join_process_group(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.zeros(1, device=device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    shards = None
+    m = 0
+    if world > 1:
+        mesh = make_worker_mesh(1, world, device_type="cuda")
+        _, m = coordinates(mesh)
+        shards = ModelShards(model_group(mesh), world, m)
+    bundle = build_model(cfg, device=device, shards=shards)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=device).manual_seed(
+        cs.SERVE_SEED))
+    torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(device)
+    batch = demo_batch(cfg, "prefill", cs.MODEL_BATCH, cs.PROMPT_LEN,
+                       seed=cs.SERVE_SEED)
+    base = os.path.join(ROOT, "build", "serve4")
+    tokens = None
+    if len(argv) > 4:
+        tokens = torch.load(os.path.join(base, f"{argv[4]}_rank0.pt"))[
+            "picks"][:, :cs.SERVE_STEPS]
+    torch.cuda.reset_peak_memory_stats(device)
+    run = cs.serve_run(bundle, params, batch, cs.SERVE_STEPS, tokens,
+                       routes=cfg.is_moe)
+    run["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    torch.save(run, os.path.join(base, f"{name}_rank{rank}.pt"))
+    _reports({"model_index": m, "init_s": init_s,
+              "init_peak_gb": init_peak / 1e9, "peak_gb": run["peak_gb"],
+              **{k: run[k] for k in ("prefill_s", "decode_s", "model_bytes",
+                                     "flash_launches", "flash_shapes")}},
+             rank, world)
+
+
+def server(argv) -> None:
+    """``server -- ARGS``: ``repro_torch.launch.serve.main(ARGS)`` with the
+    flash kernel's local-head shapes recorded; rank 0 prints every rank's
+    as ``flash_shapes: [...]`` after the serve's report lines."""
+    import torch.distributed as dist
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import join_process_group
+    from repro_torch.models import attention
+
+    _, device = join_process_group(None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.zeros(1, device=device)
+    shapes, flash = set(), attention._flash
+
+    def spy(q, k, v, causal, window):
+        shapes.add((tuple(q.transpose(1, 2).shape), k.shape[2]))
+        return flash(q, k, v, causal, window)
+
+    attention._flash = spy
+    serve_main(argv[1:])
+    mine = sorted([list(q), hk] for q, hk in shapes)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if dist.get_rank() == 0:
+        print("flash_shapes: " + json.dumps(every), flush=True)
+
+
+def serve_prediction(arch) -> dict:
+    """The dry-run of (s2)'s cell at world 4 (D 1 x M 4, rank 0): the
+    prefill's and one decode step's peaks, model-group bytes and setup
+    peak."""
+    import chip_smoke as cs
+    from repro_torch.launch.dryrun import trace_serve
+    from repro_torch.launch.mesh import MeshSpec
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    spec = MeshSpec((1, SERVE_MODEL_SHARDS), ("data", "model"))
+    out = {}
+    t0 = time.perf_counter()
+    for kind, seq in (("prefill", cs.PROMPT_LEN),
+                      ("decode", cs.PROMPT_LEN + SERVE_GEN)):
+        res = trace_serve(cfg, kind, cs.MODEL_BATCH, seq, spec)
+        cost, names = res["cost"], res["group_names"]
+        out[kind] = {"peak_bytes": max(cost.peak_bytes,
+                                       res["argument_bytes"]),
+                     "argument_bytes": res["argument_bytes"],
+                     "setup_peak_bytes": res["setup_peak_bytes"],
+                     "model_bytes": cost.groups.get(names["model"], {}).get(
+                         "bytes", 0)}
+    out["trace_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_serve_tp4(smi, runs_log=None) -> bool:
+    """(s1) and (s2): the one-card runs of SERVE_PAIRS at once (one card
+    each), their sharded runs one after another on four cards, each held
+    by chip_smoke's serve_tp rules (and scout's routing); then each arch at
+    full depth through launch.serve.main, held to its dry-run; last, the
+    flash kernel at the two local-head shapes."""
+    import shutil
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    records, ok = [], True
+    base = os.path.join(ROOT, "build", "serve4")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+
+    def keep(rec):
+        print(json.dumps(rec), flush=True)
+        if runs_log:
+            with open(runs_log, "a") as fh:
+                fh.write(json.dumps(rec) + "\n")
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    predicted = {a: pool.submit(serve_prediction, a) for a in (QWEN, SCOUT)}
+    runs = [launch(name, 1, ["serve", name, arch, str(depth), dtype], [i])
+            for i, (name, arch, depth, dtype) in enumerate(SERVE_PAIRS)]
+    one = {}
+    for run in runs:
+        rec, reports = finish(run)
+        one[rec["name"]] = reports[0]
+        rec.update(reports[0])
+        keep(rec)
+    for name, arch, depth, dtype in SERVE_PAIRS:
+        sharded = f"{name}_m{SERVE_MODEL_SHARDS}"
+        rec, reports = finish(launch(
+            sharded, SERVE_MODEL_SHARDS,
+            ["serve", sharded, arch, str(depth), dtype, name],
+            list(range(SERVE_MODEL_SHARDS))))
+        cfg = cs.serve_cfg(arch, depth, dtype)
+        base_run = torch.load(os.path.join(base, f"{name}_rank0.pt"))
+        local = [[[1, cfg.n_heads // SERVE_MODEL_SHARDS, cs.PROMPT_LEN,
+                   cfg.head_dim], cfg.n_kv_heads // SERVE_MODEL_SHARDS]]
+        held = []
+        for r in range(SERVE_MODEL_SHARDS):
+            run = torch.load(os.path.join(base, f"{sharded}_rank{r}.pt"))
+            h = cs.serve_held(base_run, run, dtype, cs._kv_cut(
+                base_run["kv_first"], cfg, reports[r]["model_index"],
+                SERVE_MODEL_SHARDS))
+            if cfg.is_moe:
+                h["routes_changed"] = float(
+                    (run["routes"] != base_run["routes"]).float().mean())
+                h["ok"] &= h["routes_changed"] <= SERVE_ROUTES_CHANGED
+            h["flash_ok"] = (reports[r]["flash_launches"] ==
+                             cs.attention_layer_count(cfg)
+                             and reports[r]["flash_shapes"] == local)
+            h["ok"] &= h["flash_ok"]
+            held.append(h)
+        rec.update(arch=arch, depth=depth, dtype=dtype, held_to=name,
+                   one_card=one[name], ranks=reports, held=held,
+                   ok=all(h["ok"] for h in held))
+        keep(rec)
+        records.append(rec)
+        ok &= rec["ok"]
+    for arch in (QWEN, SCOUT):
+        cfg = get_config(arch)
+        name = f"{arch}_full_depth_m{SERVE_MODEL_SHARDS}"
+        args = ["server", "--", "--arch", arch, "--model-shards",
+                str(SERVE_MODEL_SHARDS), "--batch", str(cs.MODEL_BATCH),
+                "--prompt-len", str(cs.PROMPT_LEN), "--gen-len",
+                str(SERVE_GEN)]
+        rec, reports = finish(launch(name, SERVE_MODEL_SHARDS, args,
+                                     list(range(SERVE_MODEL_SHARDS))))
+        pred = predicted[arch].result()
+        shapes = rec.pop("flash_shapes")
+        n_attn = cs.attention_layer_count(cfg)
+        local = [[[1, cfg.n_heads // SERVE_MODEL_SHARDS, cs.PROMPT_LEN,
+                   cfg.head_dim], cfg.n_kv_heads // SERVE_MODEL_SHARDS]]
+        peak_err = {k: [abs(r[f"{k}_peak_bytes"] - pred[k]["peak_bytes"])
+                        / pred[k]["peak_bytes"] for r in reports]
+                    for k in ("prefill", "decode")}
+        init_pred = pred["prefill"]["setup_peak_bytes"]
+        init_err = [abs(r["init_peak_gb"] * 1e9 - init_pred) / init_pred
+                    for r in reports]
+        checks = {
+            "same_tokens": all(r["tokens"] == reports[0]["tokens"]
+                               for r in reports),
+            "flash": all(r["attention_kernel_launches"] == n_attn
+                         for r in reports) and all(s == local
+                                                   for s in shapes),
+            "peaks": max(max(v) for v in peak_err.values())
+            <= SERVE_PEAK_TOL,
+            "init_peak": max(init_err) <= SERVE_PEAK_TOL,
+            "model_bytes": all(
+                r["model_bytes"]["prefill"] == pred["prefill"]["model_bytes"]
+                and r["model_bytes"]["decode_step"]
+                == pred["decode"]["model_bytes"] for r in reports)}
+        rec.update(arch=arch, layers=cfg.n_layers, ranks=reports,
+                   flash_shapes=shapes, attention_layers=n_attn,
+                   prediction=pred, peak_rel_err=peak_err,
+                   init_peak_rel_err=init_err, checks=checks,
+                   ok=all(checks.values()))
+        keep(rec)
+        records.append(rec)
+        ok &= rec["ok"]
+    dev = torch.device("cuda", 0)
+    flash = {n: cs.flash_layer(case, dev, 0) for n, case in (
+        ("qwen_m4", cs.FLASH_LAYER_QWEN_M4),
+        ("scout_m4", cs.FLASH_LAYER_SCOUT_M4))}
+    cs.emit({"phase": "serve_tp4", "cards": torch.cuda.device_count(),
+             "one_card": one, "runs": records, "flash": flash,
+             "tolerances": {"logit": cs.SERVE_LOGIT_TOL,
+                            "kv_bf16_ulps": cs.SERVE_KV_ULPS,
+                            "routes_changed": SERVE_ROUTES_CHANGED,
+                            "peak": SERVE_PEAK_TOL},
+             "phase_s": time.perf_counter() - t0, "nvidia_smi": smi})
+    return ok
+
+
 def main() -> int:
-    if len(sys.argv) > 1 and sys.argv[1] in ("trainer", "fsdp", "zero1"):
-        cell = {"trainer": trainer, "fsdp": fsdp_cell,
-                "zero1": zero1_cell}[sys.argv[1]]
+    if len(sys.argv) > 1 and sys.argv[1] in ("trainer", "fsdp", "zero1",
+                                             "serve", "server"):
+        cell = {"trainer": trainer, "fsdp": fsdp_cell, "zero1": zero1_cell,
+                "serve": serve_cell, "server": server}[sys.argv[1]]
         try:
             cell(sys.argv[2:])
         finally:
@@ -900,6 +1180,11 @@ def main() -> int:
     log = (sys.argv[sys.argv.index("--runs-log") + 1]
            if "--runs-log" in sys.argv else None)
     four = torch.cuda.device_count() >= 4
+    if "--serve-only" in sys.argv:
+        if four:
+            return 0 if phase_serve_tp4(smi, log) else 1
+        cs.phase_serve_tp(dev, smi)
+        return 0
     if "--fsdp-only" in sys.argv:
         if four:
             return 0 if phase_train_fsdp4(smi, log) else 1
