@@ -54,7 +54,10 @@ one-process step; a one-rank NCCL group issues every collective);
 ``train_tp`` splits glm4-9b at 1 layer over 2 model shards and
 ``train_fsdp`` cuts its parameters and moments over 2 data ranks (the
 sharded fsdp step) and the usec step's moments by ZeRO-1, each held to its
-unsharded step; ``serve_tp`` serves glm4-9b (2 layers bf16, 1 layer fp32)
+unsharded step; ``train_sp`` runs that fsdp step over 2 model shards with
+the sequence-parallel residual stream and without it, held to each other
+and to the dry-run's bytes and peak; ``serve_tp`` serves glm4-9b (2 layers
+bf16, 1 layer fp32)
 and recurrentgemma-2b (3 layers) at full width over 2 model shards (the
 weights and the decode caches cut by the reference's rules; an 8192-token
 prompt and 16 decode steps), held to the one-process run. Then
@@ -1943,6 +1946,10 @@ FLASH_SERVE_FP32 = [(1, 32, 2, PROMPT_LEN, PROMPT_LEN, 128, True, None,
                      torch.float32),
                     (1, 16, 1, PROMPT_LEN, PROMPT_LEN, 128, True, None,
                      torch.float32)]
+# The train_sp phase's flash shape: a microbatch of 2 rows on glm4-9b's
+# local heads over 2 model shards (checked, not timed).
+FLASH_TRAIN_SP = (2, 16, 1, PROMPT_LEN, PROMPT_LEN, 128, True, None,
+                  torch.bfloat16)
 # (rtol, atol) of the flash kernel against an fp32 version of the same
 # function. Both sides read the inputs exactly, compute in fp32 and round
 # once to the output type, so they differ by the fp32 sum order and, in
@@ -2084,7 +2091,8 @@ def phase_flash(dev, paths):
     5:1, window 2048); each layer's times:
     kernel, plain version, and one library
     call (SDPA) as a yardstick; the fp32 glm4-9b layer, whole and over 2
-    model shards, against the plain version only; and both kernels' ptxas
+    model shards, and train_sp's two-row microbatch on glm4-9b's local
+    heads over 2, against the plain version only; and both kernels' ptxas
     registers and spills. The kernels line takes the glm4-9b layer's
     numbers."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -2108,11 +2116,13 @@ def phase_flash(dev, paths):
     windowed_m2 = flash_layer(FLASH_LAYER_WINDOW_M2, dev, 89)
     serve_fp32 = [{"shape": list(c[:8]), "max_abs_err": flash_check(c, dev, 88)}
                   for c in FLASH_SERVE_FP32]
+    train_sp = {"shape": list(FLASH_TRAIN_SP[:8]),
+                "max_abs_err": flash_check(FLASH_TRAIN_SP, dev, 87)}
     torch.cuda.empty_cache()
     routes = {"launches_tc": flash_attention_cuda.launches_tc - routes0[0],
               "launches_ffma": flash_attention_cuda.launches_ffma - routes0[1]}
     emit({"phase": "kernel", "name": "flash_attention",
-          "cases": len(cases) + 11 + len(FLASH_SERVE_FP32),
+          "cases": len(cases) + 12 + len(FLASH_SERVE_FP32),
           "max_abs_err_cases": errs,
           "rtol_atol": {str(dt).replace("torch.", ""): tol
                         for dt, tol in ATTN_TOL.items()},
@@ -2128,6 +2138,7 @@ def phase_flash(dev, paths):
           "layer_llama4_scout_over_4_model_shards": scout_m4,
           "layer_recurrentgemma_2b_lattn_over_2_model_shards": windowed_m2,
           "layer_glm4_9b_fp32_whole_and_over_2_model_shards": serve_fp32,
+          "layer_glm4_9b_train_sp_local_heads_two_rows": train_sp,
           "check_launches": routes,
           "ptxas": {stem: ptxas_report(paths[stem])
                     for stem in ("flash_attention_tc", "flash_attention")}})
@@ -3653,7 +3664,7 @@ def _held_to_one_process(whole, out, p1, out1, n_steps, dev):
 
 def params_held(whole, p1, n_steps, dev, m1=None, m2=None, floor=0.0,
                 tol=2 ** -7, share_tol=TP_PARAM_SHARE, m_tol=None,
-                live_sigmas=None, coverage=None):
+                live_sigmas=None, coverage=None, coverage_over=None):
     """The TP_* rule for a sharded run's gathered parameters ``whole``
     against the one-process run's ``p1`` after ``n_steps`` steps: at most
     ``share_tol`` of a leaf's elements more than ``tol`` (two bf16 ulps) of
@@ -3677,9 +3688,11 @@ def params_held(whole, p1, n_steps, dev, m1=None, m2=None, floor=0.0,
     leaf of ``m2 - m1``: live where ``|m1| >= live_sigmas x sigma``, and
     the share is of the leaf's live elements. ``coverage`` = (ratio,
     least): every leaf whose sigma is below ``ratio`` x its largest |m1|
-    must keep at least ``least`` of its elements live. Every leaf's live
-    share and sigma (as a share of its largest |m1|) are listed in
-    ``live``."""
+    must keep at least ``least`` of its elements live; ``coverage_over``
+    maps a leaf's key to (dim, indices): that leaf's share is then of the
+    live elements among those indices along that dim (a sparse-gradient
+    leaf's rows or columns the batch touches). Every leaf's live share and
+    sigma (as a share of its largest |m1|) are listed in ``live``."""
     from repro_torch.launch.sharding import keystr, map_with_path
     from repro_torch.models.transformer import tree_leaves
 
@@ -3710,8 +3723,14 @@ def params_held(whole, p1, n_steps, dev, m1=None, m2=None, floor=0.0,
                 rel = sigma / g_top if g_top > 0 else 0.0
                 entry = {"leaf": key, "live_share": float(
                     live.float().mean()), "sigma_over_top": rel}
+                covered = entry["live_share"]
+                if coverage_over and key in coverage_over:
+                    dim, idx = coverage_over[key]
+                    covered = float(live.index_select(
+                        dim, idx.to(live.device)).float().mean())
+                    entry["coverage_share"] = covered
                 if coverage is not None and rel < coverage[0] and \
-                        entry["live_share"] < coverage[1]:
+                        covered < coverage[1]:
                     ok = False
                     entry["coverage_failed"] = True
                 lives.append(entry)
@@ -4062,6 +4081,158 @@ def phase_train_fsdp(dev, smi):
     if not (held["ok"] and fsdp_ok and zero1_ok):
         raise AssertionError(f"train_fsdp failed: held {held['ok']}, fsdp "
                              f"{fsdp_ok}, zero1 {zero1_ok}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------- #
+# The sequence-parallel residual stream
+# ---------------------------------------------------------------------- #
+# train_sp: SP_SHARDS gloo ranks share cuda:0 (D 1 x M 2), both at once:
+# the sharded fsdp step on train_fsdp's cell (glm4-9b at full width and
+# FSDP_DEPTH layer in fsdp mode, FSDP_ROWS rows of 8192 positions in
+# FSDP_MICRO microbatches, 2 rows a microbatch on each rank, FSDP_WEIGHTS,
+# FSDP_STEPS steps, bf16) from the same draw twice: without the
+# reference's sequence-parallel residual stream and with act_shard_axis
+# "model" (each rank keeps its 4096 of the 8192 positions between
+# sublayers). Held: the two runs' losses, gradient norms and parameters
+# by TP_LOSS_TOL, TP_GNORM_TOL and params_held's two-ulp rule (bitwise
+# expected: at M 2 the reduce-scatter adds the same two fp32 partials as
+# the all-reduce, and in bf16 the norm reads its input through one cast,
+# so a residual's gradient sums the same two terms); both ranks the same
+# losses; flash launches 2 x layers x micro-steps a run on the local heads
+# (2, 16, 8192, 128) hk 1; the axis run's model-group bytes a step and its
+# peak against launch.dryrun's trace of the cell on a fake 1 x 2 group.
+# Reckoning (that trace on the host, meta tensors): a rank rests at 7.23 GB
+# (0.72 B parameters: 1.45 GB of bf16 weights, 5.78 GB of fp32 moments)
+# and peaks at 16.43 GB without the axis, 16.30 GB with it, in the
+# attention backward's fp32 recompute; the axis keeps 1/2 of the two
+# residual boundaries a layer autograd holds (2 x 134 MB less 2 x 67 MB).
+# Two ranks: ~33 GB of the card. Model-group bytes a step: 3.22 GB
+# without the axis, 5.37 GB with it (two gathers and a reduce-scatter a
+# sublayer and the backward's gathers replace one all-reduce each way).
+SP_SHARDS = 2
+SP_FLASH_SHAPE = [[FSDP_ROWS // FSDP_MICRO, 32 // SP_SHARDS, TRAIN_SEQ, 128],
+                  1]
+
+
+def _sp_cfg(axis):
+    import dataclasses
+
+    return dataclasses.replace(_fsdp_cfg(), act_shard_axis=axis)
+
+
+def _sp_rank_body(rank, dev):
+    """train_sp's two runs on this rank (without the axis, then with it)
+    and the second held to the first on this rank's cut."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch.mesh import make_worker_mesh, model_group
+    from repro_torch.models import attention, build_model
+    from repro_torch.models.parallel import ModelShards
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.runtime.trainstep import make_fsdp_train_step
+
+    group = model_group(make_worker_mesh(1, SP_SHARDS, device_type="cuda"))
+    res, params = {"rank": rank}, {}
+    shapes, flash = set(), attention._flash
+
+    def spy(q, k, v, causal, window):
+        shapes.add((tuple(q.transpose(1, 2).shape), k.shape[2]))
+        return flash(q, k, v, causal, window)
+
+    for axis in ("", "model"):
+        cfg = _sp_cfg(axis)
+        shards = ModelShards(group, SP_SHARDS, rank)
+        bundle = build_model(cfg, device=dev, shards=shards)
+        step = make_fsdp_train_step(bundle, FSDP_MICRO, donate=True)
+        p = bundle.init(torch.Generator(device=dev).manual_seed(0))
+        opt = _zero1_moments(cfg, dev, 1, 0, shards)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        shapes.clear()
+        attention._flash = spy
+        before = flash_attention_cuda.launches
+        p, out = _fsdp_steps(step, p, opt, dev, group)
+        attention._flash = flash
+        res[axis or "none"] = dict(
+            out, flash_launches=flash_attention_cuda.launches - before,
+            flash_shapes=sorted([list(q), hk] for q, hk in shapes),
+            micro_steps=FSDP_MICRO * FSDP_STEPS,
+            attention_layers=attention_layer_count(cfg),
+            peak_bytes=torch.cuda.max_memory_allocated(dev),
+            model_bytes_per_step=shards.stats["bytes"] / FSDP_STEPS)
+        params[axis] = tree_map(lambda t: t.cpu(), p)  # off the card
+        del p, opt, step, bundle
+    on, off = res["model"], res["none"]
+    res["bitwise"] = (on["loss"] == off["loss"]
+                      and on["grad_norm"] == off["grad_norm"]
+                      and all(torch.equal(a, b) for a, b in zip(
+                          tree_leaves(params["model"]),
+                          tree_leaves(params[""]))))
+    errs = {k: max(abs(a - b) / abs(b) for a, b in zip(on[k], off[k]))
+            for k in ("loss", "grad_norm")}
+    held = params_held(params["model"], params[""], FSDP_STEPS, dev)
+    res["held"] = dict(held, err=errs, ok=bool(
+        held["ok"] and errs["loss"] <= TP_LOSS_TOL
+        and errs["grad_norm"] <= TP_GNORM_TOL))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_sp(dev, smi):
+    """train_sp (see SP_SHARDS): the two runs on SP_SHARDS gloo ranks on
+    cuda:0, then the axis run's cell traced by ``launch.dryrun`` on a fake
+    1 x 2 group. Returns the ranks' flash launches (summed)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshSpec
+
+    ranks, wall, card_peak = _ranks_on_card(_sp_rank_body, SP_SHARDS,
+                                            "train_sp")
+    t0 = time.perf_counter()
+    res = dryrun.trace_fsdp(_sp_cfg("model"), MeshSpec(
+        (1, SP_SHARDS), ("data", "model")), FSDP_MICRO, FSDP_ROWS, TRAIN_SEQ,
+        FSDP_WEIGHTS)
+    cost = res["cost"]
+    pred = {"peak_bytes": max(cost.peak_bytes, res["argument_bytes"]),
+            "model_bytes_per_step":
+                cost.groups[res["group_names"]["model"]]["bytes"],
+            "trace_s": time.perf_counter() - t0}
+    checks = {"held": all(r["held"]["ok"] for r in ranks),
+              "ranks_agree": all(
+                  r[a]["loss"] == ranks[0][a]["loss"]
+                  for r in ranks for a in ("none", "model")),
+              "launches": all(
+                  r[a]["flash_launches"] == 2 * r[a]["attention_layers"]
+                  * r[a]["micro_steps"]
+                  and r[a]["flash_shapes"] == [SP_FLASH_SHAPE]
+                  for r in ranks for a in ("none", "model")),
+              "model_bytes": all(
+                  r["model"]["model_bytes_per_step"]
+                  == pred["model_bytes_per_step"] for r in ranks),
+              "peak": all(
+                  abs(pred["peak_bytes"] - r["model"]["peak_bytes"])
+                  <= DRYRUN_PEAK_TOL * r["model"]["peak_bytes"]
+                  for r in ranks)}
+    launches = sum(r[a]["flash_launches"] for r in ranks
+                   for a in ("none", "model"))
+    emit({"phase": "train_sp", "arch": MODEL_ARCH, "depth": FSDP_DEPTH,
+          "reduced": {"n_layers": [40, FSDP_DEPTH]}, "train_mode": "fsdp",
+          "seq_len": TRAIN_SEQ, "rows": FSDP_ROWS, "micro": FSDP_MICRO,
+          "steps": FSDP_STEPS, "mesh": [1, SP_SHARDS], "backend": "gloo",
+          "why_gloo": "NCCL refuses two ranks on one GPU",
+          "ranks_detail": ranks, "predicted": pred,
+          "bitwise": all(r["bitwise"] for r in ranks), "checks": checks,
+          "ranks_wall_s": wall, "card_peak_used_gb": card_peak,
+          "tolerances": {"loss": TP_LOSS_TOL, "grad_norm": TP_GNORM_TOL,
+                         "param_share": TP_PARAM_SHARE,
+                         "peak": DRYRUN_PEAK_TOL},
+          "flash_launches": launches, "nvidia_smi": smi})
+    if not all(checks.values()):
+        raise AssertionError(f"train_sp failed: {checks}")
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -4750,6 +4921,9 @@ def main() -> int:
     # ---- 5e. main path: parameters and moments cut over data ----
     reset_launches(counters)
     totals["flash_attention"] += phase_train_fsdp(dev, smi)
+    # ---- 5e'. main path: the sequence-parallel residual stream ----
+    reset_launches(counters)
+    totals["flash_attention"] += phase_train_sp(dev, smi)
     # ---- 5f. main path: serving over model shards ----
     reset_launches(counters)
     totals["flash_attention"] += phase_serve_tp(dev, smi)

@@ -63,8 +63,11 @@ trip count is known). Identical calls of the attention backward's
 recompute are traced once and replayed
 (:class:`repro_torch.launch.op_cost.replay_backward`).
 
-The reference's sequence-parallel residual stream (``act_shard_axis``) is
-not in the port: every rank of a model group holds the whole residual.
+A train cell sets the sequence-parallel residual stream by the reference's
+rule: ``act_shard_axis`` ``"model"`` by default in fsdp mode (each rank of
+the model group keeps its 1/M of the residual's sequence), off in the usec
+and dp modes unless the config names it (``"none"``: off), with
+``act_batch_axes`` the fsdp cells' data axes.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch stablelm-1.6b --shape train_4k --mesh single
@@ -431,6 +434,20 @@ class Cell:
                                    self.args["seq"], DEVICE, self.spec))
 
 
+def train_axes(cfg, multi_pod: bool = False):
+    """``cfg`` with the sequence-parallel residual stream set as the
+    reference's dry-run sets it for a train cell: ``act_shard_axis``
+    ``"model"`` by default in fsdp mode (the activation residency of the
+    >= 100 B archs), off in usec and dp mode, a config's own choice kept
+    (``"none"``: off); ``act_batch_axes`` the data axes in fsdp mode
+    (``("pod", "data")`` on two pods), else none."""
+    fsdp = cfg.train_mode == "fsdp"
+    axis = cfg.act_shard_axis or ("model" if fsdp else "")
+    batch = (("pod", "data") if multi_pod else ("data",)) if fsdp else ()
+    return dataclasses.replace(cfg, act_shard_axis="" if axis == "none"
+                               else axis, act_batch_axes=batch)
+
+
 def build_cell(arch: str, shape_name: str, multi_pod: bool):
     """(cell, meta): the :class:`Cell` of rank 0's step and the reference's
     ``build_cell`` meta, key for key. A cell that does not apply gives
@@ -450,6 +467,8 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool):
     ok, why = cell_applicable(cfg, shape)
     if not ok:
         return None, {"skip_reason": why}
+    if shape.kind == "train":
+        cfg = train_axes(cfg, multi_pod)
     if shape.kind != "train" and cfg.train_mode == "dp":
         # Pure DP is a training choice; serving takes the usec layout.
         cfg = dataclasses.replace(cfg, train_mode="usec")
@@ -495,7 +514,7 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool):
                                             seq=shape.seq_len)), meta
 
 
-def _layout(meta, res) -> Dict[str, Any]:
+def _layout(meta, res, cfg) -> Dict[str, Any]:
     mode, kind = meta["train_mode"], meta["kind"]
     if kind != "train":
         return {"params": {"usec": "cut over the model group",
@@ -510,6 +529,8 @@ def _layout(meta, res) -> Dict[str, Any]:
                        "dp": "whole",
                        "fsdp": "cut over the data and model groups"}[mode],
             "moments": "cut over the data group (ZeRO-1)",
+            "residual": ("cut on its sequence over the model group"
+                         if cfg.act_shard_axis else "whole"),
             "groups": res["group_names"]}
 
 
@@ -554,7 +575,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
             setup_peak_bytes=int(res["setup_peak_bytes"]),
             hbm_fit=bool(peak < H100_HBM_BYTES),
             hbm=f"{H100_NAME}: {H100_HBM_BYTES} bytes",
-            layout=_layout(meta, res),
+            layout=_layout(meta, res, cell.cfg),
         )
     except Exception as e:  # record the failure; the dry-run must be fixable
         rec["status"] = "error"

@@ -37,6 +37,12 @@ own rows of a microbatch and counts the MoE load-balance term 1/D, so the
 ranks' losses sum to the microbatch's. In serving the data group is the
 batch's: each data index serves its rows of the batch every rank passes
 (all of them when D does not divide it).
+
+The sequence-parallel residual stream (``cfg.act_shard_axis = "model"``
+over a model group, the reference's ``_seq_shard``): ``loss_fn`` cuts the
+embedding's output on its sequence and the stack keeps each rank's slice
+between sublayers (:class:`repro_torch.models.parallel.SeqCut`); serving
+never reads it.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from .parallel import (
     over,
     own_rows,
     reduce_from_model,
+    seq_cut,
     shard_params,
 )
 from .transformer import (
@@ -196,11 +203,21 @@ def build_model(cfg, device=None, shards: Optional[ModelShards] = None,
         """(total, metrics): the summed token NLL plus ``0.01 · aux`` (the
         MoE load-balance loss; 0 without experts) where any token counts;
         metrics ``n_tokens`` and ``aux_loss`` (with ``data``, the aux
-        term counts 1/D here: this rank's share of the microbatch's)."""
+        term counts 1/D here: this rank's share of the microbatch's).
+        With ``cfg.act_shard_axis`` over a model group the embedding's
+        output (a frontend's concatenation included) is cut on its
+        sequence and the stack's output gathered back before the final
+        norm (:func:`repro_torch.models.parallel.seq_cut`)."""
         x, loss_mask = embed_batch(params, batch)
         positions = torch.arange(x.shape[1], device=device)
+        seq = seq_cut(cfg, shards, x.shape[1])
+        if seq is not None:  # the residual stream cut on its sequence
+            x = seq.cut(x)
         h, aux = stack_train(params["stack"], x, cfg, positions, shards,
-                             data, None if dims is None else dims["stack"])
+                             data, None if dims is None else dims["stack"],
+                             seq)
+        if seq is not None:
+            h = seq.gather(h)
         h = apply_norm(leaf(params, "final_norm"), h, cfg.norm)
         unembed = unembed_of(params)
         vtp = over(shards, unembed.shape[-1], cfg.vocab_size)

@@ -14,6 +14,15 @@ at the edges of their sharded regions (Megatron-LM's scheme):
   gather_from_model  all-gather along a dim forward, own slice backward
   slice_to_model     own slice forward, all-gather along the dim backward
 
+and, for the training residual stream cut on its sequence (:class:`SeqCut`,
+the reference's ``_seq_shard``), a fifth:
+
+  reduce_scatter_to_model  reduce-scatter (sum) forward, all-gather backward
+
+A dim cut over the group need not divide: each rank's slice is then
+``⌈n/M⌉`` entries, the last zero-padded (as GSPMD pads an uneven cut), and
+a gather given the dim's whole ``size`` trims back to it.
+
 The loss is computed whole on every rank of a model group, so the gradient
 of every replicated tensor is the whole gradient on each rank; a sharded
 region's input passes through ``copy_to_model`` (each rank's branch adds
@@ -104,7 +113,10 @@ def _all_reduce(x: torch.Tensor, tp: ModelShards, op=None) -> torch.Tensor:
     return buf.to(x.dtype)
 
 
-def _all_gather(x: torch.Tensor, tp: ModelShards, dim: int) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, tp: ModelShards, dim: int,
+                size: Optional[int] = None) -> torch.Tensor:
+    """The ranks' slices joined along ``dim``, the first ``size`` entries
+    of it (all without ``size``)."""
     import torch.distributed as dist
 
     x = x.contiguous()
@@ -112,7 +124,27 @@ def _all_gather(x: torch.Tensor, tp: ModelShards, dim: int) -> torch.Tensor:
     dist.all_gather(parts, x, group=tp.group)
     out = torch.cat(parts, dim=dim)
     tp._count(out)
-    return out
+    if size is None or size == out.shape[dim]:
+        return out
+    return out.narrow(dim, 0, size)
+
+
+def _padded(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` with zero entries appended along ``dim`` up to ``n`` (``x``
+    itself when it has them)."""
+    extra = n - x.shape[dim]
+    if extra == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = extra
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def _cut(x: torch.Tensor, tp: _Shards, dim: int) -> torch.Tensor:
+    """This rank's ``⌈n/M⌉`` entries of the ``n`` along ``dim``, the last
+    slice zero-padded (:func:`own_slice` of the padded tensor)."""
+    rows = -(-x.shape[dim] // tp.size)
+    return own_slice(_padded(x, dim, rows * tp.size), tp, dim)
 
 
 def _single(name: str):
@@ -140,13 +172,18 @@ def reduce_scatter_dim(x: torch.Tensor, dp: _Shards, dim: int,
                        dtype=None) -> torch.Tensor:
     """This rank's slice along ``dim`` of ``x`` summed over the group: the
     sum in fp32 (one reduce-scatter, counted in ``dp.stats``), rounded once
-    to ``dtype`` (default ``x``'s)."""
+    to ``dtype`` (default ``x``'s). A dim the group does not divide is
+    zero-padded to ``⌈n/M⌉`` entries a rank inside the collective."""
     moved = x.movedim(dim, 0)
+    rows = -(-moved.shape[0] // dp.size)
     buf = moved
-    if moved.dtype != torch.float32 or not moved.is_contiguous():
-        buf = torch.empty(moved.shape, dtype=torch.float32, device=x.device)
-        buf.copy_(moved)
-    out = torch.empty((moved.shape[0] // dp.size,) + moved.shape[1:],
+    if (moved.dtype != torch.float32 or not moved.is_contiguous()
+            or rows * dp.size != moved.shape[0]):
+        buf = torch.empty((rows * dp.size,) + moved.shape[1:],
+                          dtype=torch.float32, device=x.device)
+        buf[:moved.shape[0]].copy_(moved)
+        buf[moved.shape[0]:].zero_()
+    out = torch.empty((rows,) + moved.shape[1:],
                       dtype=torch.float32, device=x.device)
     _single("reduce_scatter")(out, buf, group=dp.group)
     dp._count(buf)
@@ -184,24 +221,35 @@ class _ReduceFromModel(torch.autograd.Function):
 
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, tp, dim):
+    def forward(ctx, x, tp, dim, size):
         ctx.tp, ctx.dim = tp, dim
-        return _all_gather(x, tp, dim)
+        return _all_gather(x, tp, dim, size)
 
     @staticmethod
     def backward(ctx, g):
-        return own_slice(g, ctx.tp, ctx.dim), None, None
+        return _cut(g, ctx.tp, ctx.dim), None, None, None
 
 
 class _SliceToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp, dim):
-        ctx.tp, ctx.dim = tp, dim
-        return own_slice(x, tp, dim)
+        ctx.tp, ctx.dim, ctx.size = tp, dim, x.shape[dim]
+        return _cut(x, tp, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.tp, ctx.dim), None, None
+        return _all_gather(g, ctx.tp, ctx.dim, ctx.size), None, None
+
+
+class _ReduceScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim, ctx.size = tp, dim, x.shape[dim]
+        return reduce_scatter_dim(x, tp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.tp, ctx.dim, ctx.size), None, None
 
 
 class _GatherFromData(torch.autograd.Function):
@@ -251,17 +299,32 @@ def reduce_from_model(x: torch.Tensor, tp: Optional[ModelShards]) -> torch.Tenso
 
 
 def gather_from_model(x: torch.Tensor, tp: Optional[ModelShards],
-                      dim: int = -1) -> torch.Tensor:
-    """The ranks' slices joined along ``dim`` (rank order); the gradient is
-    this rank's slice of the whole one."""
-    return x if tp is None else _GatherFromModel.apply(x, tp, dim % x.ndim)
+                      dim: int = -1, size: Optional[int] = None
+                      ) -> torch.Tensor:
+    """The ranks' slices joined along ``dim`` (rank order), trimmed to the
+    whole dim's ``size`` where the cut was padded; the gradient is this
+    rank's slice of the whole one."""
+    if tp is None:
+        return x
+    return _GatherFromModel.apply(x, tp, dim % x.ndim, size)
 
 
 def slice_to_model(x: torch.Tensor, tp: Optional[ModelShards],
                    dim: int = -1) -> torch.Tensor:
-    """This rank's slice of a replicated tensor along ``dim``; the gradient
-    is the ranks' slices joined."""
+    """This rank's slice of a replicated tensor along ``dim`` (``⌈n/M⌉``
+    entries, the last slice zero-padded); the gradient is the ranks'
+    slices joined."""
     return x if tp is None else _SliceToModel.apply(x, tp, dim % x.ndim)
+
+
+def reduce_scatter_to_model(x: torch.Tensor, tp: Optional[ModelShards],
+                            dim: int) -> torch.Tensor:
+    """Leave a sharded region cut along ``dim``: this rank's slice (as
+    :func:`slice_to_model` cuts it) of the ranks' partial results summed,
+    in fp32 and rounded once to ``x``'s dtype, as :func:`reduce_from_model`
+    rounds; the gradient is the ranks' slices joined."""
+    return x if tp is None else _ReduceScatterToModel.apply(x, tp,
+                                                            dim % x.ndim)
 
 
 def max_over_model(x: torch.Tensor, tp: Optional[ModelShards]) -> torch.Tensor:
@@ -274,14 +337,60 @@ def max_over_model(x: torch.Tensor, tp: Optional[ModelShards]) -> torch.Tensor:
 
 
 def finish(parts: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]],
-           tp: Optional[ModelShards]) -> torch.Tensor:
+           tp: Optional[ModelShards], seq: bool = False) -> torch.Tensor:
     """A sublayer's output from its (partial, whole) parts: the ranks'
-    partial sums reduced, plus what every rank computed whole."""
+    partial sums reduced, plus what every rank computed whole. ``seq``:
+    the output is this rank's slice of the sequence (dim 1; the residual
+    stream of :class:`SeqCut`): the partial sums reduce-scattered, the
+    whole part sliced."""
     partial, whole = parts
+    if seq and whole is not None:
+        whole = slice_to_model(whole, tp, 1)
     if partial is None:
         return whole
-    out = reduce_from_model(partial, tp)
+    out = (reduce_scatter_to_model(partial, tp, 1) if seq
+           else reduce_from_model(partial, tp))
     return out if whole is None else out + whole
+
+
+class SeqCut(NamedTuple):
+    """The training residual stream cut on its sequence over the model
+    group ``tp`` (the reference's ``_seq_shard``, Megatron-SP's sequence
+    parallelism): between sublayers each rank holds its ``⌈n/M⌉`` of the
+    ``n`` positions (dim 1; the last slice zero-padded); each sublayer
+    gathers its input whole and leaves through :func:`finish` with
+    ``seq``. The gather's gradient is this rank's slice of the whole one:
+    every sharded region enters through :func:`copy_to_model`, whose
+    backward sums the ranks' parts, and the replicated pieces (norms, the
+    router, the whole parts) give every rank the same whole gradient, so
+    each rank keeps its slice of it (a reduce-scatter there would count it
+    M times)."""
+
+    tp: ModelShards
+    n: int
+
+    def cut(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a whole (B, n, ...) tensor."""
+        return slice_to_model(x, self.tp, 1)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole (B, n, ...) tensor from each rank's slice."""
+        return gather_from_model(x, self.tp, 1, self.n)
+
+
+def seq_cut(cfg, tp: Optional[ModelShards], n: int) -> Optional[SeqCut]:
+    """The :class:`SeqCut` of a training sequence of ``n`` positions when
+    ``cfg.act_shard_axis`` names the model axis and ``tp`` has more than
+    one rank, else None: without a model group the reference's sharding
+    constraint is the identity. (``cfg.act_batch_axes``, the batch dim's
+    axes, needs nothing here: a data rank runs its own rows.)"""
+    axis = cfg.act_shard_axis
+    if axis not in ("", MODEL_AXIS):
+        raise ValueError(f"act_shard_axis {axis!r}: only {MODEL_AXIS!r} "
+                         "(or '' for none) is a model-group axis")
+    if not axis or tp is None or tp.size == 1:
+        return None
+    return SeqCut(tp, n)
 
 
 # ---------------------------------------------------------------------- #

@@ -20,7 +20,10 @@ loop over that axis; the remainder layers (depth % pattern) have their own
 params and caches. Training under ``cfg.remat`` recomputes activations
 in the backward (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint``) by one of the reference's three policies, which trade
-memory against time and change no value (:func:`stack_train`). Decode hands
+memory against time and change no value (:func:`stack_train`). Over a
+model group with ``cfg.act_shard_axis`` set, the training residual stream
+between sublayers is each rank's slice of the sequence
+(:class:`repro_torch.models.parallel.SeqCut`). Decode hands
 each layer views of the stacked cache and every layer kind updates them in
 place.
 """
@@ -109,13 +112,17 @@ def _window(kind: str, cfg):
 
 
 def _temporal_train(kind: str, norm1: Dict, p: Dict, x, cfg, positions,
-                    tp=None, dp=None, dims=None):
+                    tp=None, dp=None, dims=None, seq=None):
     """A layer's pre-norm temporal mixer: its sublayer output's (partial,
     whole) parts (:func:`repro_torch.models.parallel.finish`). ``dp`` and
     ``dims``: the data group and the data dims of ``(norm1, p)``; the cut
     leaves are gathered here, inside any checkpoint around the call, so a
-    recompute gathers them again."""
+    recompute gathers them again. ``seq``: ``x`` is this rank's slice of
+    the sequence (a :class:`repro_torch.models.parallel.SeqCut`), gathered
+    whole here in the same way."""
     norm1, p = gather_tree((norm1, p), dims, dp)
+    if seq is not None:
+        x = seq.gather(x)
     h = apply_norm(norm1, x, cfg.norm)
     if kind in ("attn", "lattn"):
         return attn_mod.attention_parts(p, h, cfg, positions,
@@ -127,15 +134,20 @@ def _temporal_train(kind: str, norm1: Dict, p: Dict, x, cfg, positions,
 
 
 def _ffn_train(norm2: Dict, p: Dict, x, cfg, tp=None, dp=None, dims=None,
-               row_cut: bool = True):
+               row_cut: bool = True, seq=None):
     """A layer's pre-norm FFN: (its sublayer output's parts, the MoE aux);
-    ``dp`` and ``dims`` as in :func:`_temporal_train`. Over a data group
-    the MoE routes the whole microbatch, as one process does: its tokens
-    are gathered over the group (capacity and the load-balance loss span
-    every rank's rows) and each rank keeps its rows' outputs. ``row_cut``
-    False: ``x`` holds every row of the batch already (a batch the data
-    axis does not divide, served whole by every data index)."""
+    ``dp``, ``dims`` and ``seq`` as in :func:`_temporal_train`. Over a
+    data group the MoE routes the whole microbatch, as one process does:
+    its tokens are gathered over the group (capacity and the load-balance
+    loss span every rank's rows) and each rank keeps its rows' outputs; a
+    sequence cut is gathered first, so the MoE routes the whole sequence
+    (each rank's experts' (E/M, C, D) buffers hold their tokens of it, the
+    reference's expert-axis pins). ``row_cut`` False: ``x`` holds every
+    row of the batch already (a batch the data axis does not divide,
+    served whole by every data index)."""
     norm2, p = gather_tree((norm2, p), dims, dp)
+    if seq is not None:
+        x = seq.gather(x)
     h = apply_norm(norm2, x, cfg.norm)
     if cfg.is_moe:
         if dp is None or dp.size == 1 or not row_cut:
@@ -151,19 +163,23 @@ def _ffn_train(norm2: Dict, p: Dict, x, cfg, tp=None, dp=None, dims=None,
 
 
 def _layer_train(kind: str, p: Dict, x, cfg, positions,
-                 save_outs: bool = False, tp=None, dp=None, dims=None):
+                 save_outs: bool = False, tp=None, dp=None, dims=None,
+                 seq=None):
     """One layer over a full sequence with its MoE aux (0 for a dense or
     ssm layer); attention is causal in a decoder, bidirectional in an
-    encoder. The reference's ``_seq_shard`` is a sharding constraint, a
-    no-op on one card. ``save_outs``: checkpoint each sublayer on its own,
-    so autograd keeps the residual stream at the sublayer boundaries (the
+    encoder. ``save_outs``: checkpoint each sublayer on its own, so
+    autograd keeps the residual stream at the sublayer boundaries (the
     reference's saved ``temporal_out`` and ``ffn_out``) and recomputes
     only the sublayers' insides. ``tp``: the model group; each sublayer's
     partial sums are reduced outside its checkpoint, so the recompute
     never runs that reduction again (the reference's reason for the
     policy; a gather inside a sublayer does run again). ``dp`` and
     ``dims``: the data group and the data dims of ``p``'s leaves (each
-    sublayer gathers its own)."""
+    sublayer gathers its own). ``seq``: the reference's ``_seq_shard``
+    (a :class:`repro_torch.models.parallel.SeqCut`): ``x`` and the result
+    are this rank's slices of the sequence; each sublayer gathers its
+    input whole inside its checkpoint and reduce-scatters its partial
+    sums outside it; ``positions`` stays the whole sequence's."""
     def run(fn, *args):
         if save_outs:
             return checkpoint(fn, *args, use_reentrant=False)
@@ -172,14 +188,15 @@ def _layer_train(kind: str, p: Dict, x, cfg, positions,
     def sub(*keys):
         return None if dims is None else tuple(dims[k] for k in keys)
 
+    cut = seq is not None
     t = finish(run(_temporal_train, kind, p["norm1"], p["temporal"], x, cfg,
-                   positions, tp, dp, sub("norm1", "temporal")), tp)
+                   positions, tp, dp, sub("norm1", "temporal"), seq), tp, cut)
     x = x + t.to(x.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind != "ssm":
         parts, aux = run(_ffn_train, p["norm2"], p["ffn"], x, cfg, tp, dp,
-                         sub("norm2", "ffn"))
-        x = x + finish(parts, tp).to(x.dtype)
+                         sub("norm2", "ffn"), True, seq)
+        x = x + finish(parts, tp, cut).to(x.dtype)
     return x, aux
 
 
@@ -322,7 +339,7 @@ def _inner_factor(n: int) -> int:
 
 
 def stack_train(params: Dict, x: torch.Tensor, cfg, positions,
-                tp=None, dp=None, dims=None
+                tp=None, dp=None, dims=None, seq=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stack over a full sequence: (h, aux), the MoE aux summed over
     layers in the reference's order. With ``cfg.remat`` and grad enabled,
@@ -351,7 +368,14 @@ def stack_train(params: Dict, x: torch.Tensor, cfg, positions,
     leaves (a tree shaped like them; a stacked leaf's dim counts its layer
     axis, which is never cut). Each sublayer gathers its cut leaves when it
     runs, inside the checkpoints, so no whole layer outlives its use; every
-    rank of the group runs the same layers, so the gathers meet."""
+    rank of the group runs the same layers, so the gathers meet.
+
+    ``seq`` (:func:`repro_torch.models.parallel.seq_cut`): the reference's
+    sequence-parallel residual stream, ``x`` and ``h`` this rank's slices
+    of the sequence over the model group, ``(B, ⌈S/M⌉, D)``, so autograd
+    keeps 1/M of each residual boundary; ``positions`` is the whole
+    sequence's (attention and the recurrent scans run on the gathered
+    whole)."""
     pattern = cfg.layer_pattern
     n_rep, extra_kinds = stack_layout(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -365,7 +389,7 @@ def stack_train(params: Dict, x: torch.Tensor, cfg, positions,
             for pos, kind in enumerate(pattern):
                 h, a = _layer_train(kind, _layer(params["blocks"][pos], i), h,
                                     cfg, positions, save_outs, tp, dp,
-                                    layer_dims[pos])
+                                    layer_dims[pos], seq)
                 aux = aux + a
         return h, aux
 
@@ -379,7 +403,7 @@ def stack_train(params: Dict, x: torch.Tensor, cfg, positions,
     extra_dims = dims["extras"] if dims else [None] * len(extra_kinds)
     for p_extra, kind, d in zip(params["extras"], extra_kinds, extra_dims):
         x, a = _layer_train(kind, p_extra, x, cfg, positions, tp=tp, dp=dp,
-                            dims=d)
+                            dims=d, seq=seq)
         aux = aux + a
     return x, aux
 

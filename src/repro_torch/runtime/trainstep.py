@@ -354,6 +354,11 @@ def make_fsdp_train_step(bundle, n_micro: int, donate: bool = False):
     ``donate``: the step may write the new parameters and moments into the
     ones it is given (the reference's ``donate_argnums=(0, 1)``), so a step
     holds one copy of the optimizer state, not two.
+
+    The bundle's config carries the sequence-parallel residual stream
+    (``act_shard_axis``); its ``loss_fn`` cuts and gathers the residual
+    over the bundle's model group, and the step needs nothing for it (the
+    usec step neither).
     """
     cfg, device, loss_fn = bundle.cfg, bundle.device, bundle.loss_fn
     data = bundle.data

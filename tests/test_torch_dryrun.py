@@ -8,8 +8,11 @@ package's (``repro.launch.dryrun``) and against the steps it traces.
   model flops follow; rank 0's parameter shapes in every train cell equal
   the reference's ``NamedSharding.shard_shape``, serving cells too, and a
   serving cell's rank-0 decode cache leaves the reference's
-  ``cache_shardings`` shard shapes; ``micro_batch_size`` equals the
-  reference's integer for integer.
+  ``cache_shardings`` shard shapes; every cell's ``act_shard_axis`` and
+  ``act_batch_axes`` the config the reference's ``build_cell`` builds its
+  model with (the sequence-parallel residual stream on in the fsdp train
+  cells); ``micro_batch_size`` equals the reference's integer for
+  integer.
 * A 2 x 2 reduced usec step with ZeRO-1 and a reduced fsdp step run for
   real on 4 gloo ranks: each rank's data-group and model-group bytes (the
   layers' and the step's ``stats``) equal the dry-run's trace of the same
@@ -52,16 +55,24 @@ _REFERENCE = textwrap.dedent("""
     from repro.configs.shapes import cache_specs
     from repro.launch import sharding as shr
     import jax
+    import repro.models
     out = {"cells": {}, "micro": {}}
+    built = []
+    real_build = repro.models.build_model
+    def spy(cfg, *a, **k):
+        built.append([cfg.act_shard_axis, list(cfg.act_batch_axes)])
+        return real_build(cfg, *a, **k)
+    repro.models.build_model = spy
     for arch in list_archs():
         cfg = get_config(arch)
         for s in LM_SHAPES:
             for n in (1, 7, 16, 32, 256, 512):
                 out["micro"][f"{arch}|{s.name}|{n}"] = micro_batch_size(cfg, s, n)
             for multi in (False, True):
+                built.clear()
                 fn, args, meta = build_cell(arch, s.name, multi)
                 mesh = meta.pop("_mesh", None)
-                rec = {"meta": meta}
+                rec = {"meta": meta, "axes": built[-1] if built else None}
                 if fn is not None:
                     rec["params"] = [
                         [jax.tree_util.keystr(p),
@@ -212,6 +223,12 @@ def test_meta_and_rank0_slices_equal_the_reference(arch, shape, multi, runs):
     assert meta == want["meta"]
     if cell is None:
         return
+    # The sequence-parallel residual stream as the reference sets it: on
+    # in every fsdp train cell, with the batch dim's data axes.
+    assert [cell.cfg.act_shard_axis, list(cell.cfg.act_batch_axes)] == \
+        want["axes"]
+    if meta["kind"] == "train":
+        assert bool(cell.cfg.act_shard_axis) == (meta["train_mode"] == "fsdp")
     got = [[k, list(s)] for k, s in cell.param_shapes()]
     assert got == want["params"]
 

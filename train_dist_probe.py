@@ -186,8 +186,12 @@ FSDP_SHARDED = [
 # leaf of m_2x2 - m_1card: live where |m_1card| >= LIVE_SIGMAS x sigma; at
 # most 1 % of a leaf's live elements more than two bf16 ulps of its top;
 # every leaf whose sigma is below COVERAGE[0] of its largest |m| keeps at
-# least COVERAGE[1] of its elements live. An MoE pair changes at most
-# ROUTES_CHANGED of step 0's routed choices.
+# least COVERAGE[1] of its elements live; for the embedding (a tied table
+# too) that share is of the rows of the batch's token ids, for the
+# unembedding of the columns of its target ids (:func:`coverage_sets`: the
+# elements one step can give a gradient; the rule was fixed before any run
+# of it). An MoE pair changes at most ROUTES_CHANGED of step 0's routed
+# choices.
 LIVE_FLOOR, LIVE_SIGMAS, COVERAGE = 1e-7, 4.0, (1e-2, 0.5)
 WITNESS_TOL, ROUTER_TOL, ROUTES_CHANGED = 1e-5, 1e-4, 1e-2
 # (f): recurrentgemma-2b at full depth over 4 workers (J = 2, S = 1),
@@ -285,17 +289,32 @@ def launch(name, ranks, argv, cards):
         env=env, cwd=ROOT)
 
 
-def _cell_setup(argv, n_workers, n_model):
-    """(cfg, device, mesh groups, report helper) of an fsdp or zero1 cell:
-    the config at ``argv``'s arch and depth (``--reduced`` for its reduced
-    width), the process group joined (NCCL on the card, gloo with
-    ``--device cpu``), and on more than one rank a ``(D, n_model)`` mesh:
-    its ModelShards (None when n_model is 1) and DataShards."""
+def _cell_cfg(arch, depth, reduced):
+    """An fsdp or zero1 cell's config: ``arch`` at ``depth`` layers (0: the
+    config's), at its reduced width in fp32 with ``reduced``, and the
+    sequence-parallel residual stream set as the dry-run sets it for a
+    train cell (on for the fsdp archs; the identity on one card)."""
     import dataclasses
 
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import train_axes
+
+    cfg = get_config(arch)
+    if reduced:
+        cfg = dataclasses.replace(cfg.reduced(), param_dtype="float32")
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    return train_axes(cfg)
+
+
+def _cell_setup(argv, n_workers, n_model):
+    """(cfg, device, mesh groups, report helper) of an fsdp or zero1 cell:
+    :func:`_cell_cfg` at ``argv``'s arch and depth (``--reduced`` for its
+    reduced width), the process group joined (NCCL on the card, gloo with
+    ``--device cpu``), and on more than one rank a ``(D, n_model)`` mesh:
+    its ModelShards (None when n_model is 1) and DataShards."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import (
         coordinates,
         data_group,
@@ -306,11 +325,7 @@ def _cell_setup(argv, n_workers, n_model):
     from repro_torch.models.parallel import DataShards, ModelShards
 
     arch, depth = argv[0], int(argv[1])
-    cfg = get_config(arch)
-    if "--reduced" in argv:
-        cfg = dataclasses.replace(cfg.reduced(), param_dtype="float32")
-    if depth:
-        cfg = dataclasses.replace(cfg, n_layers=depth)
+    cfg = _cell_cfg(arch, depth, "--reduced" in argv)
     _, device = join_process_group("cpu" if "--device" in argv else None)
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
@@ -418,7 +433,7 @@ def fsdp_cell(argv) -> None:
         out["grad_norms"].append(float(m["grad_norm"]))
         if i == 0 and out_path:
             save_state(out_path, params, opt["m"], cfg, shards, data, rank,
-                       routing)
+                       routing, batch["tokens"])
     _reports(dict(
         out, model_index=0 if shards is None else shards.rank,
         data_index=0 if data is None else data.rank,
@@ -439,11 +454,15 @@ def fsdp_cell(argv) -> None:
         collectives=step.stats["collectives"]), rank, world)
 
 
-def save_state(path, params, m, cfg, shards, data, rank, routing) -> None:
-    """``{"params", "m", "routing"}``: the parameters and first moments
-    gathered whole onto the host (every rank calls this; rank 0 saves them,
-    ``torch.save``), the moments in their parameters' dtype, and rank 0's
-    MoE routing (a list of (2, T, k) tensors)."""
+def save_state(path, params, m, cfg, shards, data, rank, routing,
+               tokens) -> None:
+    """``{"params", "m", "routing", "input_ids", "target_ids"}``: the
+    parameters and first moments gathered whole onto the host (every rank
+    calls this; rank 0 saves them, ``torch.save``), the moments in their
+    parameters' dtype, rank 0's MoE routing (a list of (2, T, k) tensors),
+    and the distinct ids of the step's batch ``tokens`` (every rank passes
+    the whole batch: all microbatches and ranks) as inputs and as next-token
+    targets."""
     from repro_torch.models.parallel import unshard_params
     from repro_torch.models.transformer import tree_leaves, tree_unflatten
 
@@ -452,7 +471,10 @@ def save_state(path, params, m, cfg, shards, data, rank, routing) -> None:
     m = tree_unflatten(m, [t.to(p.dtype) for t, p in zip(
         tree_leaves(m), tree_leaves(whole))])
     if rank == 0:
-        torch.save({"params": whole, "m": m, "routing": routing}, path)
+        tokens = torch.as_tensor(np.asarray(tokens)).long()
+        torch.save({"params": whole, "m": m, "routing": routing,
+                    "input_ids": torch.unique(tokens),
+                    "target_ids": torch.unique(tokens[:, 1:])}, path)
 
 
 def forward_loss(bundle, params, batch, weights) -> float:
@@ -542,6 +564,15 @@ def zero1_cell(argv) -> None:
     _reports(report, rank, world)
 
 
+def coverage_sets(state) -> dict:
+    """The COVERAGE clause's elements of the sparse-gradient leaves of a
+    held pair (:func:`save_state`'s ``state``): the embedding's rows of the
+    batch's input ids (a tied table's too) and the unembedding's columns of
+    its target ids; only those get a gradient in one step."""
+    return {"['embed']": (0, state["input_ids"]),
+            "['unembed']": (1, state["target_ids"])}
+
+
 def pair_held(path, one_path, reduced) -> dict:
     """A held pair's state after step 0 (:func:`save_state`: the sharded
     run's at ``path``, the one-card run's at ``one_path``), compared on the
@@ -571,7 +602,8 @@ def pair_held(path, one_path, reduced) -> dict:
         floor = None
         out = cs.params_held(got["params"], want["params"], 1, cpu,
                              want["m"], got["m"], live_sigmas=LIVE_SIGMAS,
-                             coverage=COVERAGE)
+                             coverage=COVERAGE,
+                             coverage_over=coverage_sets(want))
     for p in (path, one_path):
         os.remove(p)
     pairs = list(zip(got["routing"], want["routing"]))
@@ -598,17 +630,11 @@ DRYRUN_PEAK_TOL, DRYRUN_PEAK_FLOOR = 0.05, 2 ** 30
 def fsdp_prediction(arch, depth, seq, reduced) -> dict:
     """The dry-run of ``fsdp ARCH DEPTH ... SEQ`` at 2 x 2 (rank 0, one
     step): its peak, its data- and model-group bytes, the trace's seconds."""
-    import dataclasses
-
     import chip_smoke as cs
-    from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import trace_fsdp
     from repro_torch.launch.mesh import MeshSpec
 
-    cfg = get_config(arch)
-    if reduced:
-        cfg = dataclasses.replace(cfg.reduced(), param_dtype="float32")
-    cfg = dataclasses.replace(cfg, n_layers=depth)
+    cfg = _cell_cfg(arch, depth, reduced)
     t0 = time.perf_counter()
     res = trace_fsdp(cfg, MeshSpec((2, 2), ("data", "model")),
                      cs.FSDP_MICRO, cs.FSDP_ROWS, seq, cs.FSDP_WEIGHTS)
