@@ -156,11 +156,22 @@ def device_times(fn, iters: int):
             fn()
         torch.cuda.synchronize()
     out = {}
-    for ev in prof.key_averages():
+    for ev in device_rows(prof):
         us = getattr(ev, "self_device_time_total", 0) or 0
-        if us > 0 and str(ev.device_type).endswith("CUDA"):
+        if us > 0:
             out[ev.key] = (float(us), int(ev.count))
     return out
+
+
+def device_rows(prof):
+    """The device entries of ``prof.key_averages()``: kernels, copies and
+    sets. A CPU op's row is left out, since its device time is its kernels'
+    time again, and so is a host range's device-side annotation (the
+    program's spans under a profiler), which spans its kernels and the idle
+    gaps between them."""
+    return [ev for ev in prof.key_averages()
+            if str(ev.device_type).endswith("CUDA")
+            and not getattr(ev, "is_user_annotation", False)]
 
 
 def device_ms(fn, iters: int, tag: str = "", tries: int = 3):
@@ -975,8 +986,7 @@ def _device_busy_ms(prof) -> float:
     """Device time in a CUDA-only profile (kernels and copies), ms."""
     return 1e-3 * sum(
         getattr(ev, "self_device_time_total", 0) or 0
-        for ev in prof.key_averages()
-        if str(ev.device_type).endswith("CUDA"))
+        for ev in device_rows(prof))
 
 
 def phase_serve_path(counters, smi):
@@ -1759,8 +1769,7 @@ def phase_elastic_profile(smi):
     runner = keep["runner"]
     entries = sorted(
         ((float(getattr(e, "self_device_time_total", 0) or 0), e.key,
-          int(e.count)) for e in prof.key_averages()
-         if str(e.device_type).endswith("CUDA")), reverse=True)
+          int(e.count)) for e in device_rows(prof)), reverse=True)
     dev_us = sum(e[0] for e in entries)
     exec_s = sum(r.wall_s for r in res.reports)
     windows = runner.device_dispatches - keep["warm"]   # the profiled run
@@ -1797,12 +1806,9 @@ def phase_profile():
                               N_WORKERS, BASE_SPEEDS, SCRIPT, STEPS,
                               BLOCK_ROWS, profiler=prof).result
         run_s = time.perf_counter() - t0
-        # Device-side entries only (kernels, memcpys, memsets): a CPU op's
-        # device time is its kernels' time again.
         entries = sorted(
             ((float(getattr(e, "self_device_time_total", 0) or 0), e.key,
-              int(e.count)) for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA")), reverse=True)
+              int(e.count)) for e in device_rows(prof)), reverse=True)
         dev_us = sum(e[0] for e in entries)
         exec_s = sum(r.wall_s for r in res.reports)
         emit({"phase": "profile", "placement": "cyclic", "S": 0,

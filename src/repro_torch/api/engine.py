@@ -48,6 +48,7 @@ from repro_torch.runtime.elastic_runner import (
     RunnerConfig,
     _validate_choice,
 )
+from repro_torch.runtime.tracing import span
 
 from .policy import Policy
 from .workload import Workload
@@ -383,7 +384,8 @@ class ElasticEngine:
         else:
             y, rep = runner.step(w, event=event, stragglers=bad)
             reports = [rep]
-        return wl.combine(y), reports
+        with span("workload.update", runner._step):
+            return wl.combine(y), reports
 
     # ------------------------------------------------------------------ #
     # Checkpoint / resume: the FULL resumable device-backend state — the
@@ -583,9 +585,11 @@ class ElasticEngine:
         if self.backend == "device":
             if n_steps is None:
                 raise ValueError("the device backend needs an explicit n_steps")
-            return self._run_device(data, int(n_steps), events,
-                                    straggler_sets, operand,
-                                    kill_scheduler_at, faults)
+            with span("engine.run",
+                      None if self._runner is None else self._runner._step):
+                return self._run_device(data, int(n_steps), events,
+                                        straggler_sets, operand,
+                                        kill_scheduler_at, faults)
         if kill_scheduler_at is not None:
             raise ValueError(
                 "kill_scheduler_at is a device-backend fault injection; "
@@ -843,8 +847,9 @@ class ElasticEngine:
                 # stepwise; consume's operand is discarded — the card
                 # already carried the (bitwise-identical) iterate.
                 for k in range(len(sets)):
-                    last = wl.combine(ys[k])
-                    wl.consume(last, ws[k])
+                    with span("workload.update", base0 + i + k):
+                        last = wl.combine(ys[k])
+                        wl.consume(last, ws[k])
                 i_prev, i = i, i + len(sets)
                 # Window-boundary-aligned periodic snapshot: fire when the
                 # window crossed a checkpoint_every boundary.
@@ -855,20 +860,22 @@ class ElasticEngine:
         else:
             i = 0
             while i < n_steps:
-                drain_demotions(i)
-                ev = filt(ev_for(i))
-                if ev is not None:
-                    runner.apply_event(ev)
-                try:
-                    y, rep = runner.step(
-                        w, stragglers=step_bad_of(i, runner.membership))
-                except FaultAbort as fa:
-                    recover(fa, i, w)
-                    continue
-                settle_recovery(i)
-                reports.append(rep)
-                last = wl.combine(y)
-                w = wl.consume(last, w)
+                with span("engine.step", base0 + i):
+                    drain_demotions(i)
+                    ev = filt(ev_for(i))
+                    if ev is not None:
+                        runner.apply_event(ev)
+                    try:
+                        y, rep = runner.step(
+                            w, stragglers=step_bad_of(i, runner.membership))
+                    except FaultAbort as fa:
+                        recover(fa, i, w)
+                        continue
+                    settle_recovery(i)
+                    reports.append(rep)
+                    with span("workload.update", base0 + i):
+                        last = wl.combine(y)
+                        w = wl.consume(last, w)
                 i += 1
                 if ckpt_every is not None and i % ckpt_every == 0:
                     checkpoint(w, f"periodic @ engine step {i}")

@@ -74,6 +74,8 @@ from repro_torch.core.elastic import ElasticEvent, transition_waste
 from repro_torch.core.placement import LostTileError, Placement
 from repro_torch.core.scheduler import StepPlan
 
+from .tracing import span, traced
+
 __all__ = [
     "ElasticRunner",
     "HostSharedClock",
@@ -659,6 +661,7 @@ class ElasticRunner:
         segmented mode on the card; 0 otherwise)."""
         return 0 if self._fused is None else self._fused.replays
 
+    @traced("runner.event", "_step")
     def apply_event(self, ev: ElasticEvent) -> None:
         """Adopt the event's availability set (validates tile reachability)."""
         avail = tuple(sorted(ev.available))
@@ -769,17 +772,20 @@ class ElasticRunner:
             # own lexicographic settings so every adopted plan is exactly
             # what on-demand planning would have produced. The duplicate
             # ~1ms solve only occurs on genuine-drift steps.)
-            c_new = master.probe_c_star(avail)
+            with span("runner.probe", self._step):
+                c_new = master.probe_c_star(avail)
             self.probe_solves += 1
             old_c = entry.step_plan.solution.time_of(master.plan_speeds)
             if old_c <= (1.0 + self.cfg.speed_tolerance) * c_new + 1e-12:
                 entry.s_plan = s_hat
                 self.cache_hits += 1
                 return entry, True
-        splan = master.plan_step(avail)
-        entry = self._store_entry(avail, splan, s_hat)
+        with span("runner.solve", self._step):
+            splan = master.plan_step(avail)
+            entry = self._store_entry(avail, splan, s_hat)
         return entry, False
 
+    @traced("runner.adopt", "_step")
     def _adopt_plan(self) -> Tuple[_CacheEntry, bool, bool, int]:
         """Plan the current membership and account the transition. Returns
         ``(entry, cache_hit, replanned, waste)``: the ONE definition of
@@ -799,6 +805,7 @@ class ElasticRunner:
         self._current = entry
         return entry, cache_hit, replanned, waste
 
+    @traced("runner.precompile", "_step")
     def _precompile_neighbors(self, avail: Tuple[int, ...]) -> int:
         """Speculatively compile all single-preemption/arrival neighbors of
         ``avail`` in one batched solve+compile, so the next churn event hits
@@ -1609,76 +1616,85 @@ class ElasticRunner:
         silent = set(lost)
         loaded = [n for n in self._membership
                   if entry.block.n_blocks[n] > 0 and n not in silent]
-        w_dev = torch.as_tensor(w).to(self.device)
-        self._sync()
-        t1 = time.perf_counter()
-        parts_d = self._dispatch_workers(entry, loaded, w_dev)
-        wall = time.perf_counter() - t1
+        with span("runner.dispatch", t):
+            w_dev = torch.as_tensor(w).to(self.device)
+            self._sync()
+            t1 = time.perf_counter()
+            parts_d = self._dispatch_workers(entry, loaded, w_dev)
+            wall = time.perf_counter() - t1
         self._drivers_run.add("worker")
         self.device_dispatches += len(parts_d)
         self._last_step_wall = wall
-        parts = [p.cpu().numpy() for p in parts_d]
+        with span("runner.fetch", t):
+            parts = [p.cpu().numpy() for p in parts_d]
 
-        row_loads = entry.block_loads * self.rows_per_tile
-        # The clock still models EVERY loaded worker (the lost one was
-        # assigned its rows and the speed process keeps its cadence);
-        # censoring happens after the draw — the measurement never arrives.
-        durations = self.clock.durations(row_loads, self._membership, wall)
-        for n in silent:
-            durations.pop(n, None)
-        timed = self._timeout_check(
-            t, entry, durations, silent | set(injected or ()))
-        if timed:
-            silent |= set(timed)
-            for n in timed:
+        with span("runner.account", t):
+            row_loads = entry.block_loads * self.rows_per_tile
+            # The clock still models EVERY loaded worker (the lost one was
+            # assigned its rows and the speed process keeps its cadence);
+            # censoring happens after the draw — the measurement never
+            # arrives.
+            durations = self.clock.durations(
+                row_loads, self._membership, wall)
+            for n in silent:
                 durations.pop(n, None)
-        silent, durations = self._integrity_first(
-            t, entry, parts, loaded, w, silent, durations, injected)
-        forced = tuple(sorted(silent))
-        if injected is None:
-            realized = self._derive_realized(durations, forced=forced)
-        else:
-            realized = tuple(sorted(set(injected) | silent))
-        # Host-side feasibility + winner weights: include_mask raises when a
-        # segment lost every holder, exactly like the barrier path.
-        include = refresh_include(entry.block, entry.step_plan.plan, realized)
-        y = self._winner_combine(parts, loaded, entry, include)
+            timed = self._timeout_check(
+                t, entry, durations, silent | set(injected or ()))
+            if timed:
+                silent |= set(timed)
+                for n in timed:
+                    durations.pop(n, None)
+            silent, durations = self._integrity_first(
+                t, entry, parts, loaded, w, silent, durations, injected)
+            forced = tuple(sorted(silent))
+            if injected is None:
+                realized = self._derive_realized(durations, forced=forced)
+            else:
+                realized = tuple(sorted(set(injected) | silent))
+            # Host-side feasibility + winner weights: include_mask raises
+            # when a segment lost every holder, exactly like the barrier
+            # path.
+            include = refresh_include(
+                entry.block, entry.step_plan.plan, realized)
+            with span("runner.gather", t):
+                y = self._winner_combine(parts, loaded, entry, include)
 
-        self._pending_loads = {
-            n: float(entry.block_loads[n]) for n in durations
-        }
-        self._pending_durations = durations
-        if self._take_speed_loss(t):
-            self._pending_loads, self._pending_durations = {}, {}
-        skipped = set(realized)
-        consumed = [d for n, d in durations.items() if n not in skipped]
-        modeled = max(consumed) if consumed else 0.0
+            self._pending_loads = {
+                n: float(entry.block_loads[n]) for n in durations
+            }
+            self._pending_durations = durations
+            if self._take_speed_loss(t):
+                self._pending_loads, self._pending_durations = {}, {}
+            skipped = set(realized)
+            consumed = [d for n, d in durations.items() if n not in skipped]
+            modeled = max(consumed) if consumed else 0.0
 
-        if self.cfg.verify:
-            self._verify(y, w)
+            if self.cfg.verify:
+                self._verify(y, w)
 
-        self._step += 1
-        report = StepReport(
-            step=self._step,
-            available=self._membership,
-            replanned=replanned,
-            plan_cache_hit=cache_hit,
-            replan_s=replan_s,
-            wall_s=wall,
-            modeled_completion=modeled,
-            straggled=realized,
-            waste=waste,
-            jit_cache_size=self.executor_cache_size,
-            measured=durations,
-            speeds_hat=entry.s_plan,
-        )
-        if self.cfg.precompile_neighbors and not cache_hit:
-            t2 = time.perf_counter()
-            self._precompile_neighbors(self._membership)
-            self.precompile_s += time.perf_counter() - t2
-        self._notify_completion([report])
+            self._step += 1
+            report = StepReport(
+                step=self._step,
+                available=self._membership,
+                replanned=replanned,
+                plan_cache_hit=cache_hit,
+                replan_s=replan_s,
+                wall_s=wall,
+                modeled_completion=modeled,
+                straggled=realized,
+                waste=waste,
+                jit_cache_size=self.executor_cache_size,
+                measured=durations,
+                speeds_hat=entry.s_plan,
+            )
+            if self.cfg.precompile_neighbors and not cache_hit:
+                t2 = time.perf_counter()
+                self._precompile_neighbors(self._membership)
+                self.precompile_s += time.perf_counter() - t2
+            self._notify_completion([report])
         return y, report
 
+    @traced("runner.step", "_step")
     def step(
         self,
         w: np.ndarray,
@@ -1748,64 +1764,70 @@ class ElasticRunner:
         y, wall = self._barrier_dispatch(entry, w, bad)
         self._last_step_wall = wall
 
-        row_loads = entry.block_loads * self.rows_per_tile
-        durations = self.clock.durations(row_loads, self._membership, wall)
-        if lost:
-            # A silent worker's duration is censored — its result never
-            # arrived, so there is no measurement to feed the EWMA.
-            durations = {n: d for n, d in durations.items()
-                         if n not in set(lost)}
-        timed = self._timeout_check(t, entry, durations, set(bad))
-        if timed:
-            # Covered timeout: the barrier master gave up on the late
-            # workers and re-collected from the survivors — one recovery
-            # re-dispatch with the refreshed include weights (same bits:
-            # exactly one surviving copy of every segment delivers).
-            bad = tuple(sorted(set(bad) | set(timed)))
-            y, wall_b = self._barrier_dispatch(entry, w, bad)
-            wall += wall_b
-            durations = {n: d for n, d in durations.items()
-                         if n not in set(timed)}
-        # The quarantine's masked re-dispatch is recovery, not the step:
-        # it stays out of wall_s, as in the reference.
-        y, durations, bad = self._integrity_barrier(
-            t, entry, y, w, bad, durations)
-        # The EWMA is fed tile-unit loads (the LP's unit), so estimated
-        # speeds stay consistent with the planner; clocks see row units.
-        self._pending_loads = {
-            n: float(entry.block_loads[n]) for n in durations
-        }
-        self._pending_durations = durations
-        if self._take_speed_loss(t):
-            self._pending_loads, self._pending_durations = {}, {}
-        modeled = max(durations.values()) if durations else 0.0
+        with span("runner.account", t):
+            row_loads = entry.block_loads * self.rows_per_tile
+            durations = self.clock.durations(
+                row_loads, self._membership, wall)
+            if lost:
+                # A silent worker's duration is censored — its result
+                # never arrived, so there is no measurement to feed the
+                # EWMA.
+                durations = {n: d for n, d in durations.items()
+                             if n not in set(lost)}
+            timed = self._timeout_check(t, entry, durations, set(bad))
+            if timed:
+                # Covered timeout: the barrier master gave up on the
+                # late workers and re-collected from the survivors — one
+                # recovery re-dispatch with the refreshed include
+                # weights (same bits: exactly one surviving copy of
+                # every segment delivers).
+                bad = tuple(sorted(set(bad) | set(timed)))
+                y, wall_b = self._barrier_dispatch(entry, w, bad)
+                wall += wall_b
+                durations = {n: d for n, d in durations.items()
+                             if n not in set(timed)}
+            # The quarantine's masked re-dispatch is recovery, not the
+            # step: it stays out of wall_s, as in the reference.
+            y, durations, bad = self._integrity_barrier(
+                t, entry, y, w, bad, durations)
+            # The EWMA is fed tile-unit loads (the LP's unit), so
+            # estimated speeds stay consistent with the planner; clocks
+            # see row units.
+            self._pending_loads = {
+                n: float(entry.block_loads[n]) for n in durations
+            }
+            self._pending_durations = durations
+            if self._take_speed_loss(t):
+                self._pending_loads, self._pending_durations = {}, {}
+            modeled = max(durations.values()) if durations else 0.0
 
-        if self.cfg.verify:
-            self._verify(y, w)
+            if self.cfg.verify:
+                self._verify(y, w)
 
-        self._step += 1
-        report = StepReport(
-            step=self._step,
-            available=self._membership,
-            replanned=replanned,
-            plan_cache_hit=cache_hit,
-            replan_s=replan_s,
-            wall_s=wall,
-            modeled_completion=modeled,
-            straggled=bad,
-            waste=waste,
-            jit_cache_size=self.executor_cache_size,
-            measured=durations,
-            speeds_hat=entry.s_plan,
-        )
-        if self.cfg.precompile_neighbors and not cache_hit:
-            # The step's result is already computed — spend the idle tail
-            # batch-compiling the churn neighborhood of the new membership
-            # so the NEXT membership change is a cache hit.
-            t2 = time.perf_counter()
-            self._precompile_neighbors(self._membership)
-            self.precompile_s += time.perf_counter() - t2
-        self._notify_completion([report])
+            self._step += 1
+            report = StepReport(
+                step=self._step,
+                available=self._membership,
+                replanned=replanned,
+                plan_cache_hit=cache_hit,
+                replan_s=replan_s,
+                wall_s=wall,
+                modeled_completion=modeled,
+                straggled=bad,
+                waste=waste,
+                jit_cache_size=self.executor_cache_size,
+                measured=durations,
+                speeds_hat=entry.s_plan,
+            )
+            if self.cfg.precompile_neighbors and not cache_hit:
+                # The step's result is already computed — spend the idle
+                # tail batch-compiling the churn neighborhood of the new
+                # membership so the NEXT membership change is a cache
+                # hit.
+                t2 = time.perf_counter()
+                self._precompile_neighbors(self._membership)
+                self.precompile_s += time.perf_counter() - t2
+            self._notify_completion([report])
         return y, report
 
     def _barrier_dispatch(self, entry: _CacheEntry, w,
@@ -1818,20 +1840,24 @@ class ElasticRunner:
 
         from .executor import refresh_include
 
-        include_d = None if not bad else torch.as_tensor(
-            refresh_include(entry.block, entry.step_plan.plan, bad),
-            device=self.device)
-        w_dev = torch.as_tensor(w)
-        self._sync()
-        t1 = time.perf_counter()
-        y = self._executor(
-            self._staged_dev, entry.dev, w_dev.to(self.device), include_d)
-        self._sync()
-        wall = time.perf_counter() - t1
+        with span("runner.dispatch", self._step):
+            include_d = None if not bad else torch.as_tensor(
+                refresh_include(entry.block, entry.step_plan.plan, bad),
+                device=self.device)
+            w_dev = torch.as_tensor(w)
+            self._sync()
+            t1 = time.perf_counter()
+            y = self._executor(
+                self._staged_dev, entry.dev, w_dev.to(self.device),
+                include_d)
+            self._sync()
+            wall = time.perf_counter() - t1
         self._drivers_run.add("step")
         self.device_dispatches += 1
-        return y.cpu().numpy(), wall
+        with span("runner.fetch", self._step):
+            return y.cpu().numpy(), wall
 
+    @traced("runner.ingest", "_step")
     def ingest_pending(self) -> None:
         """Fold any pending measured durations into the EWMA (Algorithm 1
         line 4). Idempotent; :meth:`step` does this at its top."""
@@ -1871,12 +1897,14 @@ class ElasticRunner:
         s_hat = master.speeds
         if self._plan_drift(entry, key, s_hat) <= self.cfg.speed_tolerance:
             return True
-        c_new = master.probe_c_star(key)
+        with span("runner.probe", self._step):
+            c_new = master.probe_c_star(key)
         self.probe_solves += 1
         old_c = entry.step_plan.solution.time_of(master.plan_speeds)
         return bool(
             old_c <= (1.0 + self.cfg.speed_tolerance) * c_new + 1e-12)
 
+    @traced("runner.window", "_step")
     def step_window(
         self,
         w,
@@ -2020,28 +2048,32 @@ class ElasticRunner:
         active = np.zeros((K,), dtype=bool)
         active[:n_active] = True
 
-        w_dev = (w if torch.is_tensor(w)
-                 else torch.as_tensor(np.asarray(w)).to(self.device))
-        self._sync()
-        t1 = time.perf_counter()
-        w_carry, ys_d, ws_d = self._fused(
-            self._staged_dev, plans, bad, active, w_dev)
-        self.device_dispatches += 1
-        # Overlap: the dispatch is asynchronous on the card — spend the
-        # device time on the churn neighborhood's speculative compile.
-        pre_s = 0.0
-        if self.cfg.precompile_neighbors and had_miss:
-            t2 = time.perf_counter()
-            self._precompile_neighbors(self._membership)
-            pre_s = time.perf_counter() - t2
-            self.precompile_s += pre_s
-        self._sync()
-        # wall_s means "executor time"; a host-run precompile would bill
-        # planning to the clock, so subtract it (on the card, genuine
-        # overlap makes this an under- rather than over-estimate).
-        wall = max(time.perf_counter() - t1 - pre_s, 1e-9)
-        ys = ys_d.cpu().numpy()[:n_active]
-        ws = ws_d.cpu().numpy()[:n_active]
+        with span("runner.dispatch", base):
+            w_dev = (w if torch.is_tensor(w)
+                     else torch.as_tensor(np.asarray(w)).to(self.device))
+            self._sync()
+            t1 = time.perf_counter()
+            w_carry, ys_d, ws_d = self._fused(
+                self._staged_dev, plans, bad, active, w_dev)
+            self.device_dispatches += 1
+            # Overlap: the dispatch is asynchronous on the card — spend
+            # the device time on the churn neighborhood's speculative
+            # compile.
+            pre_s = 0.0
+            if self.cfg.precompile_neighbors and had_miss:
+                t2 = time.perf_counter()
+                self._precompile_neighbors(self._membership)
+                pre_s = time.perf_counter() - t2
+                self.precompile_s += pre_s
+            self._sync()
+            # wall_s means "executor time"; a host-run precompile would
+            # bill planning to the clock, so subtract it (on the card,
+            # genuine overlap makes this an under- rather than
+            # over-estimate).
+            wall = max(time.perf_counter() - t1 - pre_s, 1e-9)
+        with span("runner.fetch", base):
+            ys = ys_d.cpu().numpy()[:n_active]
+            ws = ws_d.cpu().numpy()[:n_active]
         if self._integrity is not None or self.fault_injector is not None:
             # The integrity seam injects / repairs rows in place; on the
             # host the fetched array is a view of the window's output, so

@@ -30,7 +30,9 @@ class Request:
     ``retries`` counts fault-aborted dispatches this request survived
     (each one requeued it at the front); ``not_before`` is the absolute
     server-clock time before which the scheduler must not re-dispatch it
-    (the exponential-backoff gate, None = immediately eligible)."""
+    (the exponential-backoff gate, None = immediately eligible).
+    ``t_queued_ns`` is the enqueue on the span recorder's clock
+    (:func:`repro_torch.runtime.tracing.stamp`; None while none records)."""
 
     rid: int
     kind: str
@@ -42,6 +44,7 @@ class Request:
     t_complete: Optional[float] = None
     retries: int = 0
     not_before: Optional[float] = None
+    t_queued_ns: Optional[int] = None
 
 
 @dataclass

@@ -57,6 +57,7 @@ from repro_torch.api import ElasticEngine, EngineConfig, MatMat, Policy
 from repro_torch.core.elastic import ElasticEvent
 from repro_torch.core.placement import LostTileError, Placement
 from repro_torch.faults import FaultAbort
+from repro_torch.runtime import tracing
 
 from .batcher import Batch, Coalescer
 from .metrics import ServerMetrics
@@ -274,6 +275,7 @@ class ElasticServer:
     # ------------------------------------------------------------------ #
     # Admission
     # ------------------------------------------------------------------ #
+    @tracing.traced("serve.submit", "_next_rid")
     def submit(self, kind: str, operand: Any = None,
                deadline: Optional[float] = None) -> Ticket:
         """Admit one query. ``deadline`` is clock units from NOW (falls
@@ -295,6 +297,7 @@ class ElasticServer:
         req = Request(
             rid=rid, kind=kind, operand=operand, cols=cols, t_enqueue=now,
             deadline=None if rel is None else now + float(rel),
+            t_queued_ns=tracing.stamp(),
         )
         self._queue.append(req)
         self.metrics.on_enqueue(now, depth=len(self._queue))
@@ -390,6 +393,7 @@ class ElasticServer:
     # ------------------------------------------------------------------ #
     # Scheduling
     # ------------------------------------------------------------------ #
+    @tracing.traced("serve.poll")
     def poll(self) -> List[Response]:
         """One scheduler iteration: expire overdue queued requests, then
         dispatch at most ONE coalesced window. Returns the responses it
@@ -422,7 +426,8 @@ class ElasticServer:
             if not (self.cfg.degraded == "shed" and self._maybe_shed()):
                 self.metrics.on_stall()
                 return out
-        batch = self._coalescer.pack(self._queue)
+        with tracing.span("serve.pack"):
+            batch = self._coalescer.pack(self._queue)
         out.extend(self._dispatch(batch))
         return out
 
@@ -450,7 +455,9 @@ class ElasticServer:
         for req in batch.requests:
             req.t_dispatch = t_dispatch
         try:
-            result, reports = engine.submit(batch.operand, event=ev)
+            with tracing.span("serve.dispatch", batch.batch_id):
+                t_sent_ns = tracing.stamp()
+                result, reports = engine.submit(batch.operand, event=ev)
         except FaultAbort as fa:
             return self._on_fault(batch, fa, t_dispatch)
         self._drain_demotions(engine)
@@ -463,34 +470,42 @@ class ElasticServer:
             self.metrics.on_integrity_check(ok)
             if not ok:
                 return self._on_integrity_failure(batch, t_dispatch)
-        modeled = self.cfg.latency_scale * float(
-            sum(r.modeled_completion for r in reports))
-        if hasattr(self.clock, "advance"):
-            self.clock.advance(modeled)
-        t_complete = self.clock.now()
-        self._last_window_latency = max(t_complete - t_dispatch, modeled)
-        self.metrics.on_batch(len(batch.requests), batch.cols_used)
+        with tracing.span("serve.respond", batch.batch_id):
+            if t_sent_ns is not None:
+                # Each answered request's wait, from its enqueue to the
+                # dispatch that answers it (a requeued one waits on).
+                for req in batch.requests:
+                    tracing.record_async("serve.queued", req.rid,
+                                         req.t_queued_ns, t_sent_ns)
+            modeled = self.cfg.latency_scale * float(
+                sum(r.modeled_completion for r in reports))
+            if hasattr(self.clock, "advance"):
+                self.clock.advance(modeled)
+            t_complete = self.clock.now()
+            self._last_window_latency = max(t_complete - t_dispatch, modeled)
+            self.metrics.on_batch(len(batch.requests), batch.cols_used)
 
-        out: List[Response] = []
-        for i, req in enumerate(batch.requests):
-            req.t_complete = t_complete
-            if batch.kind == "linear":
-                a, b = batch.col_spans[i]
-                res = np.asarray(result)[:, a:b]
-                if req.kind == "matvec":
-                    res = res[:, 0]
-            else:
-                res = result
-            missed = req.deadline is not None and t_complete > req.deadline
-            self.metrics.on_complete(
-                t_complete - req.t_enqueue, t_complete, missed)
-            out.append(Response(
-                rid=req.rid, kind=req.kind, status="ok", result=res,
-                deadline_missed=missed, batch_id=batch.batch_id,
-                t_enqueue=req.t_enqueue, t_dispatch=req.t_dispatch,
-                t_complete=t_complete,
-            ))
-        return out
+            out: List[Response] = []
+            for i, req in enumerate(batch.requests):
+                req.t_complete = t_complete
+                if batch.kind == "linear":
+                    a, b = batch.col_spans[i]
+                    res = np.asarray(result)[:, a:b]
+                    if req.kind == "matvec":
+                        res = res[:, 0]
+                else:
+                    res = result
+                missed = (req.deadline is not None
+                          and t_complete > req.deadline)
+                self.metrics.on_complete(
+                    t_complete - req.t_enqueue, t_complete, missed)
+                out.append(Response(
+                    rid=req.rid, kind=req.kind, status="ok", result=res,
+                    deadline_missed=missed, batch_id=batch.batch_id,
+                    t_enqueue=req.t_enqueue, t_dispatch=req.t_dispatch,
+                    t_complete=t_complete,
+                ))
+            return out
 
     # ------------------------------------------------------------------ #
     # Unannounced-failure recovery
