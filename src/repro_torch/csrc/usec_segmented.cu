@@ -7,20 +7,39 @@
 // Replaces the TPU kernel repro.kernels.usec_segmented.usec_segmented_padded /
 // _segmented_kernel, which ran one worker's list per pallas_call with the
 // (slot, offset) indices scalar-prefetched and the K loop as a grid axis.
-// Here the grid is (N * B_max, row groups, column tiles): each CTA loads its
-// own slot, offset and the worker's trip count, and each warp reduces one
-// block row over K in registers (warp_dot.cuh). A padding block
-// (i >= n_blocks[n]) reads nothing and writes zeros: the zero-trip rule of
-// the reference's lax.cond. The include weight is applied in the epilogue,
-// after the product, the reference's op order. The ragged K tail is handled
-// in the kernel, so the staged buffer is never padded or copied.
+// Every CTA loads its own slots, offsets and the worker's trip count. A
+// padding block (i >= n_blocks[n]) reads nothing and writes zeros: the
+// zero-trip rule of the reference's lax.cond. A plan index outside the staged
+// buffer reads nothing and writes NaN, which the runner's verify reports. The
+// include weight is applied in the epilogue, after the product, the
+// reference's op order. The ragged K tail is handled in the kernel, so the
+// staged buffer is never padded or copied. Two routes, chosen by the wrapper
+// from C (kernels/usec_segmented.py::segmented_route):
 //
-// Bound: memory. The least time is the bytes of the real blocks' rows (plus
-// W, the plan arrays and the output) over 3.35 TB/s; at the paper's Sec. V
-// size with S = 0 that is all of X, 144 MB, about 43 us a step.
+// - C == 1, segmented_kernel<1>: the grid is (N * B_max, row groups of 8) and
+//   each warp reduces one block row over K in registers (warp_dot.cuh). Bound:
+//   memory, the real blocks' rows once at 3.35 TB/s: all of X (5.18 GB, about
+//   1.55 ms) at the benchmark's 36000^2 with S = 0.
+//
+// - C > 1, segmented_kernel_tiled: a CTA owns 48 consecutive output rows of
+//   one worker (any number of plan blocks, each row gathered through its own
+//   block's slot and offset) against 32 columns of W. K goes through in
+//   64-wide chunks, a ring of 3 shared-memory stages filled by cp.async, so
+//   each X row is read from HBM once per call and each W chunk once per 48
+//   rows (the warp route re-read W from L1/L2 for every row: 166 GB a call at
+//   36000^2 and C = 32). The CTA's 4 warps split each chunk's K four ways;
+//   each thread keeps a 6-row x 8-column outer-product tile in registers
+//   (14 shared loads of 16 bytes per 192 FFMAs), and the four partial tiles
+//   are summed in a fixed order in the epilogue: no atomics, the same bits
+//   every run. Bound at 36000^2 and C = 32: X's bytes (5.18 GB, 1.55 ms) over
+//   its 82.9 GFLOP of FFMA (1.24 ms at 67 TFLOP/s), so the FFMA issue rate
+//   matters about as much as the loads. CTAs whose rows are all padding
+//   write zeros and leave. The grid is not persistent: the hardware hands a
+//   freed SM the next tile, and at 48 rows the 36000 rows make ~750 tiles,
+//   5.7 per SM, so the last wave is short (64-row tiles, 4.3 per SM, ran
+//   0.5 ms slower; 32-row tiles cost more shared-memory traffic per FFMA).
 #include "warp_dot.cuh"
 
-using usec::kColTile;
 using usec::kRowsPerCta;
 using usec::kThreads;
 using usec::kWarp;
@@ -71,16 +90,328 @@ __global__ void __launch_bounds__(kThreads) segmented_kernel(
   }
 }
 
+namespace {
+
+constexpr int kTileRows = 48;                  // output rows a CTA owns
+constexpr int kTileCols = 32;                  // columns of W a CTA owns
+constexpr int kChunk = 64;                     // K per pipeline stage
+constexpr int kStages = 3;                     // cp.async ring depth
+constexpr int kTiledThreads = 128;             // 4 warps split each chunk
+constexpr int kTiledWarps = kTiledThreads / kWarp;
+constexpr int kWarpK = kChunk / kTiledWarps;   // a warp's K of a chunk
+constexpr int kRowsPerThread = kTileRows / 8;  // 8 row groups a warp
+constexpr int kXStride = kChunk + 4;           // padded: conflict-free reads
+constexpr int kRedStride = kTileCols + 4;
+constexpr int kStageFloats = kTileRows * kXStride + kChunk * kTileCols;
+constexpr int kXCopies = kTileRows * kChunk / 4 / kTiledThreads;
+constexpr int kWCopies = kChunk * kTileCols / 4 / kTiledThreads;
+constexpr int kKindCompute = 0, kKindZero = 1, kKindNan = 2;
+constexpr size_t kTiledSmem =
+    sizeof(float) * kStages * kStageFloats +
+    kTileRows * (sizeof(const float*) + sizeof(float) + sizeof(int));
+static_assert(kTiledWarps * kTileRows * kRedStride <= kStages * kStageFloats,
+              "the epilogue's partial tiles reuse the stages");
+static_assert(kWarpK % 4 == 0 && kTileRows % 8 == 0, "thread tile shape");
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int bytes, int size) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (size == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// Where thread t's 16-byte copies of a chunk land: X row (t / 16) + 8 * i,
+// W row (t / 8) + 16 * i, each at column 4 * (t % 16) or 4 * (t % 8).
+__device__ __forceinline__ int x_row(int i) {
+  return (threadIdx.x >> 4) + (kTiledThreads / 16) * i;
+}
+__device__ __forceinline__ int w_row(int i) {
+  return (threadIdx.x >> 3) + (kTiledThreads / 8) * i;
+}
+
+// Any K chunk of the CTA's rows (of W's columns) into a stage, one fp32 a
+// copy, with zeros past K, past C and in rows that compute nothing: the K
+// tail, and rows or W whose stride is not a multiple of 4 floats. Full
+// chunks of 16-byte aligned rows take the kernel's four-fp32 copies.
+__device__ __forceinline__ void load_x_each(float* xs,
+                                            const float* const* rows,
+                                            const int* kind, int k, int k0) {
+#pragma unroll 4
+  for (int e = threadIdx.x; e < kTileRows * kChunk; e += kTiledThreads) {
+    const int r = e / kChunk, q = e % kChunk;
+    const bool on = kind[r] == kKindCompute && k0 + q < k;
+    cp_async(xs + r * kXStride + q, on ? rows[r] + k0 + q : rows[r],
+             on ? 4 : 0, 4);
+  }
+}
+
+__device__ __forceinline__ void load_w_each(float* ws,
+                                            const float* __restrict__ w,
+                                            int ldw, int k, int c, int c0,
+                                            int k0) {
+#pragma unroll 4
+  for (int e = threadIdx.x; e < kChunk * kTileCols; e += kTiledThreads) {
+    const int kk = e / kTileCols, q = e % kTileCols;
+    const bool on = k0 + kk < k && c0 + q < c;
+    cp_async(ws + kk * kTileCols + q,
+             on ? w + (size_t)(k0 + kk) * ldw + c0 + q : w, on ? 4 : 0, 4);
+  }
+}
+
+}  // namespace
+
+// At global scope, so that a profiler names it segmented_kernel_tiled<...>:
+// h100bench's roofline share sums trace time by the prefix segmented_kernel.
+template <bool kVecX, bool kVecW>
+__global__ void __launch_bounds__(kTiledThreads, 3) segmented_kernel_tiled(
+    const float* __restrict__ staged, int worker_stride, int slot_stride,
+    int ldx, int t_slots, int rows_per_tile, const int* __restrict__ slot,
+    const int* __restrict__ off, const int* __restrict__ n_blocks,
+    const float* __restrict__ include, const float* __restrict__ w, int ldw,
+    float* __restrict__ out, int b_max, int block_rows, int k, int c,
+    int tiles_per_worker) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const float** s_row =
+      reinterpret_cast<const float**>(smem + kStages * kStageFloats);
+  float* s_gain = reinterpret_cast<float*>(s_row + kTileRows);
+  int* s_kind = reinterpret_cast<int*>(s_gain + kTileRows);
+
+  const int n = blockIdx.x / tiles_per_worker;
+  const int f0 = (blockIdx.x - n * tiles_per_worker) * kTileRows;
+  const int c0 = blockIdx.y * kTileCols;
+  const int rows_out = b_max * block_rows;  // a worker's flat output rows
+  const int real_rows = max(min(n_blocks[n], b_max), 0) * block_rows;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x & (kWarp - 1);
+  float* o = out + (size_t)n * rows_out * c;
+  const bool col_in = c0 + lane < c;
+
+  if (f0 >= real_rows) {  // padding only: zeros, no reads
+    for (int r = warp; r < kTileRows; r += kTiledWarps) {
+      if (f0 + r < rows_out && col_in) {
+        o[(size_t)(f0 + r) * c + c0 + lane] = 0.f;
+      }
+    }
+    return;
+  }
+
+  if (threadIdx.x < kTileRows) {
+    const int f = f0 + threadIdx.x;
+    int kind = kKindZero;
+    float g = 0.f;
+    const float* p = staged;  // a valid address for the zero-filled copies
+    if (f < real_rows) {
+      const int i = f / block_rows;
+      const int blk = n * b_max + i;
+      const int s = slot[blk];
+      const int start = off[blk];
+      if (s < 0 || s >= t_slots || start < 0 ||
+          start + block_rows > rows_per_tile) {
+        kind = kKindNan;
+      } else {
+        kind = kKindCompute;
+        g = include[blk];
+        p = staged + (size_t)n * worker_stride + (size_t)s * slot_stride +
+            (size_t)(start + f - i * block_rows) * ldx;
+      }
+    }
+    s_row[threadIdx.x] = p;
+    s_gain[threadIdx.x] = g;
+    s_kind[threadIdx.x] = kind;
+  }
+  const bool any = __syncthreads_or(threadIdx.x < kTileRows &&
+                                    s_kind[threadIdx.x] == kKindCompute);
+
+  // A full chunk's 16-byte copies, the same for the whole K loop: each
+  // thread's source rows and sizes (0 for a row that computes nothing or a
+  // column past C), so a chunk costs one add per copy. kVecX (kVecW): every
+  // row (W) is 16-byte aligned.
+  const float* xsrc[kXCopies] = {};
+  int xbytes[kXCopies] = {};
+  const float* wsrc[kWCopies] = {};
+  int wbytes = 0;
+  if (kVecX) {
+    const int qx = (threadIdx.x & 15) * 4;
+#pragma unroll
+    for (int i = 0; i < kXCopies; ++i) {
+      const bool on = s_kind[x_row(i)] == kKindCompute;
+      xsrc[i] = on ? s_row[x_row(i)] + qx : staged;
+      xbytes[i] = on ? 16 : 0;
+    }
+  }
+  if (kVecW) {
+    const int qw = (threadIdx.x & 7) * 4;
+    wbytes = 4 * min(max(c - c0 - qw, 0), 4);
+#pragma unroll
+    for (int i = 0; i < kWCopies; ++i) {
+      wsrc[i] = w + (size_t)w_row(i) * ldw + (wbytes > 0 ? c0 + qw : 0);
+    }
+  }
+
+  // Thread tile: rows rg + 8 * j, columns 4 * cg + 16 * h + e; warp `warp`
+  // takes K offsets kWarpK * warp .. kWarpK * (warp + 1) - 1 of each chunk.
+  const int rg = lane & 7;
+  const int cg = lane >> 3;
+  float acc[kRowsPerThread][8];
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[j][e] = 0.f;
+  }
+  const int chunks = any ? (k + kChunk - 1) / kChunk : 0;
+  auto issue = [&](int nx) {  // start loading chunk nx, if there is one
+    if (nx < chunks) {
+      float* xs = smem + (nx % kStages) * kStageFloats;
+      float* ws = xs + kTileRows * kXStride;
+      const int k0 = nx * kChunk;
+      const bool full = k0 + kChunk <= k;
+      if (kVecX && full) {
+#pragma unroll
+        for (int i = 0; i < kXCopies; ++i) {
+          cp_async(xs + x_row(i) * kXStride + (threadIdx.x & 15) * 4,
+                   xsrc[i] + k0, xbytes[i], 16);
+        }
+      } else {
+        load_x_each(xs, s_row, s_kind, k, k0);
+      }
+      if (kVecW && full) {
+        const size_t wk = (size_t)k0 * ldw;
+#pragma unroll
+        for (int i = 0; i < kWCopies; ++i) {
+          cp_async(ws + w_row(i) * kTileCols + (threadIdx.x & 7) * 4,
+                   wsrc[i] + wk, wbytes, 16);
+        }
+      } else {
+        load_w_each(ws, w, ldw, k, c, c0, k0);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  for (int kc = 0; kc < chunks; ++kc) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk kc landed; every warp is done with kc - 1
+    issue(kc + kStages - 1);
+    const float* xs = smem + (kc % kStages) * kStageFloats;
+    const float* ws = xs + kTileRows * kXStride;
+#pragma unroll
+    for (int h = 0; h < kWarpK / 4; ++h) {
+      const int kk = kWarpK * warp + 4 * h;
+      float4 xa[kRowsPerThread];
+#pragma unroll
+      for (int j = 0; j < kRowsPerThread; ++j) {
+        xa[j] = *reinterpret_cast<const float4*>(xs + (rg + 8 * j) * kXStride +
+                                                 kk);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 wa = *reinterpret_cast<const float4*>(
+            ws + (kk + e) * kTileCols + 4 * cg);
+        const float4 wb = *reinterpret_cast<const float4*>(
+            ws + (kk + e) * kTileCols + 16 + 4 * cg);
+#pragma unroll
+        for (int j = 0; j < kRowsPerThread; ++j) {
+          const float x = lane_of(xa[j], e);
+          acc[j][0] = fmaf(x, wa.x, acc[j][0]);
+          acc[j][1] = fmaf(x, wa.y, acc[j][1]);
+          acc[j][2] = fmaf(x, wa.z, acc[j][2]);
+          acc[j][3] = fmaf(x, wa.w, acc[j][3]);
+          acc[j][4] = fmaf(x, wb.x, acc[j][4]);
+          acc[j][5] = fmaf(x, wb.y, acc[j][5]);
+          acc[j][6] = fmaf(x, wb.z, acc[j][6]);
+          acc[j][7] = fmaf(x, wb.w, acc[j][7]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the stages are free: they hold the partial tiles now
+
+  float* red = smem + warp * kTileRows * kRedStride;
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float4*>(red + (rg + 8 * j) * kRedStride + 16 * h +
+                                 4 * cg) =
+          make_float4(acc[j][4 * h], acc[j][4 * h + 1], acc[j][4 * h + 2],
+                      acc[j][4 * h + 3]);
+    }
+  }
+  __syncthreads();
+  for (int r = warp; r < kTileRows; r += kTiledWarps) {
+    if (f0 + r >= rows_out || !col_in) continue;
+    const float* p = smem + r * kRedStride + lane;
+    float v = p[0];
+#pragma unroll
+    for (int q = 1; q < kTiledWarps; ++q) v += p[q * kTileRows * kRedStride];
+    const int kind = s_kind[r];
+    o[(size_t)(f0 + r) * c + c0 + lane] =
+        kind == kKindCompute ? v * s_gain[r]
+        : kind == kKindZero  ? 0.f
+                             : __int_as_float(0x7fc00000);
+  }
+}
+
+namespace {
+
+template <bool kVecX, bool kVecW>
+int launch_tiled(const float* sp, int worker_stride, int slot_stride, int ldx,
+                 int t_slots, int rows_per_tile, const int* slp,
+                 const int* ofp, const int* nbp, const float* inp,
+                 const float* wp, int ldw, float* op, int n_workers, int b_max,
+                 int block_rows, int k, int c, cudaStream_t s) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      segmented_kernel_tiled<kVecX, kVecW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kTiledSmem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles =
+      (int)(((long long)b_max * block_rows + kTileRows - 1) / kTileRows);
+  const dim3 grid((unsigned)n_workers * (unsigned)tiles,
+                  (unsigned)((c + kTileCols - 1) / kTileCols));
+  segmented_kernel_tiled<kVecX, kVecW>
+      <<<grid, kTiledThreads, kTiledSmem, s>>>(
+          sp, worker_stride, slot_stride, ldx, t_slots, rows_per_tile, slp,
+          ofp, nbp, inp, wp, ldw, op, b_max, block_rows, k, c, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+}  // namespace
+
 extern "C" int usec_segmented_f32(
     const void* staged, int worker_stride, int slot_stride, int ldx,
     int t_slots, int rows_per_tile, const void* slot, const void* off,
     const void* n_blocks, const void* include, const void* w, int ldw,
     void* out, int n_workers, int b_max, int block_rows, int k, int c,
-    void* stream) {
+    int tiled, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = (unsigned)n_workers * (unsigned)b_max;
-  const unsigned row_groups =
-      (unsigned)((block_rows + kRowsPerCta - 1) / kRowsPerCta);
   const float* sp = static_cast<const float*>(staged);
   const int* slp = static_cast<const int*>(slot);
   const int* ofp = static_cast<const int*>(off);
@@ -88,16 +419,24 @@ extern "C" int usec_segmented_f32(
   const float* inp = static_cast<const float*>(include);
   const float* wp = static_cast<const float*>(w);
   float* op = static_cast<float*>(out);
-  if (c == 1) {
-    segmented_kernel<1><<<dim3(blocks, row_groups, 1), kThreads, 0, s>>>(
-        sp, worker_stride, slot_stride, ldx, t_slots, rows_per_tile, slp, ofp,
-        nbp, inp, wp, ldw, op, b_max, block_rows, k, c);
-  } else {
-    const unsigned col_tiles = (unsigned)((c + kColTile - 1) / kColTile);
-    segmented_kernel<kColTile>
-        <<<dim3(blocks, row_groups, col_tiles), kThreads, 0, s>>>(
-            sp, worker_stride, slot_stride, ldx, t_slots, rows_per_tile, slp,
-            ofp, nbp, inp, wp, ldw, op, b_max, block_rows, k, c);
+  if (tiled) {
+    const bool vx = aligned16(sp) && worker_stride % 4 == 0 &&
+                    slot_stride % 4 == 0 && ldx % 4 == 0;
+    const bool vw = aligned16(wp) && ldw % 4 == 0;
+    const auto launch = vx ? (vw ? launch_tiled<true, true>
+                                 : launch_tiled<true, false>)
+                           : (vw ? launch_tiled<false, true>
+                                 : launch_tiled<false, false>);
+    return launch(sp, worker_stride, slot_stride, ldx, t_slots, rows_per_tile,
+                  slp, ofp, nbp, inp, wp, ldw, op, n_workers, b_max,
+                  block_rows, k, c, s);
   }
+  if (c != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = (unsigned)n_workers * (unsigned)b_max;
+  const unsigned row_groups =
+      (unsigned)((block_rows + kRowsPerCta - 1) / kRowsPerCta);
+  segmented_kernel<1><<<dim3(blocks, row_groups, 1), kThreads, 0, s>>>(
+      sp, worker_stride, slot_stride, ldx, t_slots, rows_per_tile, slp, ofp,
+      nbp, inp, wp, ldw, op, b_max, block_rows, k, c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,7 +28,6 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.ref import matvec_ref  # noqa: E402
 from repro_torch.kernels.usec_matvec import usec_matvec_cuda  # noqa: E402
 from repro_torch.kernels.usec_segmented import (  # noqa: E402
-    segmented_plain,
     usec_segmented_cuda,
 )
 
@@ -370,27 +369,6 @@ def test_usec_matvec_kernel_vs_plain_on_card(cuda_device, m, k, c):
     ref = matvec_ref(xn, wn)
     err = (ops.usec_matvec(xn, wn) - ref).abs().max() / ref.abs().max()
     assert float(err) <= 1e-5
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("k,c", [(6000, 1), (517, 3), (640, 128)])
-def test_usec_segmented_kernel_vs_plain_on_card(cuda_device, k, c):
-    rng = np.random.default_rng(k + c)
-    n, t, rpt, b, br = 6, 3, 60, 6, 20
-    dev = cuda_device
-    staged = torch.as_tensor(rng.integers(-3, 4, size=(n, t, rpt, k))
-                             .astype(np.float32), device=dev)
-    w = torch.as_tensor((rng.integers(-8, 9, size=(k, c)) / 16.0)
-                        .astype(np.float32), device=dev)
-    slot = torch.as_tensor(rng.integers(0, t, size=(n, b)),
-                           dtype=torch.int32, device=dev)
-    off = torch.as_tensor(rng.integers(0, rpt // br, size=(n, b)) * br,
-                          dtype=torch.int32, device=dev)
-    inc = torch.as_tensor(rng.integers(0, 2, size=(n, b)),
-                          dtype=torch.float32, device=dev)
-    nb = torch.as_tensor([6, 0, 2, 5, 1, 6], dtype=torch.int32, device=dev)
-    args = (staged, slot, off, inc, nb, w, br)
-    assert torch.equal(usec_segmented_cuda(*args), segmented_plain(*args))
 
 
 @pytest.mark.cuda
