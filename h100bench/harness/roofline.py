@@ -1,8 +1,10 @@
 """Peaks of one H100 and the least time each measured piece of work needs.
 
 Peaks are NVIDIA's data sheet for the H100 SXM (dense, at the 700 W
-limit): HBM3 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s. The
-port's kernels compute in float32 FFMA, so that is their compute peak.
+limit): HBM3 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s,
+bfloat16 on the tensor cores 989 TFLOP/s. The port's §V kernels compute
+in float32 FFMA, so that is their compute peak; a model's matmuls and
+flash attention run in bfloat16 on the tensor cores.
 (``bound_ms`` is a copy of the repository's smoke test's arithmetic.)
 
 Work is counted from the configuration, never from the program: each input
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 F32 = 4
 
 

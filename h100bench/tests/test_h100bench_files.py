@@ -7,7 +7,7 @@ from pathlib import Path
 
 import pytest
 
-from h100bench.harness import bench
+from h100bench.harness import bench, configs
 
 B = bench.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -16,18 +16,44 @@ CELLS = [w["name"] for w in B["workloads"]]
 METRICS = B["end_to_end"] + B["per_layer"]
 
 
-def test_top_level_keys():
-    assert set(B) == {"command", "paths", "run_seconds", "configs",
+def top_level_ok(b):
+    assert set(b) == {"command", "paths", "run_seconds", "configs",
                       "workloads", "end_to_end", "per_layer"}
-    assert B["paths"] == ["h100bench"]
-    assert 1 <= B["run_seconds"] <= 51
-    assert len(json.dumps(B)) < 64 * 1024
+    assert b["paths"] == ["h100bench"]
+    assert 1 <= b["run_seconds"] <= 51
+    assert len(json.dumps(b)) < 64 * 1024
+
+
+def four_chip_cells_ok(b):
+    """At most a quarter of the cells, rounded down, ask for four cards,
+    or one."""
+    fours = [w["name"] for w in b["workloads"] if w["chips"] == 4]
+    assert len(fours) <= max(1, len(b["workloads"]) // 4), fours
+
+
+def config_entry_ok(cfg, root=bench.ROOT):
+    """A ``configs`` entry of BENCHMARK.json and its file."""
+    assert set(cfg) == {"name", "source", "file", "reduced", "why"}
+    data = json.loads((root / cfg["file"]).read_text())
+    assert data["name"] == cfg["name"]
+    for key in cfg["reduced"]:
+        assert NAME.match(key) and not key.endswith(("_dim", "_rank"))
+        assert key in data["reduced"]
+    configs.check(data)
+
+
+def test_top_level_keys():
+    top_level_ok(B)
+
+
+def test_four_chip_cells_within_a_quarter():
+    four_chip_cells_ok(B)
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_loads(name):
     c = bench.cell(name, B)
-    assert c.chips == 1
+    assert c.chips in (1, 4)
     assert c.cfg["name"] == c.entry["config"]
     assert NAME.match(name) and NAME.match(c.entry["traffic"])
     assert len(c.entry["why"]) <= 200
@@ -39,15 +65,7 @@ def test_cell_loads(name):
 
 @pytest.mark.parametrize("cfg", B["configs"], ids=lambda c: c["name"])
 def test_config_file(cfg):
-    assert set(cfg) == {"name", "source", "file", "reduced", "why"}
-    data = json.loads((bench.ROOT / cfg["file"]).read_text())
-    assert data["name"] == cfg["name"]
-    for key in cfg["reduced"]:
-        assert NAME.match(key) and not key.endswith(("_dim", "_rank"))
-        assert key in data["reduced"]
-    # The tiles divide into whole executor blocks.
-    g = data["n_tiles"]
-    assert data["matrix_size"] % (g * data["block_rows"]) == 0
+    config_entry_ok(cfg)
 
 
 @pytest.mark.parametrize("m", METRICS, ids=lambda m: m["name"])
